@@ -1,0 +1,55 @@
+"""Launch wrappers of the CUDA flash-attention kernels.
+
+``csrc/flash_attention.cu`` replaces the Pallas kernel
+``repro.kernels.flash_attention.flash_attention.flash_attention`` (prefill)
+and ``csrc/flash_decode.cu`` replaces ``flash_decode`` (one-token decode);
+each source says what bounds it on an H100 and what its design does about
+it.  These wrappers take CUDA tensors that ``ops`` has validated, launch on
+PyTorch's current stream, raise on any launch error, and count their
+launches in ``LAUNCHES`` so a run can show it went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import library
+
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B, S, H, hd]; k, v [B, S, KV, hd] on the card -> [B, S, H, hd]."""
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    rc = library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+        k.shape[2], hd, int(causal), int(window), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return o
+
+
+def flash_decode(q, ck, cv, pos, *, window: int = 0):
+    """q [B, 1, H, hd]; ck, cv [B, L, KV, hd]; pos int32 [B], all on the
+    card -> [B, 1, H, hd]."""
+    B, _, H, hd = q.shape
+    o = torch.empty_like(q)
+    rc = library().repro_flash_decode(
+        q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
+        o.data_ptr(), B, ck.shape[1], H, ck.shape[2], hd, int(window),
+        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return o

@@ -1,0 +1,112 @@
+"""Serving launcher of the port: the continuous-batching engine on one
+device, driven by an open-loop arrival trace.
+
+  # full-width TinyLlama-1.1B in bf16 on the GPU (seeded random weights)
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --requests 16 --prompt-len 512 --max-new 64 --slots 8 --pages 16
+
+  # reduced config on the CPU (plain PyTorch path)
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --dtype f32 --requests 8 --rate 0.5 --pages 4
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve.autoscale import poisson_trace
+from repro_torch.serve.batcher import POLICIES
+from repro_torch.serve.engine import ServeConfig, ServeEngine, resolve_device
+from repro_torch.serve.request import Request, SamplingParams
+
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (default: full width)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="max concurrent batch slots")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop Poisson arrival rate (req per engine "
+                         "iteration); 0 = all requests arrive at t=0")
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="cache capacity (0 = prompt+max_new)")
+    ap.add_argument("--policy", choices=POLICIES, default="continuous")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="KV page size (0 = contiguous per-slot cache)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page-pool cap (0 = size for all slots full)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window override (sub-quadratic decode)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="<= 0 is greedy argmax")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
+                    help="weights, activations and KV cache")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    dtype = DTYPES[args.dtype]
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    params = model.init(seed=args.seed, dtype=dtype, device=device)
+
+    max_len = args.max_len or (args.prompt_len + args.max_new)
+    horizon = max(1.0, args.requests / args.rate) if args.rate > 0 else 1.0
+    arrivals = ([0.0] + poisson_trace(args.rate, horizon, seed=args.seed,
+                                      max_requests=args.requests - 1)
+                if args.rate > 0 else [0.0] * args.requests)
+    rng = np.random.RandomState(args.seed + 1)
+    prompts = rng.randint(1, cfg.vocab_size,
+                          size=(len(arrivals), args.prompt_len))
+    reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
+                    max_new_tokens=args.max_new, arrival=arrivals[i],
+                    sampling=SamplingParams(temperature=args.temperature,
+                                            top_k=args.top_k,
+                                            seed=args.seed + i))
+            for i in range(len(arrivals))]
+
+    eng = ServeEngine(model, params, ServeConfig(
+        slots=args.slots, max_len=max_len, page_size=args.pages,
+        num_pages=args.num_pages or None, policy=args.policy,
+        window_override=args.window, cache_dtype=dtype, compute_dtype=dtype),
+        device=device)
+    metrics = eng.run(reqs)
+
+    print(f"{cfg.name}: {cfg.param_count() / 1e9:.2f} B params, {args.dtype} "
+          f"on {device}")
+    for r in reqs[:4]:
+        print(f"req {r.rid}: arrival={r.arrival:5.1f} "
+              f"ttft={r.first_token_latency():5.1f} "
+              f"output={r.output[:8]}{'...' if len(r.output) > 8 else ''}")
+    if len(reqs) > 4:
+        print(f"... {len(reqs) - 4} more")
+    print(f"policy={metrics['policy']} paged={metrics['paged']}")
+    print(f"{metrics['completed']} requests, "
+          f"{metrics['generated_tokens']} tokens in "
+          f"{metrics['clock']:.0f} iterations "
+          f"({metrics['tokens_per_s']:.2f} tok/iter, "
+          f"{metrics['wall_s']:.2f}s wall)")
+    print(f"first-token p50/p99: {metrics['p50_first_token']:.1f}/"
+          f"{metrics['p99_first_token']:.1f} iters   per-token p50/p99: "
+          f"{metrics['p50_per_token']:.2f}/{metrics['p99_per_token']:.2f}"
+          f"   stalls: {metrics['admission_stalls']}")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

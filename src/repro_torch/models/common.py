@@ -1,0 +1,90 @@
+"""Shared building blocks over plain dicts of tensors (the JAX package's
+``models/common.py``, dense / RMSNorm / RoPE / SwiGLU part).
+
+Weights keep the JAX layout: a dense weight is ``[in, out]`` and applies
+as ``x @ w``, so parameters carry over from the JAX package unchanged.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------- dense
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               use_bias: bool = False, dtype=torch.float32, device="cpu"):
+    """``normal / sqrt(in)`` weights, drawn in fp32 then cast (as the JAX
+    init does)."""
+    w = torch.randn(in_dim, out_dim, generator=gen, device=device,
+                    dtype=torch.float32) / math.sqrt(in_dim)
+    p = {"w": w.to(dtype)}
+    if use_bias:
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x):
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------- norm
+def norm_init(kind: str, dim: int, dtype=torch.float32, device="cpu"):
+    p = {"scale": torch.ones(dim, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(dim, dtype=dtype, device=device)
+    return p
+
+
+def norm_apply(kind: str, p, x, eps: float = 1e-5):
+    """RMSNorm or LayerNorm in fp32, cast back to x's dtype."""
+    x32 = x.float()
+    if kind == "rmsnorm":
+        x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    else:  # layernorm
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).square().mean(-1, keepdim=True)
+        x32 = (x32 - mu) * torch.rsqrt(var + eps)
+    y = x32 * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- RoPE
+def _rope_cos_sin(positions, half_dim: int, theta: float):
+    """positions [...]; returns cos/sin of shape positions.shape + (half_dim,)."""
+    freqs = 1.0 / (theta ** (torch.arange(half_dim, dtype=torch.float32,
+                                          device=positions.device)
+                             / half_dim))
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [B, S, H, hd]; positions [B, S] -> rotated x (llama half-split)."""
+    cos, sin = _rope_cos_sin(positions, x.shape[-1] // 2, theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ mlp
+def mlp_init(gen, d_model: int, d_ff: int, act: str, use_bias: bool,
+             dtype=torch.float32, device="cpu"):
+    if act != "swiglu":
+        raise NotImplementedError(f"act={act!r}: the port has SwiGLU only")
+    return {"w_gate": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
+            "w_up": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
+            "w_down": dense_init(gen, d_ff, d_model, use_bias, dtype, device)}
+
+
+def mlp_apply(p, x, act: str):
+    if act != "swiglu":
+        raise NotImplementedError(f"act={act!r}: the port has SwiGLU only")
+    return dense(p["w_down"], F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x))

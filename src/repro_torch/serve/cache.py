@@ -1,0 +1,200 @@
+"""Paged KV cache (the JAX package's ``serve/cache.py``, for the port's
+per-layer ``{"k", "v"}`` caches; vLLM-style block management, arXiv
+2111.14247).
+
+  * attention caches ``[B, L, KV, hd]`` are re-laid-out as fixed-size
+    **page pools** ``[num_pages, page, KV, hd]`` shared by every batch
+    slot, addressed through per-slot **block tables** (logical page ->
+    physical page);
+  * a **BlockAllocator** hands pages out at admission and takes them back
+    on completion, so an over-subscribed pool *stalls admission* instead
+    of running out of memory;
+  * ring buffers and whole caches in contiguous mode stay per-slot.
+
+Physical page 0 is the null/scratch page: fresh block tables point at it
+and *inactive* batch slots scatter their garbage decode rows into it, so
+the decode step needs no masking branches.  As in the JAX package, decode
+runs on the contiguous view ``gather`` builds and ``scatter`` writes the
+new row back; a kernel that reads pages through the block table is later
+work.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+# ------------------------------------------------------------- allocator
+class BlockAllocator:
+    """Free-list page allocator.  Page 0 is reserved (null/scratch)."""
+
+    def __init__(self, num_pages: int, reserved: int = 1):
+        if num_pages <= reserved:
+            raise ValueError(f"num_pages={num_pages} <= reserved={reserved}")
+        self.num_pages = num_pages
+        self.reserved = reserved
+        self._free: List[int] = list(range(reserved, num_pages))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def capacity(self) -> int:
+        return self.num_pages - self.reserved
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        if not self.can_alloc(n):
+            raise MemoryError(
+                f"paged KV pool exhausted: want {n}, free {len(self._free)} "
+                "(admission should have stalled)")
+        pages, self._free = self._free[:n], self._free[n:]
+        return pages
+
+    def free(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            if p < self.reserved or p >= self.num_pages:
+                raise ValueError(f"freeing invalid page {p}")
+            if p in self._free:
+                raise ValueError(f"double free of page {p}")
+        self._free.extend(pages)
+
+
+# ------------------------------------------------------------- KV stores
+class ContiguousKV:
+    """One ``init_cache(slots, max_len)`` per layer, every slot owning its
+    full-length rows.  Same interface as ``PagedKV``."""
+
+    def __init__(self, model, slots: int, max_len: int, dtype=torch.float32,
+                 window_override: int = 0, device="cpu"):
+        self.slots, self.max_len = slots, max_len
+        self.store = model.init_cache(slots, max_len, dtype=dtype,
+                                      window_override=window_override,
+                                      device=device)
+
+    def block_tables_device(self):
+        return None                       # contiguous mode has no tables
+
+    def gather(self, store, bt):
+        return store
+
+    def scatter(self, store, new_caches, bt, pos, active):
+        # decode already wrote each slot's row in place (inactive slots
+        # scribble at pos 0 of their own free rows)
+        return new_caches
+
+    def try_reserve(self, request) -> bool:
+        return request.total_len <= self.max_len
+
+    def write_prefill(self, slot: int, conv_cache, j: int, prompt_len: int):
+        """Copy request ``j``'s rows of a converted (decode-layout) prefill
+        cache into batch slot ``slot``."""
+        for dst, src in zip(self.store, conv_cache):
+            for name in dst:
+                dst[name][slot] = src[name][j]
+
+    def release(self, slot: int, request) -> None:
+        pass                              # rows are overwritten on admit
+
+
+class PagedKV:
+    """Fixed-size page pools + per-slot block tables over the attention
+    caches."""
+
+    def __init__(self, model, slots: int, max_len: int, page_size: int,
+                 num_pages: Optional[int] = None, dtype=torch.float32,
+                 window_override: int = 0, device="cpu"):
+        if page_size <= 0:
+            raise ValueError("page_size must be > 0 for PagedKV")
+        if window_override or any(k != "attn" for k in model.cfg.layer_kinds):
+            raise ValueError("paged cache + ring buffers unsupported "
+                             "(ring buffers are already constant-size)")
+        self.slots, self.max_len, self.page = slots, max_len, page_size
+        self.device = torch.device(device)
+        self.pages_per_seq = math.ceil(max_len / page_size)
+        if num_pages is None:
+            # default: every slot can hold a full-length request, +1 null
+            num_pages = 1 + slots * self.pages_per_seq
+        self.allocator = BlockAllocator(num_pages, reserved=1)
+        self.block_tables = np.zeros((slots, self.pages_per_seq), np.int64)
+        cfg = model.cfg
+        shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+        self.store = [{name: torch.zeros(shape, dtype=dtype, device=device)
+                       for name in ("k", "v")}
+                      for _ in range(cfg.num_layers)]
+
+    def block_tables_device(self):
+        return torch.from_numpy(self.block_tables).to(self.device)
+
+    def gather(self, store, bt):
+        """Page pools -> the contiguous ``[B, L, KV, hd]`` view decode
+        reads (a copy per layer)."""
+        def g(pool):
+            v = pool[bt]                              # [B, P, page, KV, hd]
+            v = v.reshape((v.shape[0], -1) + v.shape[3:])
+            return v[:, :self.max_len].contiguous()
+        return [{name: g(pool) for name, pool in layer.items()}
+                for layer in store]
+
+    def scatter(self, store, new_caches, bt, pos, active):
+        """Write the row each slot just produced (at ``pos`` [B]) back to
+        its page in place; inactive slots are routed to null page 0."""
+        phys = torch.where(active, bt.gather(1, (pos // self.page)[:, None])[:, 0],
+                           torch.zeros_like(pos))
+        off = pos % self.page
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        for pools, new in zip(store, new_caches):
+            for name, pool in pools.items():
+                pool[phys, off] = new[name][rows, pos].to(pool.dtype)
+        return store
+
+    def try_reserve(self, request) -> bool:
+        """Reservation-based admission: take every page the request can
+        ever touch (prompt + max_new) up front, or refuse."""
+        if request.total_len > self.max_len:
+            return False
+        n = math.ceil(request.total_len / self.page)
+        if not self.allocator.can_alloc(n):
+            return False
+        request.pages = self.allocator.alloc(n)
+        return True
+
+    def write_prefill(self, slot: int, conv_cache, j: int, prompt_len: int):
+        """Scatter request ``j``'s prompt rows of a converted prefill cache
+        into its reserved pages."""
+        ts = np.arange(prompt_len)
+        phys = torch.from_numpy(self.block_tables[slot][ts // self.page])
+        off = torch.from_numpy(ts % self.page)
+        phys, off = phys.to(self.device), off.to(self.device)
+        for pools, src in zip(self.store, conv_cache):
+            for name, pool in pools.items():
+                pool[phys, off] = src[name][j, :prompt_len].to(pool.dtype)
+
+    def set_block_table(self, slot: int, pages: Sequence[int]) -> None:
+        row = np.zeros(self.pages_per_seq, np.int64)
+        row[:len(pages)] = pages
+        self.block_tables[slot] = row
+
+    def release(self, slot: int, request) -> None:
+        if request.pages:
+            self.allocator.free(request.pages)
+            request.pages = []
+        self.block_tables[slot] = 0
+
+
+def make_kv_store(model, slots: int, max_len: int, page_size: int = 0,
+                  num_pages: Optional[int] = None, dtype=torch.float32,
+                  window_override: int = 0, device="cpu"):
+    """page_size == 0 -> contiguous; > 0 -> paged pools."""
+    if page_size:
+        return PagedKV(model, slots, max_len, page_size, num_pages,
+                       dtype=dtype, window_override=window_override,
+                       device=device)
+    return ContiguousKV(model, slots, max_len, dtype=dtype,
+                        window_override=window_override, device=device)
