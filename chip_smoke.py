@@ -24,8 +24,14 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              through the kernels.
  6. path     the first prefill group and 4 decode steps again through the
              kernel path, the plain path (attn_backend="ref") in bf16, and
-             the plain path in fp32; the kernel path must be as close to
-             fp32 as the plain bf16 path is, within a factor 2.
+             the plain path in fp32.  The served tokens of those 8
+             requests must equal this run's greedy tokens (same kernels,
+             same shapes: a fault in the paged cache or the per-slot
+             positions shows here).  The kernel path's logits must be as
+             close to fp32 as the plain bf16 path's are, within a factor
+             2: after 22 layers of bf16 activations the plain bf16 path is
+             itself ~0.1 from fp32, so phase 3's 2e-2 per-call tolerance
+             cannot hold for whole-model logits.
 
 The last lines are the kernels JSON, the nvidia-smi line and the result.
 """
@@ -275,6 +281,7 @@ def main() -> int:
           f" <= 2 x plain); greedy agreement kernel/plain {agree}/40; "
           f"served tokens equal to this run's greedy tokens {served}/40")
     assert torch.isfinite(kern).all()
+    assert served == 40, "served tokens differ from the kernel path's greedy"
     assert e_kern <= 2 * e_ref16, "kernel path drifts from the fp32 model"
 
     # ------------------------------------------------------------- results

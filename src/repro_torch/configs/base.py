@@ -25,7 +25,6 @@ class ModelConfig:
     num_kv_heads: int = 0
     head_dim: int = 0
     attn_type: str = "gqa"
-    window: int = 0                  # >0 => sliding-window (local) attention
     rope_theta: float = 10_000.0
     # ---- MLP ----
     act: str = "swiglu"
@@ -44,11 +43,6 @@ class ModelConfig:
         """Concrete per-layer block kind for each of num_layers layers."""
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.num_layers))
-
-    def padded_vocab(self, shards: int) -> int:
-        """Vocab padded to a multiple of ``shards``."""
-        v = self.vocab_size
-        return ((v + shards - 1) // shards) * shards
 
     def param_count(self) -> int:
         """Analytic parameter count of the dense decoder (the JAX
@@ -76,7 +70,5 @@ class ModelConfig:
             kv = max(1, min(self.num_kv_heads, heads))
             small.update(num_heads=heads, num_kv_heads=kv,
                          head_dim=min(self.head_dim or 32, 32))
-        if self.window:
-            small.update(window=8)
         small.update(overrides)
         return dataclasses.replace(self, **small)

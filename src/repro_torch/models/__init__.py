@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable          # (seed=0, dtype=..., device=..., vocab_pad_multiple=1) -> params
+    init: Callable          # (seed=0, dtype=..., device=...) -> params
     forward: Callable       # (params, tokens, **kw) -> (logits, caches | None)
     init_cache: Callable    # (batch, max_len, dtype, **kw) -> caches
     decode_step: Callable   # (params, caches, token, pos, **kw) -> (logits, caches)
@@ -30,9 +30,8 @@ def build_model(cfg: ModelConfig) -> Model:
     T.plan_segments(cfg)                       # rejects unported families
     return Model(
         cfg=cfg,
-        init=lambda seed=0, dtype=torch.float32, device="cpu",
-            vocab_pad_multiple=1:
-            T.init_params(cfg, seed, dtype, device, vocab_pad_multiple),
+        init=lambda seed=0, dtype=torch.float32, device="cpu":
+            T.init_params(cfg, seed, dtype, device),
         forward=lambda params, tokens, **kw: T.forward(params, cfg, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, **kw:
             T.init_cache(cfg, batch, max_len, dtype, **kw),

@@ -3,9 +3,8 @@ package's ``models/attention.py`` without the cross-attention branches).
 
 The plain PyTorch math below is the ``ref`` path; the kernel path routes
 through ``repro_torch.kernels.flash_attention`` (the CUDA kernels) by the
-backend seam: ``attention_forward`` / ``attention_decode`` take
-``backend`` (default: the config's ``attn_backend``, ``"auto"``), which
-``kernels.backend.resolve_backend`` turns into ``kernel`` for CUDA tensors
+backend seam: ``kernels.backend.resolve_backend`` turns the config's
+``attn_backend`` (``"auto"`` by default) into ``kernel`` for CUDA tensors
 and ``ref`` for CPU tensors.
 
 Cache layouts
@@ -70,21 +69,19 @@ def _window_mask(s, window, device):
     return ((kj <= qi) & (kj > qi - window))[None, None]
 
 
-def attention_forward(p, x, positions, cfg, *, causal=True, window=0,
-                      backend=None):
+def attention_forward(p, x, positions, cfg, *, causal=True, window=0):
     """Prefill / training forward.  x [B, S, d]; positions [B, S].
 
     The kernel path feeds the *unrepeated* k/v to the flash kernel (query
     head h reads KV head h // (H/KV)).  Returns (out, {"k", "v"}) with the
     full k/v for prefill reuse."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    backend = cfg.attn_backend if backend is None else backend
     q = _split_heads(dense(p["wq"], x), H, hd)
     k = _split_heads(dense(p["wk"], x), KV, hd)
     v = _split_heads(dense(p["wv"], x), KV, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if resolve_backend(backend, q) == "kernel":
+    if resolve_backend(cfg.attn_backend, q) == "kernel":
         out = FA.attention(q, k, v, causal=causal,
                            window=window if causal else 0)
     else:
@@ -108,14 +105,13 @@ def init_cache(cfg, batch: int, max_len: int, dtype, window: int = 0,
             "v": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device)}
 
 
-def attention_decode(p, x, pos, cache, cfg, *, window=0, backend=None):
+def attention_decode(p, x, pos, cache, cfg, *, window=0):
     """One-token decode step.  x [B, 1, d]; pos [B] int (each row at its
     own position).  ``window > 0`` -> ring-buffer cache of that length.
 
     Writes row ``pos`` (``pos % window``) of each batch row into ``cache``
     in place.  Returns (out [B, 1, d], cache)."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    backend = cfg.attn_backend if backend is None else backend
     B = x.shape[0]
     q = _split_heads(dense(p["wq"], x), H, hd)
     k = _split_heads(dense(p["wk"], x), KV, hd)
@@ -128,7 +124,7 @@ def attention_decode(p, x, pos, cache, cfg, *, window=0, backend=None):
     slot = (pos % window) if window else pos
     ck[rows, slot] = k[:, 0].to(ck.dtype)
     cv[rows, slot] = v[:, 0].to(cv.dtype)
-    if resolve_backend(backend, q) == "kernel":
+    if resolve_backend(cfg.attn_backend, q) == "kernel":
         out = FA.decode(q, ck, cv, pos, window=window)
     else:
         out = _gqa_decode_sdpa(q, ck, cv, decode_mask(pos, ck.shape[1], window))

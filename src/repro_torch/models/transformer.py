@@ -1,8 +1,8 @@
 """Decoder-only dense / GQA language model (the JAX package's
 ``models/transformer.py``, dense part).
 
-Parameters are plain dicts of tensors: ``embed [Vpad, d]``,
-``lm_head [d, Vpad]`` (untied configs), ``final_norm`` and ``layers``, a
+Parameters are plain dicts of tensors: ``embed [V, d]``,
+``lm_head [d, V]`` (untied configs), ``final_norm`` and ``layers``, a
 list with one dict per layer.  The JAX package stacks layers into scan
 groups (``plan_segments``); here the stack is a Python loop, and
 ``from_jax_params`` un-stacks a JAX parameter tree into this layout.
@@ -19,7 +19,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (dense, mlp_apply, mlp_init, norm_apply,
                                        norm_init)
 
-KINDS = ("attn", "local")
+KINDS = ("attn",)
 
 
 # --------------------------------------------------------------- segment plan
@@ -46,10 +46,6 @@ def plan_segments(cfg: ModelConfig) -> List[Tuple[str, Any]]:
     return segments
 
 
-def _window(cfg: ModelConfig, kind: str, window_override: int) -> int:
-    return cfg.window if kind == "local" else window_override
-
-
 # ------------------------------------------------------------------ layer ops
 def _layer_init(gen, cfg: ModelConfig, dtype, device):
     return {"ln1": norm_init(cfg.norm, cfg.d_model, device=device),
@@ -59,23 +55,21 @@ def _layer_init(gen, cfg: ModelConfig, dtype, device):
                             dtype, device)}
 
 
-def _layer_forward(p, cfg: ModelConfig, kind, x, positions, window_override):
+def _layer_forward(p, cfg: ModelConfig, x, positions, window):
     """Full-sequence forward for one layer.  Returns (x, {"k", "v"})."""
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    out, state = attn.attention_forward(
-        p["mixer"], h, positions, cfg, causal=True,
-        window=_window(cfg, kind, window_override))
+    out, state = attn.attention_forward(p["mixer"], h, positions, cfg,
+                                        causal=True, window=window)
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.act), state
 
 
-def _layer_decode(p, cfg: ModelConfig, kind, x, pos, cache, window_override):
+def _layer_decode(p, cfg: ModelConfig, x, pos, cache, window):
     """One-token decode for one layer.  Returns (x, cache)."""
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    out, cache = attn.attention_decode(
-        p["mixer"], h, pos, cache, cfg,
-        window=_window(cfg, kind, window_override))
+    out, cache = attn.attention_decode(p["mixer"], h, pos, cache, cfg,
+                                       window=window)
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], h, cfg.act), cache
@@ -83,25 +77,25 @@ def _layer_decode(p, cfg: ModelConfig, kind, x, pos, cache, window_override):
 
 # ----------------------------------------------------------------- model init
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device="cpu", vocab_pad_multiple: int = 1):
+                device="cpu"):
     """Seeded init with the JAX package's distributions: embed
     ``normal * 0.02``, lm_head ``normal / sqrt(d)``, dense weights
     ``normal / sqrt(in)``, norm scales ones.  The draws differ from
     ``jax.random``'s; tests carry weights over with ``from_jax_params``."""
     plan_segments(cfg)                                 # rejects other families
     gen = torch.Generator(device=device).manual_seed(seed)
-    vpad, d = cfg.padded_vocab(vocab_pad_multiple), cfg.d_model
+    V, d = cfg.vocab_size, cfg.d_model
 
     def normal(*shape):
         return torch.randn(*shape, generator=gen, device=device,
                            dtype=torch.float32)
 
     params: Dict[str, Any] = {
-        "embed": (normal(vpad, d) * 0.02).to(dtype),
+        "embed": (normal(V, d) * 0.02).to(dtype),
         "final_norm": norm_init(cfg.norm, d, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = (normal(d, vpad) / np.sqrt(d)).to(dtype)
+        params["lm_head"] = (normal(d, V) / np.sqrt(d)).to(dtype)
     params["layers"] = [_layer_init(gen, cfg, dtype, device)
                         for _ in range(cfg.num_layers)]
     return params
@@ -160,8 +154,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     caches: List[Any] = []
-    for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, st = _layer_forward(p, cfg, kind, x, positions, window_override)
+    for p in params["layers"]:
+        x, st = _layer_forward(p, cfg, x, positions, window_override)
         if return_cache:
             caches.append(st)
     return _logits(params, cfg, x), (caches if return_cache else None)
@@ -169,7 +163,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
 
 def prefill(params, cfg: ModelConfig, tokens, positions=None,
             compute_dtype=torch.bfloat16, window_override: int = 0):
-    """Forward over the prompt: last-token logits [B, 1, Vpad] and the
+    """Forward over the prompt: last-token logits [B, 1, V] and the
     per-layer k/v states."""
     logits, caches = forward(params, cfg, tokens, positions=positions,
                              compute_dtype=compute_dtype, return_cache=True,
@@ -180,31 +174,28 @@ def prefill(params, cfg: ModelConfig, tokens, positions=None,
 # --------------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, device="cpu"):
-    """One ``{"k", "v"}`` cache per layer (ring buffers for windowed
-    layers)."""
+    """One ``{"k", "v"}`` cache per layer (ring buffers of length
+    ``window_override`` when it is set)."""
     return [attn.init_cache(cfg, batch, max_len, dtype,
-                            window=_window(cfg, kind, window_override),
-                            device=device)
-            for kind in cfg.layer_kinds]
+                            window=window_override, device=device)
+            for _ in range(cfg.num_layers)]
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos,
                 compute_dtype=torch.bfloat16, window_override: int = 0):
     """One decode step.  token [B, 1] int; pos [B] int, the position of
     each row's token (rows decode at their own positions).  Updates the
-    caches in place; returns (logits [B, 1, Vpad], caches)."""
+    caches in place; returns (logits [B, 1, V], caches)."""
     x = params["embed"].to(compute_dtype)[token]
-    for i, (p, kind) in enumerate(zip(params["layers"], cfg.layer_kinds)):
-        x, caches[i] = _layer_decode(p, cfg, kind, x, pos, caches[i],
+    for i, p in enumerate(params["layers"]):
+        x, caches[i] = _layer_decode(p, cfg, x, pos, caches[i],
                                      window_override)
     return _logits(params, cfg, x), caches
 
 
-def _state_to_cache(cfg: ModelConfig, kind, st, max_len: int, dtype,
-                    window_override: int = 0):
+def _state_to_cache(st, max_len: int, dtype, window: int = 0):
     """One layer's prefill k/v [B, S, KV, hd] -> its ``init_cache`` layout:
     position t at slot t (full) or t % W (ring buffer, last W kept)."""
-    window = _window(cfg, kind, window_override)
     L = window if window else max_len
 
     def fill(a):
@@ -224,5 +215,5 @@ def cache_from_prefill(cfg: ModelConfig, fwd_caches, max_len: int,
                        dtype=torch.bfloat16, window_override: int = 0):
     """Prefill states -> the decode caches ``init_cache`` lays out, so a
     prompt is consumed by one batched forward pass."""
-    return [_state_to_cache(cfg, kind, st, max_len, dtype, window_override)
-            for kind, st in zip(cfg.layer_kinds, fwd_caches)]
+    return [_state_to_cache(st, max_len, dtype, window_override)
+            for st in fwd_caches]
