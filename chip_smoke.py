@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -8,14 +9,25 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
  1. device   card name and power limit (nvidia-smi), torch and CUDA
              versions; TF32 off for matmuls and cuDNN.
  2. build    compile the CUDA kernels from src/repro_torch/kernels/csrc.
- 3. check    each kernel against its plain PyTorch version at the serving
-             path's shapes, fp32 (<= 1e-4 abs: summation order) and bf16
-             (<= 2e-2 abs: one bf16 ulp at |out| ~ 2, fp32 accumulation on
-             both sides).
+ 3. check    each kernel against its plain PyTorch version.  Flash
+             attention and decode at the serving path's shapes, fp32
+             (<= 1e-4 abs: summation order) and bf16 (<= 2e-2 abs: one
+             bf16 ulp at |out| ~ 2, fp32 accumulation on both sides).
+             onebit_encode_ef at the full-width leaf shapes of
+             TinyLlama-1.1B, a flat symmetric [R, 256] block and an
+             e=None + valid block: signs exactly equal, sp / sn / out /
+             new_e within 2e-5 of the row's largest |c_in| (bin sums over
+             rows up to 32000 long, taken in another order).
+             attention_grad at the training shape: its forward is the
+             flash kernel's output and its q/k/v gradients equal
+             autograd's through attention_ref within 1e-5 (fp32).
  4. timing   CUDA-event medians (L2 flushed before every launch) of each
-             kernel, its plain version and one PyTorch library call
-             (scaled_dot_product_attention, a yardstick the port never
-             calls), beside the least time the card needs for the work.
+             kernel, its plain version and, where one exists, one PyTorch
+             library call that computes the same function (a yardstick
+             the port never calls), beside the least time the card needs
+             for the work.  onebit_encode_ef also summed over one
+             full-width step's leaves (one worker); flash_attention also
+             in fp32 at the training shape (B=2, S=256).
  5. serve    full-width TinyLlama-1.1B in bf16 with seeded random weights:
              16 requests (prompt 512, 64 new tokens, all at t=0) through
              ServeEngine, continuous batching, paged cache (page 16),
@@ -32,6 +44,22 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              2: after 22 layers of bf16 activations the plain bf16 path is
              itself ~0.1 from fp32, so phase 3's 2e-2 per-call tolerance
              cannot hold for whole-model logits.
+ 7. train    full-width TinyLlama-1.1B in fp32, seeded init:
+             Strategy.parse("bsp/allreduce/onebit@4", lr=0.01) through
+             Trainer.fit, 3 steps of batch 2 x seq 256 per worker
+             (make_lm_batches), bucket_mb 4.  Counts are zeroed just
+             before and read just after: 22 x 4 flash_attention launches
+             and one onebit_encode_ef launch per leaf per worker per step.
+             Every loss finite; peak device memory reported.  Then the
+             same 3 steps on the plain path (kernel_backend="ref",
+             attn_backend="ref"): each step's loss within 1e-3 of the
+             kernel path's (the flash forward differs by ~1e-6, which can
+             flip signs at |c_in| near 0; error feedback carries the
+             difference to the next step instead of losing it).
+ 8. reduced  the BENCH_pr10.json recipe on the card (reduced TinyLlama,
+             seq 16, batch 2, lr 0.01, bucket_mb 0.25, 2 steps) for
+             bsp/allreduce/{none,onebit}@8: wire bytes per step exactly
+             14700544 and 631744, 7 buckets (neither depends on the init).
 
 The last lines are the kernels JSON, the nvidia-smi line and the result.
 """
@@ -51,9 +79,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # fp32 outside the tensor cores
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+ONEBIT_TOL = 2e-5                  # of the row's largest |c_in|
+GRAD_TOL = 1e-5
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 PROMPT, NEW, MAX_LEN = 512, 64, 576
+TRAIN_SPEC, TRAIN_STEPS = "bsp/allreduce/onebit@4", 3
+TRAIN_B, TRAIN_S = 2, 256          # per-worker batch and sequence
+# leaves of full-width TinyLlama-1.1B as the compressor encodes them
+ONEBIT_SHAPES = ((2048, 32000), (123904, 2048), (45056, 5632), (22, 2048))
+ONEBIT_FLOP_PER_ELEM = 5           # c_in (2), c_true, bin sum, new_e
+ONEBIT_BYTES_PER_ELEM = 17         # read g, e; write sign, out, new_e
 
 
 def phase(name):
@@ -99,13 +136,17 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.core.compression import Compressor
+    from repro_torch.data import LMDataConfig, make_lm_batches
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import onebit as K1
     from repro_torch.kernels.flash_attention.ref import decode_mask
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.request import Request
+    from repro_torch.train import Strategy, Trainer, value_and_grad
 
     # ------------------------------------------------------------ 1 device
     phase("device")
@@ -166,8 +207,53 @@ def main() -> int:
             worst["flash_decode"] = max(worst["flash_decode"], e)
     torch.cuda.synchronize()
 
+    worst["onebit_encode_ef"] = 0.0
+    onebit_cases = ([(shape, True, False, False) for shape in ONEBIT_SHAPES]
+                    + [((8192, 256), True, False, True),      # flat symmetric
+                       ((8192, 256), False, True, False)])    # e=None + valid
+    for (R, C), has_e, has_valid, symmetric in onebit_cases:
+        g = randn(R, C, dtype=torch.float32)
+        e = randn(R, C, dtype=torch.float32) if has_e else None
+        valid = randn(R, C, dtype=torch.float32) > -0.5 if has_valid else None
+        kern = K1.encode_ef(g, e, valid, gain=2.0, symmetric=symmetric)
+        plain = K1.onebit_encode_ef_ref(g, e, valid, gain=2.0,
+                                        symmetric=symmetric)
+        cin = g if e is None else g + 2.0 * e
+        scale = cin.abs().amax(-1, keepdim=True)
+        signs_equal = torch.equal(kern[0], plain[0])
+        err = max(((a - b).abs() / scale).max().item()
+                  for a, b in zip(kern[1:], plain[1:]))
+        abs_err = max(max_err(a, b) for a, b in zip(kern[1:], plain[1:]))
+        print(f"onebit_encode_ef [{R}, {C}] e={has_e} valid={has_valid} "
+              f"symmetric={symmetric}: signs equal {signs_equal}, max_abs_err"
+              f" {abs_err:.3e}, relative to the row's max|c_in| {err:.3e} "
+              f"(tol {ONEBIT_TOL})")
+        assert signs_equal, "onebit_encode_ef signs differ from the plain ones"
+        assert err <= ONEBIT_TOL, "onebit_encode_ef disagrees with plain"
+        worst["onebit_encode_ef"] = max(worst["onebit_encode_ef"], abs_err)
+        del g, e, valid, kern, plain, cin
+    torch.cuda.empty_cache()
+
+    q = randn(TRAIN_B, TRAIN_S, H, HD, dtype=torch.float32)
+    k, v = (randn(TRAIN_B, TRAIN_S, KV, HD, dtype=torch.float32)
+            for _ in range(2))
+    dout = randn(TRAIN_B, TRAIN_S, H, HD, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FA.attention_grad(*leaves)
+    out.backward(dout)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.attention_ref(*ref_leaves).backward(dout)
+    fwd_equal = torch.equal(out, FA.attention(q, k, v))
+    grad_err = max(max_err(a.grad, b.grad) for a, b in zip(leaves, ref_leaves))
+    print(f"attention_grad fp32 [{TRAIN_B}, {TRAIN_S}, {H}, {HD}]: forward "
+          f"equals flash_attention {fwd_equal}; q/k/v gradients against "
+          f"autograd through attention_ref: max_abs_err {grad_err:.3e} "
+          f"(tol {GRAD_TOL})")
+    assert fwd_equal and grad_err <= GRAD_TOL
+    torch.cuda.synchronize()
+
     # ------------------------------------------------------------ 4 timing
-    phase("timing (bf16, serving shapes)")
+    phase("timing")
     bf = torch.bfloat16
     q, k, v = (randn(B, PROMPT, H, HD, dtype=bf),
                randn(B, PROMPT, KV, HD, dtype=bf),
@@ -175,21 +261,30 @@ def main() -> int:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     timing = {}
 
-    def measure(name, kernel, plain, library, nbytes, flops):
+    def bound(nbytes, flops, peak):
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / BF16_FLOPS * 1e3
+        by_ops = flops / peak * 1e3
+        return (max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations")
+
+    def measure(name, what, kernel, plain, library, nbytes, flops,
+                peak=BF16_FLOPS):
+        """Times under ``timing[name]``; ``library`` None: no single
+        PyTorch call computes the function."""
+        bound_ms, bound_by = bound(nbytes, flops, peak)
         t = timing[name] = dict(
             ms=timed_ms(kernel), plain_ms=timed_ms(plain),
-            library_ms=timed_ms(library), bound_ms=max(by_bytes, by_ops),
-            bound_by="bytes" if by_bytes >= by_ops else "operations")
+            library_ms=None if library is None else timed_ms(library),
+            bound_ms=bound_ms, bound_by=bound_by)
         call_ms = timed_ms(kernel, host_bound=True)
-        print(f"{name}: kernel {t['ms']:.4f} ms on the device "
+        lib = ("-" if library is None else f"{t['library_ms']:.4f} ms")
+        print(f"{name} ({what}): kernel {t['ms']:.4f} ms on the device "
               f"({call_ms:.4f} ms per call when the host issues it alone), "
-              f"plain {t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} B, "
+              f"plain {t['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} B, "
               f"{flops} FLOP)")
 
-    measure("flash_attention",
+    measure("flash_attention", f"bf16, causal, B={B} S={PROMPT}",
             lambda: FA.attention(q, k, v, causal=True),
             lambda: FA.attention_ref(q, k, v, causal=True),
             lambda: F.scaled_dot_product_attention(
@@ -205,7 +300,7 @@ def main() -> int:
     mask = decode_mask(pos, MAX_LEN)
     keys = int(mask.sum())                               # valid cache rows
     ckt, cvt, qdt = (t.transpose(1, 2).contiguous() for t in (ck, cv, qd))
-    measure("flash_decode",
+    measure("flash_decode", f"bf16, B={B} L={MAX_LEN}, pos 512-575",
             lambda: FA.decode(qd, ck, cv, pos),
             lambda: FA.decode_ref(qd, ck, cv, pos),
             lambda: F.scaled_dot_product_attention(
@@ -214,10 +309,61 @@ def main() -> int:
             2 * (2 * qd.numel() + 2 * keys * KV * HD) + 4 * B,
             4 * H * HD * keys)
 
-    # ------------------------------------------------------------- 5 serve
-    phase("serve full-width TinyLlama-1.1B")
+    f32 = torch.float32
+    q, k, v = (randn(TRAIN_B, TRAIN_S, H, HD, dtype=f32),
+               randn(TRAIN_B, TRAIN_S, KV, HD, dtype=f32),
+               randn(TRAIN_B, TRAIN_S, KV, HD, dtype=f32))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    measure("flash_attention_train",
+            f"fp32, causal, training shape B={TRAIN_B} S={TRAIN_S}",
+            lambda: FA.attention(q, k, v, causal=True),
+            lambda: FA.attention_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            4 * (q.numel() + k.numel() + v.numel() + q.numel()),
+            4 * TRAIN_B * H * HD * TRAIN_S * (TRAIN_S + 1) // 2, F32_FLOPS)
+
+    def onebit_bytes(R, C):
+        return ONEBIT_BYTES_PER_ELEM * R * C + 8 * R
+
+    R, C = ONEBIT_SHAPES[0]
+    g, e = randn(R, C, dtype=f32), randn(R, C, dtype=f32)
+    measure("onebit_encode_ef", f"fp32 [{R}, {C}], the lm_head leaf",
+            lambda: K1.encode_ef(g, e, gain=2.0),
+            lambda: K1.onebit_encode_ef_ref(g, e, gain=2.0), None,
+            onebit_bytes(R, C), ONEBIT_FLOP_PER_ELEM * R * C, F32_FLOPS)
+    del g, e
+
+    # one worker's encode of a whole full-width step: every leaf of the
+    # reference's layout through the compressor, as the engine calls it
     cfg = get_config("tinyllama-1.1b")
     model = build_model(cfg)
+    tparams = model.init(seed=0, device=dev)
+    leaf_shapes = model.leaf_layout(tparams).shapes(tparams)
+    del tparams
+    kern_comp, plain_comp = Compressor("onebit"), Compressor("onebit",
+                                                             backend="ref")
+    step = dict(ms=0.0, plain_ms=0.0, nbytes=0, flops=0)
+    for shape in leaf_shapes:
+        g, e = randn(*shape, dtype=f32), randn(*shape, dtype=f32)
+        n = g.numel()
+        chan = shape[-1] if shape[-1] >= kern_comp.min_channel else 256
+        step["ms"] += timed_ms(lambda: kern_comp._leaf_onebit(g, e), reps=5)
+        step["plain_ms"] += timed_ms(lambda: plain_comp._leaf_onebit(g, e),
+                                     reps=5)
+        step["nbytes"] += onebit_bytes(-(-n // chan), chan)
+        step["flops"] += ONEBIT_FLOP_PER_ELEM * n
+        del g, e
+    step_bound, step_by = bound(step["nbytes"], step["flops"], F32_FLOPS)
+    timing["onebit_encode_ef_step"] = dict(step, bound_ms=step_bound)
+    print(f"onebit_encode_ef over one full-width step's {len(leaf_shapes)} "
+          f"leaves (one worker): kernel {step['ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, bound {step_bound:.4f} ms ({step_by}:"
+          f" {step['nbytes']} B)")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 5 serve
+    phase("serve full-width TinyLlama-1.1B")
     t0 = time.perf_counter()
     params = model.init(seed=0, dtype=bf, device=dev)
     torch.cuda.synchronize()
@@ -284,19 +430,129 @@ def main() -> int:
     assert served == 40, "served tokens differ from the kernel path's greedy"
     assert e_kern <= 2 * e_ref16, "kernel path drifts from the fp32 model"
 
+    del params, p32, eng, kern, ref16, ref32
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 7 train
+    phase(f"train full-width TinyLlama-1.1B: {TRAIN_SPEC}, fp32")
+    f32 = torch.float32
+    strat = Strategy.parse(TRAIN_SPEC, lr=0.01)
+    K = strat.workers
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_S,
+                                           batch_size=TRAIN_B), device=dev)
+
+    def train(kernels: bool):
+        """3 steps through Trainer.fit; returns (losses, step ms, peak
+        bytes, wire bytes).  Step boundaries are read where the engine
+        asks for worker 0's batch, after a synchronize."""
+        m_ = model if kernels else build_model(
+            dataclasses.replace(cfg, attn_backend="ref"))
+        st_ = strat if kernels else dataclasses.replace(strat,
+                                                        kernel_backend="ref")
+        p_ = m_.init(seed=0, dtype=f32, device=dev)
+        layout = m_.leaf_layout(p_)
+        marks = []
+
+        def timed_batches(t, w):
+            if w == 0:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            return batches(t, w)
+
+        grad_fn = value_and_grad(
+            lambda pp, b: m_.loss_fn(pp, b, compute_dtype=f32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, hist, mets = Trainer(st_, device=dev).fit(
+            grad_fn, p_, timed_batches, TRAIN_STEPS, layout=layout)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        del p_
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        return ([h["loss"] for h in hist],
+                [1e3 * (b - a) for a, b in zip(marks, marks[1:])], peak,
+                mets["wire_bytes"], layout)
+
+    FA.reset_launches()
+    K1.reset_launches()
+    losses, step_ms, peak, wire, layout = train(kernels=True)
+    train_launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
+                      "onebit_encode_ef": K1.LAUNCHES["onebit_encode_ef"]}
+    tokens = K * TRAIN_B * TRAIN_S
+    for t, (loss, ms) in enumerate(zip(losses, step_ms)):
+        print(f"step {t}: loss {loss:.6f}, wall {ms:.1f} ms = "
+              f"{tokens / ms * 1e3:.1f} tokens/s")
+    print(f"{K} workers x batch {TRAIN_B} x seq {TRAIN_S}; "
+          f"{len(layout.names)} leaves; wire {wire // TRAIN_STEPS} B/step; "
+          f"peak device memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); launches {train_launches}")
+    assert all(math.isfinite(x) for x in losses) and len(losses) == TRAIN_STEPS
+    assert train_launches["flash_attention"] == \
+        cfg.num_layers * K * TRAIN_STEPS
+    assert train_launches["onebit_encode_ef"] == \
+        len(layout.names) * K * TRAIN_STEPS
+
+    FA.reset_launches()
+    K1.reset_launches()
+    plain_losses, plain_ms, plain_peak, _, _ = train(kernels=False)
+    assert FA.LAUNCHES["flash_attention"] == 0, "plain path ran a kernel"
+    assert K1.LAUNCHES["onebit_encode_ef"] == 0, "plain path ran a kernel"
+    diffs = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    print(f"kernel path losses {losses}")
+    print(f"plain path (kernel_backend='ref', attn_backend='ref', no kernel "
+          f"launched): losses {plain_losses}, wall "
+          f"{[round(x, 1) for x in plain_ms]} ms, peak "
+          f"{plain_peak / 2**30:.2f} GiB; |kernel - plain| per step "
+          f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
+    assert max(diffs) <= 1e-3, "kernel path's losses drift from the plain path"
+
+    # ----------------------------------------------------------- 8 reduced
+    phase("reduced TinyLlama, the BENCH_pr10.json recipe")
+    rcfg = cfg.reduced()
+    rmodel = build_model(rcfg)
+    rparams = rmodel.init(seed=0, device=dev)
+    rbatches = make_lm_batches(LMDataConfig(vocab_size=rcfg.vocab_size,
+                                            seq_len=16, batch_size=2),
+                               device=dev)
+    rgrad = value_and_grad(
+        lambda pp, b: rmodel.loss_fn(pp, b, compute_dtype=f32))
+    for spec, want in (("bsp/allreduce/none@8", 14700544),
+                       ("bsp/allreduce/onebit@8", 631744)):
+        engine = Strategy.parse(spec, lr=0.01, bucket_mb=0.25).build(
+            rgrad, layout=rmodel.leaf_layout(rparams), device=dev)
+        _, hist, wire = engine.run(rparams, rbatches, 2)
+        n_buckets = engine.inner.modeled_timeline(rparams)["n_buckets"]
+        print(f"{spec}: wire {wire // 2} B/step (want {want}), {n_buckets} "
+              f"buckets (want 7), losses {[h['loss'] for h in hist]}")
+        assert wire // 2 == want and n_buckets == 7
+        assert all(math.isfinite(h["loss"]) for h in hist)
+
     # ------------------------------------------------------------- results
-    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    src = "src/repro_torch/kernels/csrc/"
+    sources = {"flash_attention": (src + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention/flash_attention.py:69"),
-               "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
-                                "src/repro/kernels/flash_attention/flash_attention.py:160")}
+               "flash_decode": (src + "flash_decode.cu",
+                                "src/repro/kernels/flash_attention/flash_attention.py:160"),
+               "onebit_encode_ef": (src + "onebit_encode_ef.cu",
+                                    "src/repro/kernels/onebit/fused.py:75")}
+    by_path = {"flash_attention": {"serve": launches["flash_attention"],
+                                   "train": train_launches["flash_attention"]},
+               "flash_decode": {"serve": launches["flash_decode"], "train": 0},
+               "onebit_encode_ef": {"serve": 0, "train":
+                                    train_launches["onebit_encode_ef"]}}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
-                    replaces=sources[n][1], launches=launches[n],
+                    replaces=sources[n][1],
+                    launches=sum(by_path[n].values()),
+                    launches_by_path=by_path[n],
                     max_abs_err=worst[n], ms=timing[n]["ms"],
                     plain_ms=timing[n]["plain_ms"],
                     bound_ms=timing[n]["bound_ms"],
                     bound_by=timing[n]["bound_by"],
                     library_ms=timing[n]["library_ms"])
-               for n in ("flash_attention", "flash_decode")]
+               for n in ("flash_attention", "flash_decode",
+                         "onebit_encode_ef")]
     assert all(math.isfinite(x["ms"]) for x in kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)

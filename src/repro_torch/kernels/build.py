@@ -96,4 +96,7 @@ def library() -> ctypes.CDLL:
     lib.repro_flash_attention.restype = i32
     lib.repro_flash_decode.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.repro_flash_decode.restype = i32
+    lib.repro_onebit_encode_ef.argtypes = ([ptr] * 8 + [i32] * 2
+                                           + [ctypes.c_float, i32, ptr])
+    lib.repro_onebit_encode_ef.restype = i32
     return lib

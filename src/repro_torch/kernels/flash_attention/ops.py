@@ -2,8 +2,11 @@
 
 ``attention`` and ``decode`` check device, dtype, shape and contiguity,
 then dispatch on the tensors' device: a CUDA tensor launches the CUDA
-kernel (or raises), a CPU tensor takes the plain PyTorch version.  The
-trainable entry (``attention_grad``) comes with the training slice.
+kernel (or raises), a CPU tensor takes the plain PyTorch version.
+``attention_grad`` is the trainable entry the model routes through: its
+forward is the flash kernel and its backward replays the plain version
+(``attention_ref``) under autograd, as the JAX package's custom VJP does,
+so gradients are the reference math's.
 """
 from __future__ import annotations
 
@@ -57,6 +60,39 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
+class _AttentionGrad(torch.autograd.Function):
+    """Flash forward on the card; the backward differentiates
+    ``attention_ref`` on the saved q, k, v (there is no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad)
+        return dq, dk, dv, None, None
+
+
+def attention_grad(q, k, v, *, causal: bool = True, window: int = 0):
+    """``attention`` that autograd can differentiate: on the card the flash
+    kernel's output with the plain version's gradients; on the CPU the
+    plain version itself."""
+    _check(q, (k, v), "attention_grad")
+    if k.shape[1] != q.shape[1]:
+        raise ValueError("attention_grad: q and k/v need one sequence length")
+    window = window if causal else 0
+    if q.device.type == "cuda":
+        return _AttentionGrad.apply(q, k, v, causal, window)
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
 def decode(q, ck, cv, pos, *, window: int = 0):
     """q [B, 1, H, hd]; ck, cv [B, L, KV, hd]; pos [B] int (each row's own
     position) -> [B, 1, H, hd]."""
@@ -70,5 +106,5 @@ def decode(q, ck, cv, pos, *, window: int = 0):
     return decode_ref(q, ck, cv, pos, window=window)
 
 
-__all__ = ["LAUNCHES", "attention", "attention_ref", "decode", "decode_ref",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "attention", "attention_grad", "attention_ref",
+           "decode", "decode_ref", "reset_launches"]

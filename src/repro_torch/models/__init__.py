@@ -17,6 +17,8 @@ from repro_torch.configs.base import ModelConfig
 class Model:
     cfg: ModelConfig
     init: Callable          # (seed=0, dtype=..., device=...) -> params
+    loss_fn: Callable       # (params, batch, compute_dtype=...) -> (loss, metrics)
+    leaf_layout: Callable   # params -> LeafLayout (the JAX package's leaves)
     forward: Callable       # (params, tokens, **kw) -> (logits, caches | None)
     init_cache: Callable    # (batch, max_len, dtype, **kw) -> caches
     decode_step: Callable   # (params, caches, token, pos, **kw) -> (logits, caches)
@@ -32,6 +34,9 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda seed=0, dtype=torch.float32, device="cpu":
             T.init_params(cfg, seed, dtype, device),
+        loss_fn=lambda params, batch, compute_dtype=torch.bfloat16:
+            T.loss_fn(params, cfg, batch, compute_dtype),
+        leaf_layout=lambda params: T.leaf_layout(cfg, params),
         forward=lambda params, tokens, **kw: T.forward(params, cfg, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, **kw:
             T.init_cache(cfg, batch, max_len, dtype, **kw),

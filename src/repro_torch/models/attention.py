@@ -5,7 +5,8 @@ The plain PyTorch math below is the ``ref`` path; the kernel path routes
 through ``repro_torch.kernels.flash_attention`` (the CUDA kernels) by the
 backend seam: ``kernels.backend.resolve_backend`` turns the config's
 ``attn_backend`` (``"auto"`` by default) into ``kernel`` for CUDA tensors
-and ``ref`` for CPU tensors.
+and ``ref`` for CPU tensors.  The full-sequence kernel path goes through
+``attention_grad``, so training gets gradients through it.
 
 Cache layouts
 -------------
@@ -82,8 +83,8 @@ def attention_forward(p, x, positions, cfg, *, causal=True, window=0):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if resolve_backend(cfg.attn_backend, q) == "kernel":
-        out = FA.attention(q, k, v, causal=causal,
-                           window=window if causal else 0)
+        out = FA.attention_grad(q, k, v, causal=causal,
+                                window=window if causal else 0)
     else:
         S = q.shape[1]
         if not causal:

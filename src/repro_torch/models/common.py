@@ -1,5 +1,6 @@
 """Shared building blocks over plain dicts of tensors (the JAX package's
-``models/common.py``, dense / RMSNorm / RoPE / SwiGLU part).
+``models/common.py``, dense / RMSNorm / RoPE / SwiGLU / cross-entropy
+part).
 
 Weights keep the JAX layout: a dense weight is ``[in, out]`` and applies
 as ``x @ w``, so parameters carry over from the JAX package unchanged.
@@ -72,6 +73,25 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- loss
+def cross_entropy(logits, labels, mask=None, vocab_size: int | None = None):
+    """Mean next-token CE.  logits [..., Vpad]; labels [...] int.
+
+    ``vocab_size`` masks padded vocab entries (Vpad >= V); ``mask`` [...]
+    weights the tokens (the mean runs over the masked-in ones)."""
+    logits = logits.float()
+    if vocab_size is not None and logits.shape[-1] > vocab_size:
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(cols < vocab_size, logits, -1e9)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # ------------------------------------------------------------------ mlp

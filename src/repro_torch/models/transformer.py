@@ -4,8 +4,10 @@
 Parameters are plain dicts of tensors: ``embed [V, d]``,
 ``lm_head [d, V]`` (untied configs), ``final_norm`` and ``layers``, a
 list with one dict per layer.  The JAX package stacks layers into scan
-groups (``plan_segments``); here the stack is a Python loop, and
-``from_jax_params`` un-stacks a JAX parameter tree into this layout.
+groups (``plan_segments``); here the stack is a Python loop,
+``from_jax_params`` un-stacks a JAX parameter tree into this layout, and
+``leaf_layout`` maps it back onto the JAX package's leaves (the order the
+data-parallel engine plans, compresses and reduces gradients in).
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (dense, mlp_apply, mlp_init, norm_apply,
-                                       norm_init)
+from repro_torch.models.common import (cross_entropy, dense, mlp_apply,
+                                       mlp_init, norm_apply, norm_init)
 
 KINDS = ("attn",)
 
@@ -101,15 +104,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     return params
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nest of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def from_jax_params(cfg: ModelConfig, tree):
     """The JAX package's parameter tree (leaves as numpy arrays) -> the
     port's parameters (CPU tensors, same dtype).  Scan segments are
@@ -131,6 +125,39 @@ def from_jax_params(cfg: ModelConfig, tree):
     if "lm_head" in tree:
         params["lm_head"] = to_t(tree["lm_head"])
     return params
+
+
+def leaf_layout(cfg: ModelConfig, params) -> LeafLayout:
+    """The JAX package's parameter leaves over the port's ``params`` (or a
+    gradient tree of the same structure), in ``jax.tree.leaves`` order:
+    the top-level keys sorted, and within a scan segment, for each member
+    of the pattern, each layer parameter stacked over the segment's
+    groups.  Leaf names are the JAX key paths joined by ``/``."""
+    leaves = []
+
+    def add(prefix, bases):
+        """One leaf per tensor under ``bases[0]``, stacked over ``bases``."""
+        for path in leaf_paths(get_path(params, bases[0])):
+            leaves.append(("/".join(map(str, prefix + path)),
+                           tuple(b + path for b in bases)))
+
+    for key in sorted([k for k in params if k != "layers"] + ["segments"]):
+        if key != "segments":
+            add((key,), [(key,)])
+            continue
+        layer = 0
+        for si, seg in enumerate(plan_segments(cfg)):
+            if seg[0] == "plain":
+                add(("segments", si), [("layers", layer)])
+                layer += 1
+                continue
+            _, pattern, n_groups = seg
+            P = len(pattern)
+            for j in range(P):
+                add(("segments", si, j),
+                    [("layers", layer + j + g * P) for g in range(n_groups)])
+            layer += n_groups * P
+    return LeafLayout(tuple(n for n, _ in leaves), tuple(p for _, p in leaves))
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -159,6 +186,17 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
         if return_cache:
             caches.append(st)
     return _logits(params, cfg, x), (caches if return_cache else None)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16):
+    """Next-token CE.  batch: {tokens, labels[, mask, positions]}.  Returns
+    (loss, {"ce", "aux"}); the dense decoder has no auxiliary loss."""
+    logits, _ = forward(params, cfg, batch["tokens"],
+                        positions=batch.get("positions"),
+                        compute_dtype=compute_dtype)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
+                       vocab_size=cfg.vocab_size)
+    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
 
 def prefill(params, cfg: ModelConfig, tokens, positions=None,

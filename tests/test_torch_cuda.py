@@ -6,7 +6,12 @@ without one) and imports no JAX, so the file runs on the card's host:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: fp32 within 1e-4 (the summation order differs); bf16 within
-2e-2 (one bf16 ulp at |out| ~ 2, fp32 accumulation on both sides).
+2e-2 (one bf16 ulp at |out| ~ 2, fp32 accumulation on both sides).  The
+1-bit encode: signs exactly equal, the fp32 outputs within 2e-5 of the
+row's largest |c_in| (bin sums over rows up to 32000 long, in another
+order).  The training tests also check that gradients reach the
+attention projections through the flash kernel, and the reduced
+BENCH_pr10.json recipe's wire bytes and bucket count on the card.
 """
 import dataclasses
 
@@ -104,3 +109,110 @@ def test_model_kernel_path_matches_ref_path(cuda):
         outs.append(torch.cat(seq, 1))
     assert _err(outs[0], outs[1]) <= 1e-4
     assert torch.equal(outs[0].argmax(-1), outs[1].argmax(-1))
+
+
+# ------------------------------------------------------------ training
+ONEBIT_TOL = 2e-5        # of the row's largest |c_in|: bin-sum order
+
+
+@pytest.mark.parametrize("R,C,has_e,has_valid,symmetric", [
+    (2048, 32000, True, False, False),      # lm_head leaf
+    (22, 2048, True, False, False),         # stacked norms
+    (300, 5632, True, True, False),         # w_gate rows, masked
+    (1000, 256, True, False, True),         # flat symmetric layout
+    (513, 256, False, True, False),         # codec: e=None + valid
+    (64, 128, True, False, False), (33, 200, True, True, True),
+    (9, 130, True, False, False),           # C % 4 != 0: scalar path
+])
+def test_onebit_encode_ef_matches_plain(cuda, R, C, has_e, has_valid,
+                                        symmetric):
+    from repro_torch.kernels import onebit as K1
+    gen = torch.Generator(device=cuda).manual_seed(R + C)
+    g = _randn(gen, torch.float32, R, C)
+    e = _randn(gen, torch.float32, R, C) if has_e else None
+    valid = _randn(gen, torch.float32, R, C) > -0.5 if has_valid else None
+    K1.reset_launches()
+    kern = K1.encode_ef(g, e, valid, gain=2.0, symmetric=symmetric)
+    plain = K1.onebit_encode_ef_ref(g, e, valid, gain=2.0,
+                                    symmetric=symmetric)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES["onebit_encode_ef"] == 1
+    assert torch.equal(kern[0], plain[0])
+    scale = (g if e is None else g + 2.0 * e).abs().amax(-1, keepdim=True)
+    for a, b in zip(kern[1:], plain[1:]):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert ((a - b).abs() / scale).max().item() <= ONEBIT_TOL
+
+
+def test_attention_grad_matches_plain_gradients(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, torch.float32, 2, 256, 32, 64)
+    k, v = (_randn(gen, torch.float32, 2, 256, 4, 64) for _ in range(2))
+    dout = _randn(gen, torch.float32, 2, 256, 32, 64)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.reset_launches()
+    out = FA.attention_grad(*leaves, window=64)
+    out.backward(dout)
+    assert FA.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(out, FA.attention(q, k, v, window=64))
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.attention_ref(*ref, window=64).backward(dout)
+    for a, b in zip(leaves, ref):
+        assert _err(a.grad, b.grad) <= 1e-5
+
+
+def test_model_backward_through_kernel_path(cuda):
+    """The flash kernel sits on the model's training forward on the card,
+    and the attention projections still get their gradients (the kernel
+    call is an autograd Function): within 1e-4 of the plain path's."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.train import value_and_grad
+    cfg = get_config("tinyllama-1.1b").reduced(num_kv_heads=2)
+    grads = []
+    for c in (cfg, dataclasses.replace(cfg, attn_backend="ref")):
+        model = build_model(c)
+        params = model.init(seed=0, device=cuda)
+        batch = make_lm_batches(LMDataConfig(vocab_size=c.vocab_size,
+                                             seq_len=32, batch_size=2),
+                                device=cuda)(0, 0)
+        FA.reset_launches()
+        _, g = value_and_grad(lambda p, b: model.loss_fn(
+            p, b, compute_dtype=torch.float32))(params, batch)
+        grads.append(g)
+        assert FA.LAUNCHES["flash_attention"] == (
+            cfg.num_layers if c is cfg else 0)
+    for layer_k, layer_r in zip(grads[0]["layers"], grads[1]["layers"]):
+        for name in ("wq", "wk", "wv"):
+            gk = layer_k["mixer"][name]["w"]
+            assert gk is not None and gk.abs().sum() > 0
+            assert _err(gk, layer_r["mixer"][name]["w"]) <= 1e-4
+
+
+@pytest.mark.parametrize("spec,wire", [("bsp/allreduce/none@8", 14700544),
+                                       ("bsp/allreduce/onebit@8", 631744)])
+def test_engine_on_card_bench_recipe(cuda, spec, wire):
+    """The BENCH_pr10.json recipe through the kernels on the card: wire
+    bytes and buckets exact (they do not depend on the init)."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.kernels import onebit as K1
+    from repro_torch.train import Strategy, value_and_grad
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=16, batch_size=2),
+                              device=cuda)
+    engine = Strategy.parse(spec, lr=0.01, bucket_mb=0.25).build(
+        value_and_grad(lambda p, b: model.loss_fn(
+            p, b, compute_dtype=torch.float32)),
+        layout=model.leaf_layout(params), device=cuda)
+    K1.reset_launches()
+    FA.reset_launches()
+    _, hist, got = engine.run(params, batches, 2)
+    assert got // 2 == wire
+    assert engine.inner.modeled_timeline(params)["n_buckets"] == 7
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
+    assert FA.LAUNCHES["flash_attention"] == cfg.num_layers * 8 * 2
+    n_leaves = len(model.leaf_layout(params).names)
+    assert K1.LAUNCHES["onebit_encode_ef"] == (
+        n_leaves * 8 * 2 if spec.endswith("onebit@8") else 0)

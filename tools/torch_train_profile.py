@@ -1,0 +1,99 @@
+"""Where the port's training time goes on the GPU.
+
+Full-width TinyLlama-1.1B in fp32 (seeded weights), the
+``bsp/allreduce/onebit@4`` step of ``chip_smoke.py`` (batch 2 x seq 256
+per worker, lr 0.01, bucket_mb 4): one warm-up step, the wall time of
+``STEPS`` unprofiled steps (host clock around work that ends in a
+synchronize), then one step under ``torch.profiler`` for the device's
+busy share, the device time of each phase of the step (the engine's
+``record_function`` ranges) and the kernels that take it.
+
+    PYTHONPATH=src python tools/torch_train_profile.py
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.data import LMDataConfig, make_lm_batches
+from repro_torch.models import build_model
+from repro_torch.train import Strategy, value_and_grad
+
+SPEC, BATCH, SEQ, STEPS = "bsp/allreduce/onebit@4", 2, 256, 3
+PHASES = ("forward_backward", "stack_and_compress", "allreduce",
+          "sgd_update")
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total", None) or getattr(
+        evt, "self_cuda_time_total", 0.0)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    strat = Strategy.parse(SPEC, lr=0.01)
+    engine = strat.build(
+        value_and_grad(lambda p, b: model.loss_fn(
+            p, b, compute_dtype=torch.float32)),
+        layout=model.leaf_layout(params), device=dev)
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=SEQ, batch_size=BATCH),
+                              device=dev)
+    st = engine.init(params)
+    del params
+    st, _ = engine.step(st, batches, 0)                  # warm-up
+    walls = []
+    for t in range(1, 1 + STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = engine.step(st, batches, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_s = min(walls)
+    tokens = strat.workers * BATCH * SEQ
+    print(f"{SPEC} step: wall {[round(w * 1e3, 1) for w in walls]} ms, "
+          f"{tokens / wall_s:.1f} tokens/s at the fastest")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, _ = engine.step(st, batches, 1 + STEPS)
+        torch.cuda.synchronize()
+    # on the device's timeline a record_function range shows up as an
+    # event of its own beside the kernels it covers: the phases are read
+    # from those, and the busy time from the kernels alone
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    phases = {e.key: e for e in on_device if e.key in PHASES}
+    kernels = [e for e in on_device if e.key not in PHASES]
+    busy_s = sum(_device_us(e) for e in kernels) * 1e-6
+    print(f"profiled step against the fastest unprofiled wall "
+          f"{wall_s * 1e3:.1f} ms: device busy {busy_s * 1e3:.1f} ms = "
+          f"{100 * busy_s / wall_s:.1f}% (idle "
+          f"{100 * (1 - busy_s / wall_s):.1f}%), "
+          f"{sum(e.count for e in kernels)} device ops")
+    for name in PHASES:
+        if name in phases:
+            e = phases[name]
+            print(f"  phase {name:20s} {_device_us(e) * 1e-3:9.3f} ms on "
+                  f"the device's timeline ({e.count}x)")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
+        print(f"  {_device_us(e) * 1e-3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
