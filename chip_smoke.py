@@ -58,8 +58,29 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              difference to the next step instead of losing it).
  8. reduced  the BENCH_pr10.json recipe on the card (reduced TinyLlama,
              seq 16, batch 2, lr 0.01, bucket_mb 0.25, 2 steps) for
-             bsp/allreduce/{none,onebit}@8: wire bytes per step exactly
-             14700544 and 631744, 7 buckets (neither depends on the init).
+             bsp/allreduce/{none,onebit,dgc:0.05}@8: wire bytes per step
+             exactly 14700544, 631744 and 2101312, 7 buckets (none depends
+             on the init).
+ 9. measured full-width TinyLlama-1.1B in fp32, as phase 7, with the
+             encoded payloads inside the exchange schedule
+             (wire="measured"): bsp/ring/onebit@4 for 3 steps (measured
+             bytes at most 0.25x the fp32 ring's, the JAX package's
+             acceptance bound), bsp/ring/{terngrad,qsgd,dgc}@4 for 2 steps,
+             and bsp/allreduce/terngrad@4 with wire="modeled" (the path to
+             terngrad_compress) for 2 steps.  Counts are zeroed just before
+             and read just after each run; every kernel of the slice must
+             have launched.  Each run again on the plain path, same
+             generators: each step's loss within 1e-3 of the kernel
+             path's, as in phase 7.
+
+Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
+and qsgd_compress against their plain versions at full-width shapes (the
+compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
+segment; a ring chunk of it at @4, 4 segments of [247808, 256]; and a
+ragged C = 200): planes and outputs exactly equal, given the same
+per-segment scalars and uniform draws.  It checks the quantile threshold
+on the card against a float64 sort with the float32 position rule.
+Phase 4 times the four at [991232, 256].
 
 The last lines are the kernels JSON, the nvidia-smi line and the result.
 """
@@ -91,6 +112,21 @@ TRAIN_B, TRAIN_S = 2, 256          # per-worker batch and sequence
 ONEBIT_SHAPES = ((2048, 32000), (123904, 2048), (45056, 5632), (22, 2048))
 ONEBIT_FLOP_PER_ELEM = 5           # c_in (2), c_true, bin sum, new_e
 ONEBIT_BYTES_PER_ELEM = 17         # read g, e; write sign, out, new_e
+# the stacked w_down leaf (22 x 5632 x 2048) in the compressor's flat
+# 256-lane layout, and one ring chunk of it per worker at @4
+W_DOWN_ROWS, RING_ROWS = 991232, 247808
+# per element: topk reads g, e and writes out, new_e; terngrad and qsgd
+# read g, u and write one int8.  Operations: topk add, abs, compare,
+# select, sub; terngrad clip (2), abs, divide, compare, sign, product;
+# qsgd abs, divide, multiply, floor, sub, compare, add, clip (2), sign,
+# product
+SEGMENT_KERNELS = {"topk_compress": (16, 5), "terngrad_ternarize": (9, 5),
+                   "terngrad_compress": (9, 7), "qsgd_compress": (9, 11)}
+MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
+                 ("bsp/ring/terngrad@4", "measured", 2),
+                 ("bsp/ring/qsgd@4", "measured", 2),
+                 ("bsp/ring/dgc@4", "measured", 2),
+                 ("bsp/allreduce/terngrad@4", "modeled", 2))
 
 
 def phase(name):
@@ -141,6 +177,10 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import onebit as K1
+    from repro_torch.kernels import qsgd as KQ
+    from repro_torch.kernels import terngrad as KT
+    from repro_torch.kernels import topk as KK
+    from repro_torch.kernels.terngrad.ref import std0
     from repro_torch.kernels.flash_attention.ref import decode_mask
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
@@ -232,6 +272,57 @@ def main() -> int:
         assert err <= ONEBIT_TOL, "onebit_encode_ef disagrees with plain"
         worst["onebit_encode_ef"] = max(worst["onebit_encode_ef"], abs_err)
         del g, e, valid, kern, plain, cin
+    torch.cuda.empty_cache()
+
+    for name in SEGMENT_KERNELS:
+        worst[name] = 0.0
+    for R, C, S in ((W_DOWN_ROWS, 256, 1), (4 * RING_ROWS, 256, 4),
+                    (4096, 200, 4)):
+        g = randn(R, C, dtype=torch.float32)
+        e = 0.3 * randn(R, C, dtype=torch.float32)
+        u = torch.rand(R, C, generator=gen, device=dev)
+        th = KK.threshold_for_density(g, e, 0.01, segments=S)
+        # the codec's terngrad scale: max|clip(g)| per segment
+        s_seg = torch.minimum(g.reshape(S, -1).abs().amax(1),
+                              2.5 * std0(g.reshape(S, -1), dim=1))
+        pairs = {
+            "topk_compress": (KK.sparsify(g, e, th), KK.topk_ref(g, e, th)),
+            "terngrad_ternarize": ((KT.ternarize(g, u, s_seg),),
+                                   (KT.ternarize_ref(g, u, s_seg),)),
+            "terngrad_compress": (KT.compress(g, u, clip_sigma=2.5),
+                                  KT.terngrad_ref(g, u, 2.5)),
+            "qsgd_compress": (KQ.quantize(g, u, segments=S),
+                              KQ.qsgd_ref(g, u, 127, S))}
+        for name, (kern, plain) in pairs.items():
+            equal = all(torch.equal(a, b) for a, b in zip(kern, plain))
+            err = max(max_err(a, b) for a, b in zip(kern, plain))
+            kept = (kern[0] != 0).float().mean().item()
+            print(f"{name} [{R}, {C}] segments={S}: outputs equal to the "
+                  f"plain version's {equal}, max_abs_err {err:.3e}, nonzero "
+                  f"share {kept:.4f}")
+            assert equal, f"{name} differs from its plain version"
+            worst[name] = max(worst[name], err)
+        del g, e, u, pairs
+    torch.cuda.empty_cache()
+
+    # the quantile threshold against a float64 sort of the same data with
+    # the float32 position rule: they differ only in the last rounding
+    x = randn(4, RING_ROWS * 256, dtype=torch.float32)
+    for density in (0.01, 0.05):
+        card = KK.threshold_for_density(x, None, density, segments=4)
+        n = x.shape[1]
+        pos = np.float32(1.0 - density) * (np.float32(n) - np.float32(1))
+        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+        hw = float(pos - np.float32(lo))
+        srt = torch.sort(x.abs().double(), dim=1).values
+        ref = srt[:, lo] * (1 - hw) + srt[:, hi] * hw
+        del srt
+        rel = ((card.double() - ref).abs() / ref).max().item()
+        print(f"threshold_for_density [4, {n}] density {density}: card "
+              f"{card.tolist()}, float64 sort {ref.tolist()}, max relative "
+              f"difference {rel:.3e} (tol 1.2e-7: one fp32 rounding)")
+        assert rel <= 1.2e-7
+    del x
     torch.cuda.empty_cache()
 
     q = randn(TRAIN_B, TRAIN_S, H, HD, dtype=torch.float32)
@@ -362,6 +453,31 @@ def main() -> int:
           f" {step['nbytes']} B)")
     torch.cuda.empty_cache()
 
+    # the slice's four elementwise kernels at the compressor's flat layout
+    # of the stacked w_down leaf; the wrappers' reductions (std, max|g|,
+    # the l2 norm) are part of the function and of the time
+    R = W_DOWN_ROWS
+    g, e = randn(R, 256, dtype=f32), 0.3 * randn(R, 256, dtype=f32)
+    u = torch.rand(R, 256, generator=gen, device=dev)
+    th = KK.threshold_for_density(g, e, 0.01)
+    s_one = g.abs().amax()
+    calls = {
+        "topk_compress": (lambda: KK.sparsify(g, e, th),
+                          lambda: KK.topk_ref(g, e, th)),
+        "terngrad_ternarize": (lambda: KT.ternarize(g, u, s_one),
+                               lambda: KT.ternarize_ref(g, u, s_one)),
+        "terngrad_compress": (lambda: KT.compress(g, u, clip_sigma=2.5),
+                              lambda: KT.terngrad_ref(g, u, 2.5)),
+        "qsgd_compress": (lambda: KQ.quantize(g, u),
+                          lambda: KQ.qsgd_ref(g, u))}
+    for name, (kern_fn, plain_fn) in calls.items():
+        per_byte, per_op = SEGMENT_KERNELS[name]
+        measure(name, f"fp32 [{R}, 256], the stacked w_down leaf",
+                kern_fn, plain_fn, None, per_byte * R * 256,
+                per_op * R * 256, F32_FLOPS)
+    del g, e, u, calls
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- 5 serve
     phase("serve full-width TinyLlama-1.1B")
     t0 = time.perf_counter()
@@ -442,10 +558,10 @@ def main() -> int:
                                            seq_len=TRAIN_S,
                                            batch_size=TRAIN_B), device=dev)
 
-    def train(kernels: bool):
-        """3 steps through Trainer.fit; returns (losses, step ms, peak
-        bytes, wire bytes).  Step boundaries are read where the engine
-        asks for worker 0's batch, after a synchronize."""
+    def train(kernels: bool, strat=strat, steps=TRAIN_STEPS):
+        """``steps`` steps through Trainer.fit; returns (losses, step ms,
+        peak bytes, wire bytes, layout, metrics).  Step boundaries are read
+        where the engine asks for worker 0's batch, after a synchronize."""
         m_ = model if kernels else build_model(
             dataclasses.replace(cfg, attn_backend="ref"))
         st_ = strat if kernels else dataclasses.replace(strat,
@@ -465,7 +581,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _, hist, mets = Trainer(st_, device=dev).fit(
-            grad_fn, p_, timed_batches, TRAIN_STEPS, layout=layout)
+            grad_fn, p_, timed_batches, steps, layout=layout)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         del p_
@@ -473,11 +589,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         return ([h["loss"] for h in hist],
                 [1e3 * (b - a) for a, b in zip(marks, marks[1:])], peak,
-                mets["wire_bytes"], layout)
+                mets["wire_bytes"], layout, mets)
 
     FA.reset_launches()
     K1.reset_launches()
-    losses, step_ms, peak, wire, layout = train(kernels=True)
+    losses, step_ms, peak, wire, layout, _ = train(kernels=True)
     train_launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
                       "onebit_encode_ef": K1.LAUNCHES["onebit_encode_ef"]}
     tokens = K * TRAIN_B * TRAIN_S
@@ -496,7 +612,7 @@ def main() -> int:
 
     FA.reset_launches()
     K1.reset_launches()
-    plain_losses, plain_ms, plain_peak, _, _ = train(kernels=False)
+    plain_losses, plain_ms, plain_peak, _, _, _ = train(kernels=False)
     assert FA.LAUNCHES["flash_attention"] == 0, "plain path ran a kernel"
     assert K1.LAUNCHES["onebit_encode_ef"] == 0, "plain path ran a kernel"
     diffs = [abs(a - b) for a, b in zip(losses, plain_losses)]
@@ -519,7 +635,8 @@ def main() -> int:
     rgrad = value_and_grad(
         lambda pp, b: rmodel.loss_fn(pp, b, compute_dtype=f32))
     for spec, want in (("bsp/allreduce/none@8", 14700544),
-                       ("bsp/allreduce/onebit@8", 631744)):
+                       ("bsp/allreduce/onebit@8", 631744),
+                       ("bsp/allreduce/dgc:0.05@8", 2101312)):
         engine = Strategy.parse(spec, lr=0.01, bucket_mb=0.25).build(
             rgrad, layout=rmodel.leaf_layout(rparams), device=dev)
         _, hist, wire = engine.run(rparams, rbatches, 2)
@@ -529,6 +646,64 @@ def main() -> int:
         assert wire // 2 == want and n_buckets == 7
         assert all(math.isfinite(h["loss"]) for h in hist)
 
+    # ---------------------------------------------------------- 9 measured
+    slice_mods = (FA, K1, KK, KT, KQ)
+
+    def reset_all():
+        for mod in slice_mods:
+            mod.reset_launches()
+
+    def read_all():
+        return {k: v for mod in slice_mods for k, v in mod.LAUNCHES.items()}
+
+    measured_launches = dict.fromkeys(read_all(), 0)
+    for spec, wire_mode, steps in MEASURED_RUNS:
+        phase(f"train full-width TinyLlama-1.1B: {spec}, wire={wire_mode}, "
+              "fp32")
+        mstrat = Strategy.parse(spec, lr=0.01, wire=wire_mode)
+        reset_all()
+        losses, step_ms, peak, wire, _, mets = train(True, mstrat, steps)
+        run_launches = read_all()
+        for name, count in run_launches.items():
+            measured_launches[name] += count
+        for t, (loss, ms) in enumerate(zip(losses, step_ms)):
+            print(f"step {t}: loss {loss:.6f}, wall {ms:.1f} ms = "
+                  f"{tokens / ms * 1e3:.1f} tokens/s")
+        ratio = mets["measured_step_tx_bytes"] / mets["fp32_step_tx_bytes"]
+        print(f"wire {wire // steps} B/step over {K} workers; per worker "
+              f"measured_step_tx_bytes {mets['measured_step_tx_bytes']} "
+              f"against fp32_step_tx_bytes {mets['fp32_step_tx_bytes']} = "
+              f"{ratio:.4f} (shape-static part); peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches {run_launches}")
+        assert all(math.isfinite(x) for x in losses) and len(losses) == steps
+        assert wire > 0
+        assert run_launches["flash_attention"] == cfg.num_layers * K * steps
+        method = mstrat.compressor.method
+        want = {"onebit": ("onebit_encode_ef",),
+                "terngrad": ("terngrad_ternarize",) if wire_mode == "measured"
+                else ("terngrad_compress",),
+                "qsgd": ("qsgd_compress",),
+                "dgc": ("topk_compress", "onebit_encode_ef")}[method]
+        assert all(run_launches[name] > 0 for name in want), want
+        if wire_mode == "modeled":
+            assert run_launches["terngrad_compress"] == \
+                len(layout.names) * K * steps
+        if method == "onebit":
+            assert ratio <= 0.25, "measured bytes above the JAX bound"
+        reset_all()
+        plain, plain_ms, plain_peak, plain_wire, _, _ = train(False, mstrat,
+                                                              steps)
+        assert not any(read_all().values()), "plain path ran a kernel"
+        diffs = [abs(a - b) for a, b in zip(losses, plain)]
+        print(f"kernel path losses {losses}; plain path losses {plain}, "
+              f"wall {[round(x, 1) for x in plain_ms]} ms, peak "
+              f"{plain_peak / 2**30:.2f} GiB, wire {plain_wire // steps} "
+              f"B/step; |kernel - plain| per step "
+              f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
+        assert max(diffs) <= 1e-3, "kernel path drifts from the plain path"
+    del model
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -536,12 +711,19 @@ def main() -> int:
                "flash_decode": (src + "flash_decode.cu",
                                 "src/repro/kernels/flash_attention/flash_attention.py:160"),
                "onebit_encode_ef": (src + "onebit_encode_ef.cu",
-                                    "src/repro/kernels/onebit/fused.py:75")}
-    by_path = {"flash_attention": {"serve": launches["flash_attention"],
-                                   "train": train_launches["flash_attention"]},
-               "flash_decode": {"serve": launches["flash_decode"], "train": 0},
-               "onebit_encode_ef": {"serve": 0, "train":
-                                    train_launches["onebit_encode_ef"]}}
+                                    "src/repro/kernels/onebit/fused.py:75"),
+               "topk_compress": (src + "topk_compress.cu",
+                                 "src/repro/kernels/topk/topk.py:24"),
+               "terngrad_ternarize": (src + "terngrad.cu",
+                                      "src/repro/kernels/terngrad/terngrad.py:27"),
+               "terngrad_compress": (src + "terngrad.cu",
+                                     "src/repro/kernels/terngrad/terngrad.py:55"),
+               "qsgd_compress": (src + "qsgd_compress.cu",
+                                 "src/repro/kernels/qsgd/qsgd.py:21")}
+    by_path = {name: {"serve": launches.get(name, 0),
+                      "train": train_launches.get(name, 0),
+                      "measured": measured_launches[name]}
+               for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=sum(by_path[n].values()),
@@ -551,8 +733,7 @@ def main() -> int:
                     bound_ms=timing[n]["bound_ms"],
                     bound_by=timing[n]["bound_by"],
                     library_ms=timing[n]["library_ms"])
-               for n in ("flash_attention", "flash_decode",
-                         "onebit_encode_ef")]
+               for n in sources]
     assert all(math.isfinite(x["ms"]) for x in kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,6 +1,5 @@
 """``CommPlan``: the communication plan every gradient exchange of the
-port executes (the JAX package's ``comm/plan.py``, ``wire="modeled"``
-part).
+port executes (the JAX package's ``comm/plan.py``).
 
 A plan is built once per (leaf shapes × worker count) and owns:
 
@@ -10,30 +9,47 @@ A plan is built once per (leaf shapes × worker count) and owns:
     exchange and the analytic timeline so they cannot drift apart;
   * the **topology** schedule each bucket is reduced with
     (``comm.transport``), over the worker axis;
-  * the ``wire`` mode.  ``modeled``: compression happens per worker
-    before the exchange (``Compressor.roundtrip``), the schedule moves
-    full-precision payloads, and wire bytes are the compressor's analytic
-    accounting.  ``measured`` (encoded planes inside the schedule:
-    ``exchange``, ``ps_exchange`` and the measured byte models) is ROADMAP
-    queue A item 4, and raises.
+  * the **codec** (``comm.codecs``) and the ``wire`` mode:
+
+      wire="modeled"   compression happens per worker before the exchange
+                       (``Compressor.roundtrip``), the schedule moves
+                       full-precision payloads (``reduce_grads``), and wire
+                       bytes are the compressor's analytic accounting.
+      wire="measured"  the schedule itself carries encoded planes
+                       (``exchange``: encode -> permute -> decode-
+                       accumulate, per-worker EF for the lossy hops), and
+                       wire bytes are counted from those planes: the
+                       shape-static parts from the plan
+                       (``measured_step_tx_bytes``), dgc's data-dependent
+                       sparse elements per step from the ``sent_elems``
+                       the exchange returns.
+
+  ``bsp/*/none`` is identical under both modes: the exact codec routes
+  through the full-precision schedules, bit for bit.
+
+Not ported yet: ``ps_exchange`` (``arch="ps"``, ROADMAP queue A item 6),
+the bf16 reduce words (``reduce_dtype``, item 8) and the trace spans
+``hop_model`` / ``emit_trace`` (item 1, with the port's ``obs/trace.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.comm.transport import SCHEDULES
+from repro_torch.comm.codecs import SPARSE_ELEM_BYTES, SegmentCodec, codec_for
+from repro_torch.comm.transport import (SCHEDULES, compressed_allreduce,
+                                        compressed_allreduce_ef,
+                                        fp32_schedule_bytes, pad_for_schedule,
+                                        schedule_tx_bytes)
 from repro_torch.core.comm_scheduler import (LayerCost, LinkModel, bucketize,
                                              random_order, schedule_no_overlap,
                                              schedule_overlap, tictac_order)
 from repro_torch.core.compression import Compressor
 
 WIRE_MODES = ("modeled", "measured")
-_MEASURED = ("wire='measured' (codec payloads inside the schedule) is not "
-             "ported yet: ROADMAP queue A item 4")
 
 Shape = Tuple[int, ...]
 
@@ -99,8 +115,6 @@ class CommPlan:
              seed: int = 0, link: LinkModel = LinkModel()) -> "CommPlan":
         if wire not in WIRE_MODES:
             raise ValueError(f"wire={wire!r} (want {WIRE_MODES})")
-        if wire == "measured":
-            raise NotImplementedError(_MEASURED)
         if topology not in SCHEDULES:
             raise ValueError(f"unknown topology {topology!r}")
         shapes = [tuple(s) for s in leaf_shapes]
@@ -110,8 +124,41 @@ class CommPlan:
                    buckets=buckets, order=order_idx, fused=fused,
                    leaf_shapes=shapes, link=link)
 
+    # ------------------------------------------------------------ derived
+    @property
+    def codec(self) -> SegmentCodec:
+        return codec_for(self.compressor)
+
+    @property
+    def in_schedule(self) -> bool:
+        """True when payloads are encoded inside the schedule (measured
+        wire mode with a lossy method)."""
+        return self.wire == "measured" and self.compressor.method != "none"
+
     def bucket_len(self, b: int) -> int:
         return sum(_numel(self.leaf_shapes[i]) for i in self.buckets[b])
+
+    def _fuse(self, lists: List[List[torch.Tensor]], b: int,
+              length: int) -> torch.Tensor:
+        """Bucket ``b`` of every worker's leaves as one fp32 [n, length]
+        tensor (zero-padded past the bucket).  The fused leaves are
+        dropped from ``lists``, so the workers' tensors leave memory as
+        the exchange proceeds."""
+        if len(lists) != self.n:
+            raise ValueError(f"plan is for {self.n} workers, got "
+                             f"{len(lists)}")
+        idxs = self.buckets[b]
+        L = self.bucket_len(b)
+        ref = lists[0][idxs[0]]
+        flat = torch.empty((self.n, length), dtype=torch.float32,
+                           device=ref.device)
+        flat[:, L:] = 0
+        for w, leaves in enumerate(lists):
+            torch.cat([leaves[i].float().reshape(-1) for i in idxs],
+                      out=flat[w, :L])
+            for i in idxs:
+                leaves[i] = None
+        return flat
 
     # ------------------------------------------------- exact (fp32) ops
     def reduce_grads(self, grads: List[List[torch.Tensor]]
@@ -122,30 +169,57 @@ class CommPlan:
         one [n, L] tensor, reduced by the topology schedule over the worker
         axis and divided by n; every worker holds the same mean, and the
         mean leaves come back once.  The bucket's leaves are dropped from
-        ``grads`` as soon as they are fused, so the workers' gradients
-        leave memory as the exchange proceeds."""
-        if len(grads) != self.n:
-            raise ValueError(f"plan is for {self.n} workers, got "
-                             f"{len(grads)}")
+        ``grads`` as soon as they are fused."""
         reduce_leaf = SCHEDULES[self.topology]
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
         for b in self.order:                   # the executed schedule
-            idxs = self.buckets[b]
-            ref = grads[0][idxs[0]]
-            flat = torch.empty((self.n, self.bucket_len(b)),
-                               dtype=torch.float32, device=ref.device)
-            for w, leaves in enumerate(grads):
-                torch.cat([leaves[i].float().reshape(-1) for i in idxs],
-                          out=flat[w])
-                for i in idxs:
-                    leaves[i] = None
+            flat = self._fuse(grads, b, self.bucket_len(b))
             red = reduce_leaf(flat)[0] / self.n
             del flat
-            scatter_flat(red, idxs, self.leaf_shapes, out)
+            scatter_flat(red, self.buckets[b], self.leaf_shapes, out)
         return out
 
-    def exchange(self, *args, **kwargs):
-        raise NotImplementedError(_MEASURED)
+    # ---------------------------------------- codec-in-schedule exchange
+    def exchange(self, grads: List[List[torch.Tensor]],
+                 ef: Optional[List[List[torch.Tensor]]], gen=None):
+        """Mean-allreduce with encoded payloads inside the topology
+        schedule.  ``grads[w]`` and ``ef[w]`` (None for the stateless
+        quantizers) are worker w's leaf lists, consumed bucket by bucket;
+        ``gen`` drives the stochastic codecs.  Returns ``(mean leaves,
+        new ef lists or None, sent_elems [n])``; ``measured_bytes`` of the
+        summed ``sent_elems`` is dgc's per-step sparse payload."""
+        comp, codec = self.compressor, self.codec
+        gain = comp.ef_gain if comp.method == "onebit" else 1.0
+        out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
+        new_ef = (None if ef is None else
+                  [[None] * len(self.leaf_shapes) for _ in range(self.n)])
+        sent = None
+        for b in self.order:
+            idxs = self.buckets[b]
+            L = self.bucket_len(b)
+            P = pad_for_schedule(L, self.n)
+            g_flat = self._fuse(grads, b, P)
+            if ef is not None:
+                # the transport applies the (over-relaxed) compensation,
+                # runs fused encode+EF hops and returns the telescoped
+                # next-step residual
+                e_flat = self._fuse(ef, b, P)
+                red, new_e, nz = compressed_allreduce_ef(
+                    g_flat, e_flat, self.topology, codec, gen, gain=gain)
+                del e_flat
+                for w in range(self.n):
+                    scatter_flat(new_e[w, :L], idxs, self.leaf_shapes,
+                                 new_ef[w])
+                del new_e
+            else:
+                red, _, nz = compressed_allreduce(g_flat, self.topology,
+                                                  codec, gen)
+            del g_flat
+            sent = nz if sent is None else sent + nz
+            # every worker decodes the same sum: worker 0's is the mean
+            scatter_flat(red[0, :L] / self.n, idxs, self.leaf_shapes, out)
+            del red
+        return out, new_ef, sent
 
     def ps_exchange(self, *args, **kwargs):
         raise NotImplementedError(
@@ -169,7 +243,30 @@ class CommPlan:
         return sum(self.compressor.wire_bytes(s) for s in self.leaf_shapes)
 
     def measured_step_tx_bytes(self, arch: str = "allreduce") -> int:
-        raise NotImplementedError(_MEASURED)
+        """Shape-static measured bytes ONE worker puts on the wire per BSP
+        step, recomputed per bucket from the plan.  For the exact codec
+        this is the fp32 schedule.  Add ``measured_bytes(sent_elems)`` for
+        dgc."""
+        if arch != "allreduce":
+            raise NotImplementedError(
+                "arch='ps' is not ported yet: ROADMAP queue A item 6")
+        codec = self.codec if self.in_schedule else codec_for(
+            Compressor("none"))
+        return int(sum(
+            schedule_tx_bytes(self.topology, self.n,
+                              pad_for_schedule(self.bucket_len(b), self.n),
+                              codec)
+            for b in range(len(self.buckets))))
+
+    def measured_bytes(self, sent_elems: int) -> int:
+        """Data-dependent measured bytes of ``sent_elems`` sparse elements
+        (dgc's per-step payload)."""
+        return int(sent_elems) * SPARSE_ELEM_BYTES
 
     def fp32_step_tx_bytes(self) -> int:
-        raise NotImplementedError(_MEASURED)
+        """The full-precision schedule's per-worker tx bytes per step: the
+        baseline compressed-payload ratios are quoted against."""
+        return int(sum(
+            fp32_schedule_bytes(self.topology, self.n,
+                                pad_for_schedule(self.bucket_len(b), self.n))
+            for b in range(len(self.buckets))))

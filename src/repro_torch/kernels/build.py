@@ -99,4 +99,10 @@ def library() -> ctypes.CDLL:
     lib.repro_onebit_encode_ef.argtypes = ([ptr] * 8 + [i32] * 2
                                            + [ctypes.c_float, i32, ptr])
     lib.repro_onebit_encode_ef.restype = i32
+    lib.repro_topk_compress.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.repro_topk_compress.restype = i32
+    lib.repro_terngrad.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    lib.repro_terngrad.restype = i32
+    lib.repro_qsgd_compress.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.repro_qsgd_compress.restype = i32
     return lib

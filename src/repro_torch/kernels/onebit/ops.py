@@ -1,5 +1,5 @@
 """Public entries of the 1-bit kernel: ``encode_ef`` through the backend
-seam, and the wire-byte accounting of the 1-bit format."""
+seam, the wire format's bit packing and its wire-byte accounting."""
 from __future__ import annotations
 
 import torch
@@ -33,11 +33,37 @@ def encode_ef(g, e=None, valid=None, *, gain: float = 1.0,
     return onebit_encode_ef_ref(g, e, valid, gain=gain, symmetric=symmetric)
 
 
+def pack_bits(signs):
+    """int8 signs {-1, +1} [..., C] (C % 32 == 0) -> int32 words
+    [..., C // 32]: the on-the-wire format, 1 bit per gradient element.
+
+    Bit ``j`` of word ``w`` is ``signs[..., 32 w + j] > 0``, the JAX
+    package's ``uint32`` layout.  The words are held as int32 with the
+    same 32 bits (torch has no shifts for uint32 on the CPU); the sums
+    are taken in int64 and folded into the int32 range."""
+    *lead, C = signs.shape
+    bits = (signs > 0).reshape(*lead, C // 32, 32)
+    words = torch.zeros(bits.shape[:-1], dtype=torch.int64,
+                        device=signs.device)
+    for j in range(32):
+        words |= bits[..., j].to(torch.int64) << j
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def unpack_bits(words, C=None):
+    """int32 words [..., W] -> int8 signs {-1, +1} [..., 32 W] (the first
+    ``C`` of them when given)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1      # arithmetic shift: bit j
+    signs = (2 * bits - 1).to(torch.int8).reshape(*words.shape[:-1], -1)
+    return signs if C is None else signs[..., :C]
+
+
 def wire_bytes(numel: int) -> int:
     """Bytes on the wire per tensor: 1 bit per element + 4 B scale per row
     (accounted at 256-wide rows)."""
     return numel // 8 + 4 * max(1, numel // 256)
 
 
-__all__ = ["LAUNCHES", "encode_ef", "onebit_encode_ef_ref", "reset_launches",
-           "wire_bytes"]
+__all__ = ["LAUNCHES", "encode_ef", "onebit_encode_ef_ref", "pack_bits",
+           "reset_launches", "unpack_bits", "wire_bytes"]

@@ -1,35 +1,41 @@
 """Data parallelism with compressed, bucketed, topology-explicit
 communication (survey §3.3): the JAX package's
-``train/data_parallel.py::DeviceEngine``, BSP / allreduce /
-``wire="modeled"`` part.
+``train/data_parallel.py::DeviceEngine``, BSP / allreduce part.
 
-K logical workers share one device (``core.collectives``).  Each BSP step:
+K logical workers share one device (``core.collectives``).  Each BSP step
+runs every worker's forward and backward on its own batch (one after
+another on the engine's device) and turns its gradient tree into the
+reference's leaf list (``core.tree.LeafLayout``, stacking each
+layer-stacked leaf and freeing the per-layer gradients as it goes).  Then,
+by ``wire`` mode:
 
-  1. every worker's forward and backward on its own batch (one after
-     another on the engine's device), its gradient tree turned into the
-     reference's leaf list (``core.tree.LeafLayout``, stacking each
-     layer-stacked leaf and freeing the per-layer gradients as it goes);
-  2. ``Compressor.roundtrip`` with the worker's error-feedback residuals:
-     one fused encode+EF pass per leaf;
-  3. the bucketed allreduce of the workers' reconstructed gradients in
-     ``CommPlan`` issue order (TicTac by default), over the topology's
-     exact schedule;
-  4. the SGD update ``p - lr * mean``.
+  modeled    ``Compressor.roundtrip`` with the worker's error-feedback
+             residuals (one fused encode+EF pass per leaf), then the
+             bucketed allreduce of the reconstructed gradients in
+             ``CommPlan`` issue order (TicTac by default) over the
+             topology's exact schedule.  Wire bytes: the compressor's
+             analytic accounting per worker push.
+  measured   the raw gradients go through ``CommPlan.exchange``: per
+             bucket, the topology's codec schedule with encoded planes
+             inside it and each worker's EF inside the schedule.  Wire
+             bytes: the plan's shape-static plane bytes times K plus 8 B
+             per sparse element the step shipped (dgc).  ``bsp/*/none``
+             runs the exact schedule, bit for bit as under ``modeled``.
 
-Wire bytes are the compressor's analytic accounting per worker push.  The
-other sync models (ssp, asp, sma), ``arch="ps"``, ``wire="measured"``,
-backup workers and straggler detection raise, naming their ROADMAP
-queue A item.
+and finally the SGD update ``p - lr * mean``.  The other sync models
+(ssp, asp, sma), ``arch="ps"``, backup workers and straggler detection
+raise, naming their ROADMAP queue A item.
 
 Each phase of the step runs under a ``torch.profiler.record_function``
 range (``forward_backward``, ``stack_and_compress``, ``allreduce``,
-``sgd_update``), so a profile splits the step's device time by phase
-(``tools/torch_train_profile.py``); outside a profile a range costs a
-few microseconds of host time.
+``sgd_update``; the measured exchange is ``allreduce``), so a profile
+splits the step's device time by phase (``tools/torch_train_profile.py``);
+outside a profile a range costs a few microseconds of host time.
 
-Per-worker ``torch.Generator``s are seeded from (seed, step, worker).
-They are not the JAX package's key stream; the ported codecs draw nothing
-from them.
+``torch.Generator``s seeded from (seed, step, worker) drive the stochastic
+methods: one per worker for the modeled roundtrip, one (worker index K)
+for the measured exchange, which draws every worker's noise at once.
+They are not the JAX package's key streams.
 """
 from __future__ import annotations
 
@@ -65,7 +71,7 @@ class DataParallelConfig:
     order: str = "tictac"            # "tictac" | "random" | "layer"
     link: LinkModel = LinkModel()
     back_s_per_byte: float = 2e-12   # modeled backward s per gradient byte
-    wire: str = "modeled"            # modeled (measured: queue A item 4)
+    wire: str = "modeled"            # modeled | measured
     seed: int = 0
 
 
@@ -74,8 +80,6 @@ def _unported(cfg: DataParallelConfig) -> Optional[str]:
         return f"sync={cfg.sync!r}: ROADMAP queue A item 6"
     if cfg.arch != "allreduce":
         return f"arch={cfg.arch!r}: ROADMAP queue A item 6"
-    if cfg.wire != "modeled":
-        return f"wire={cfg.wire!r}: ROADMAP queue A item 4"
     if cfg.backup or cfg.detect:
         return "backup workers and straggler detection: ROADMAP queue A item 7"
     return None
@@ -149,6 +153,10 @@ class DeviceEngine(ElasticWorkerSet):
         return self.per_event_wire_bytes(params) * self.cfg.num_workers
 
     # --------------------------------------------------------- bsp stepping
+    def _generator(self, t: int, w: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            (self.cfg.seed * 1_000_003 + t) * 31 + w)
+
     def _step_bsp(self, st, batches, t):
         cfg = self.cfg
         K = cfg.num_workers
@@ -164,14 +172,15 @@ class DeviceEngine(ElasticWorkerSet):
                 loss, grads = self.grad_fn(st["params"], batches(t, w))
             leaves = layout.leaves(grads, consume=True)
             del grads
+            ef_new = None
             with record_function("stack_and_compress"):
-                if comp.method != "none":
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        (cfg.seed * 1_000_003 + t) * 31 + w)
-                    leaves, ef_new, _ = comp.roundtrip(leaves, st["ef"][w],
-                                                       gen)
+                if comp.method != "none" and not plan.in_schedule:
+                    ef = None if st["ef"] is None else st["ef"][w]
+                    leaves, ef_new, _ = comp.roundtrip(
+                        leaves, ef, self._generator(t, w))
+                    del ef
                 else:
-                    leaves, ef_new = list(leaves), None
+                    leaves = list(leaves)
             wt = float(weights[w])
             if wt != 1.0:
                 leaves = [x * wt for x in leaves]
@@ -180,13 +189,30 @@ class DeviceEngine(ElasticWorkerSet):
             sent.append(leaves)
             losses.append(float(loss))
             del leaves, ef_new
+        nz = 0
         with record_function("allreduce"):
-            avg = plan.reduce_grads(sent)
+            if plan.in_schedule:
+                # encoded planes inside the schedule; each worker's EF is
+                # consumed and renewed by the exchange (keeping a dropped
+                # worker's residual comes with backup workers, item 7)
+                avg, ef_new, sent_elems = plan.exchange(
+                    sent, st["ef"], self._generator(t, K))
+                if ef_new is not None:
+                    st["ef"] = ef_new
+                nz = int(sent_elems.sum())
+            else:
+                avg = plan.reduce_grads(sent)
         lr = cfg.lr
         with record_function("sgd_update"):
             st["params"] = layout.update(st["params"], avg,
                                          lambda p, g: p - lr * g)
-        st["wire"] += plan.modeled_event_bytes() * (K - len(drop))
+        if cfg.wire == "measured":
+            # every step from the plan: the shape-static plane bytes of
+            # the whole schedule plus dgc's sparse payload (all workers)
+            st["wire"] += plan.measured_step_tx_bytes() * K \
+                + plan.measured_bytes(nz)
+        else:
+            st["wire"] += plan.modeled_event_bytes() * (K - len(drop))
         self._dropped += len(drop)
         # participant-mean loss, float64 like the reference's accounting
         part = [losses[w] for w in range(K) if w not in drop]
@@ -218,7 +244,11 @@ class DeviceEngine(ElasticWorkerSet):
         return self._wire_total
 
     def extra_metrics(self) -> Dict[str, Any]:
-        return {"wire_mode": self.cfg.wire}
+        m: Dict[str, Any] = {"wire_mode": self.cfg.wire}
+        if self._plan is not None:
+            m["measured_step_tx_bytes"] = self._plan.measured_step_tx_bytes()
+            m["fp32_step_tx_bytes"] = self._plan.fp32_step_tx_bytes()
+        return m
 
     def run(self, params, batches: Callable[[int, int], Any], steps: int):
         """batches(t, worker) -> batch.  Returns (params, history,

@@ -6,13 +6,13 @@
 
 A spec is ``sync[:staleness]/arch/comp[:density]@workers``; a topology
 name in the arch slot means allreduce over that schedule.  The port runs
-the cells ``registered_cells()`` lists: BSP allreduce with ``none`` or
-``onebit`` compression, ``wire="modeled"``, on ``DeviceEngine``.  The
-rest of the reference's matrix parses and raises when built or
-constructed: the other sync models, ``arch="ps"`` and the simulator
-(ROADMAP queue A item 6), dgc / terngrad / qsgd (item 6),
-``wire="measured"`` (item 4), backup workers and straggler detection
-(item 7), hybrid meshes (item 8) and elastic plans (item 7).
+the cells ``registered_cells()`` lists: BSP allreduce with every
+compression method (``none``, ``onebit``, ``dgc``, ``terngrad``,
+``qsgd``) over every topology, ``wire="modeled"`` or ``"measured"``, on
+``DeviceEngine``.  The rest of the reference's matrix parses and raises
+when built or constructed: the other sync models, ``arch="ps"`` and the
+simulator (ROADMAP queue A item 6), backup workers and straggler
+detection (item 7), hybrid meshes (item 8) and elastic plans (item 7).
 
 ``backend`` is ``auto`` or ``device``, both ``DeviceEngine``;
 ``kernel_backend`` is the port's seam (``auto``: the CUDA kernels for
@@ -48,7 +48,7 @@ class Cell(NamedTuple):
 def registered_cells() -> List[Cell]:
     """Every Strategy cell the port runs (the rest of the reference's
     matrix is queued in ROADMAP queue A)."""
-    return [Cell("bsp", "allreduce", c, "device") for c in ("none", "onebit")]
+    return [Cell("bsp", "allreduce", c, "device") for c in METHODS]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import time
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.core.tree import tree_map
 
 
@@ -17,12 +19,15 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` ->
     ``grad_fn(params, batch) -> (loss, grads)``, ``grads`` a tree like
     ``params`` (``jax.value_and_grad(..., has_aux=True)`` for the
-    engines).  The parameters themselves are not modified."""
+    engines: a parameter the loss does not use gets a zero gradient).  The
+    parameters themselves are not modified."""
     def grad_fn(params, batch):
         leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = loss_fn(leaves, batch)
         loss.backward()
-        return loss.detach(), tree_map(lambda t: t.grad, leaves)
+        return loss.detach(), tree_map(
+            lambda t: torch.zeros_like(t) if t.grad is None else t.grad,
+            leaves)
     return grad_fn
 
 

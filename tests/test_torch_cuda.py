@@ -216,3 +216,109 @@ def test_engine_on_card_bench_recipe(cuda, spec, wire):
     n_leaves = len(model.leaf_layout(params).names)
     assert K1.LAUNCHES["onebit_encode_ef"] == (
         n_leaves * 8 * 2 if spec.endswith("onebit@8") else 0)
+
+
+# ------------------------------------------- dgc / terngrad / qsgd kernels
+# Each kernel is elementwise given its per-segment scalars and its uniform
+# draws, with the plain version's rounding (no contraction, IEEE
+# division): planes and outputs must be equal exactly.
+SEGMENT_CASES = [(1024, 256, 1), (1024, 256, 4), (37, 200, 1), (9, 130, 3),
+                 (64, 256, 8)]
+
+
+@pytest.mark.parametrize("R,C,S", SEGMENT_CASES)
+def test_topk_compress_matches_plain(cuda, R, C, S):
+    from repro_torch.kernels import topk as KK
+    gen = torch.Generator(device=cuda).manual_seed(R + C + S)
+    g = _randn(gen, torch.float32, R, C)
+    e = _randn(gen, torch.float32, R, C)
+    g[0, :5] = 0.0
+    th = KK.threshold_for_density(g, e, 0.05, segments=S)
+    KK.reset_launches()
+    for ee, t in ((e, th), (None, th), (e, torch.zeros_like(th))):
+        kern = KK.sparsify(g, ee, t)
+        plain = KK.topk_ref(g, ee, t)
+        assert all(torch.equal(a, b) for a, b in zip(kern, plain))
+    torch.cuda.synchronize()
+    assert KK.LAUNCHES["topk_compress"] == 3
+
+
+@pytest.mark.parametrize("R,C,S", SEGMENT_CASES)
+def test_terngrad_kernels_match_plain(cuda, R, C, S):
+    from repro_torch.kernels import terngrad as KT
+    gen = torch.Generator(device=cuda).manual_seed(R + C + S)
+    g = _randn(gen, torch.float32, R, C)
+    g[0, :5] = 0.0
+    g[-1, 3] = 40.0
+    u = torch.rand(R, C, generator=gen, device=cuda)
+    s = g.reshape(S, -1).abs().amax(1) * 0.5          # clips some |p| > 1
+    KT.reset_launches()
+    assert torch.equal(KT.ternarize(g, u, s), KT.ternarize_ref(g, u, s))
+    tern, scale = KT.compress(g, u, clip_sigma=2.5)
+    rtern, rscale = KT.terngrad_ref(g, u, 2.5)
+    torch.cuda.synchronize()
+    assert torch.equal(tern, rtern) and torch.equal(scale, rscale)
+    assert KT.LAUNCHES == {"terngrad_ternarize": 1, "terngrad_compress": 1}
+
+
+@pytest.mark.parametrize("R,C,S", SEGMENT_CASES)
+def test_qsgd_compress_matches_plain(cuda, R, C, S):
+    from repro_torch.kernels import qsgd as KQ
+    gen = torch.Generator(device=cuda).manual_seed(R + C + S)
+    g = _randn(gen, torch.float32, R, C)
+    g[0, :5] = 0.0
+    u = torch.rand(R, C, generator=gen, device=cuda)
+    KQ.reset_launches()
+    for levels in (127, 15):
+        q, norm = KQ.quantize(g, u, s_levels=levels, segments=S)
+        rq, rnorm = KQ.qsgd_ref(g, u, levels, S)
+        assert torch.equal(q, rq) and torch.equal(norm, rnorm)
+    torch.cuda.synchronize()
+    assert KQ.LAUNCHES["qsgd_compress"] == 2
+
+
+def test_threshold_on_card_equals_cpu(cuda):
+    """Order statistics and the fused interpolation are exact: the card
+    and the CPU give the same threshold bit for bit."""
+    from repro_torch.kernels import topk as KK
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(gen, torch.float32, 4, 300_001)
+    for density in (0.01, 0.05, 0.5):
+        card = KK.threshold_for_density(x, None, density, segments=4)
+        cpu = KK.threshold_for_density(x.cpu(), None, density, segments=4)
+        assert torch.equal(card.cpu(), cpu)
+
+
+def test_measured_terngrad_step_kernel_equals_plain(cuda):
+    """One ``bsp/ring/terngrad@4`` step with ``wire="measured"`` on the
+    card, through the ternarize kernel and through the plain version,
+    with the same generators and the plain attention on both: the planes
+    are bitwise equal, so the parameters after the step are too."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.kernels import terngrad as KT
+    from repro_torch.train import Strategy, value_and_grad
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              attn_backend="ref")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=16, batch_size=2),
+                              device=cuda)
+    grad_fn = value_and_grad(lambda p, b: model.loss_fn(
+        p, b, compute_dtype=torch.float32))
+    out = {}
+    for kb in ("auto", "ref"):
+        KT.reset_launches()
+        engine = Strategy.parse("bsp/ring/terngrad@4", lr=0.01,
+                                bucket_mb=0.25, wire="measured",
+                                kernel_backend=kb).build(
+            grad_fn, layout=model.leaf_layout(params), device=cuda)
+        out[kb] = engine.run(params, batches, 1)
+        torch.cuda.synchronize()
+        launched = KT.LAUNCHES["terngrad_ternarize"]
+        assert (launched > 0) == (kb == "auto"), launched
+    layout = model.leaf_layout(params)
+    assert out["auto"][2] == out["ref"][2] > 0
+    for a, b in zip(layout.leaves(out["auto"][0]),
+                    layout.leaves(out["ref"][0])):
+        assert torch.equal(a, b)

@@ -150,6 +150,14 @@ def test_compressor_none_and_wire_bytes_match_jax():
 
 @pytest.mark.parametrize("method", ["dgc", "terngrad", "qsgd"])
 def test_unported_methods_raise(method):
+    """The three methods are ported (tests/test_torch_codecs.py); what
+    still raises for them is the parameter-server exchange."""
+    from repro_torch.comm.plan import CommPlan
     assert method in TC.METHODS
+    plan = CommPlan.plan([(300,)], n=2, compressor=TC.Compressor(method),
+                         wire="measured")
+    assert plan.in_schedule
     with pytest.raises(NotImplementedError, match="queue A"):
-        TC.Compressor(method)
+        plan.ps_exchange()
+    with pytest.raises(NotImplementedError, match="queue A"):
+        plan.measured_step_tx_bytes("ps")

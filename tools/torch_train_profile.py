@@ -1,17 +1,21 @@
 """Where the port's training time goes on the GPU.
 
-Full-width TinyLlama-1.1B in fp32 (seeded weights), the
-``bsp/allreduce/onebit@4`` step of ``chip_smoke.py`` (batch 2 x seq 256
-per worker, lr 0.01, bucket_mb 4): one warm-up step, the wall time of
-``STEPS`` unprofiled steps (host clock around work that ends in a
-synchronize), then one step under ``torch.profiler`` for the device's
-busy share, the device time of each phase of the step (the engine's
-``record_function`` ranges) and the kernels that take it.
+Full-width TinyLlama-1.1B in fp32 (seeded weights), a training step of
+``chip_smoke.py`` (batch 2 x seq 256 per worker, lr 0.01, bucket_mb 4;
+by default ``bsp/allreduce/onebit@4`` with ``wire="modeled"``): one
+warm-up step, the wall time of ``STEPS`` unprofiled steps (host clock
+around work that ends in a synchronize), then one step under
+``torch.profiler`` for the device's busy share, the device time of each
+phase of the step (the engine's ``record_function`` ranges) and the
+kernels that take it.
 
     PYTHONPATH=src python tools/torch_train_profile.py
+    PYTHONPATH=src python tools/torch_train_profile.py bsp/ring/onebit@4 \
+        --wire measured
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
@@ -34,7 +38,12 @@ def _device_us(evt) -> float:
         evt, "self_cuda_time_total", 0.0)
 
 
-def main() -> int:
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("spec", nargs="?", default=SPEC)
+    ap.add_argument("--wire", default="modeled",
+                    choices=("modeled", "measured"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -43,7 +52,7 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
-    strat = Strategy.parse(SPEC, lr=0.01)
+    strat = Strategy.parse(args.spec, lr=0.01, wire=args.wire)
     engine = strat.build(
         value_and_grad(lambda p, b: model.loss_fn(
             p, b, compute_dtype=torch.float32)),
@@ -63,7 +72,7 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
     wall_s = min(walls)
     tokens = strat.workers * BATCH * SEQ
-    print(f"{SPEC} step: wall {[round(w * 1e3, 1) for w in walls]} ms, "
+    print(f"{args.spec} wire={args.wire} step: wall {[round(w * 1e3, 1) for w in walls]} ms, "
           f"{tokens / wall_s:.1f} tokens/s at the fastest")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -96,4 +105,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
