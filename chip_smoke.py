@@ -73,14 +73,39 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              generators: each step's loss within 1e-3 of the kernel
              path's, as in phase 7.
 
+ 10. matrix   the rest of the survey's strategy matrix at full width, fp32,
+             seeded init, 4 workers x batch 2 x seq 256, lr 0.01,
+             bucket_mb 4.  First the public entry of onebit_compress,
+             onebit.compress, over every leaf of one full-width gradient
+             (two error-feedback rounds, as the JAX package's kernel
+             benchmark drives it): one launch per leaf per round, signs
+             equal to onebit_ref's.  Then Strategy.parse(...) through
+             Trainer.fit: ssp:3/ps/onebit@4 (modeled, 2 global steps = 8
+             push events, each event's worker and staleness printed; one
+             onebit_encode_ef launch per leaf per event) and the same run
+             with backend="sim" (the same event sequence, losses within
+             1e-3 per event); asp/allreduce/none@4 (2 steps, 8 events);
+             sma/allreduce/none@4 (2 steps, 4 fp32 replicas); and
+             bsp/ps/onebit@4 with wire="measured" (2 steps: bytes per
+             worker per step equal to measured_step_tx_bytes("ps"), about
+             0.52x the fp32 ring's: 1-bit pushes, exact fp32 pulls).
+             Counts are zeroed just before and read just after each run;
+             every loss finite, peak memory reported; each run again on the
+             plain path with per-event losses within 1e-3.
+
 Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
 segment; a ring chunk of it at @4, 4 segments of [247808, 256]; and a
 ragged C = 200): planes and outputs exactly equal, given the same
 per-segment scalars and uniform draws.  It checks the quantile threshold
-on the card against a float64 sort with the float32 position rule.
-Phase 4 times the four at [991232, 256].
+on the card against a float64 sort with the float32 position rule, and
+onebit_compress against onebit_ref at the four ONEBIT_SHAPES, the flat
+[991232, 256] w_down layout and a ragged [4096, 200], with a block of
+exact zeros in c (sign(0) = +1): signs exactly equal, scale and new_e
+within 2e-5 of the row's largest |c|.  Phase 4 times the four segment
+kernels at [991232, 256] and onebit_compress at [2048, 32000] and
+[991232, 256].
 
 The last lines are the kernels JSON, the nvidia-smi line and the result.
 """
@@ -122,6 +147,12 @@ W_DOWN_ROWS, RING_ROWS = 991232, 247808
 # product
 SEGMENT_KERNELS = {"topk_compress": (16, 5), "terngrad_ternarize": (9, 5),
                    "terngrad_compress": (9, 7), "qsgd_compress": (9, 11)}
+ONEBIT_COMPRESS_BYTES = 13         # read g, e; write sign, new_e (+4 B/row)
+ONEBIT_COMPRESS_FLOP = 4           # c, |c|, row sum, new_e
+MATRIX_RUNS = (("ssp:3/ps/onebit@4", {}, 2),
+               ("asp/allreduce/none@4", {}, 2),
+               ("sma/allreduce/none@4", {}, 2),
+               ("bsp/ps/onebit@4", {"wire": "measured"}, 2))
 MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
                  ("bsp/ring/terngrad@4", "measured", 2),
                  ("bsp/ring/qsgd@4", "measured", 2),
@@ -272,6 +303,30 @@ def main() -> int:
         assert err <= ONEBIT_TOL, "onebit_encode_ef disagrees with plain"
         worst["onebit_encode_ef"] = max(worst["onebit_encode_ef"], abs_err)
         del g, e, valid, kern, plain, cin
+    torch.cuda.empty_cache()
+
+    worst["onebit_compress"] = 0.0
+    for R, C in ONEBIT_SHAPES + ((W_DOWN_ROWS, 256), (4096, 200)):
+        g = randn(R, C, dtype=torch.float32)
+        e = 0.3 * randn(R, C, dtype=torch.float32)
+        z = max(1, R // 16)
+        e[:z, : C // 2] = -g[:z, : C // 2]          # c exactly 0: sign +1
+        kern = K1.compress(g, e)
+        plain = K1.onebit_ref(g, e)
+        scale = (g + e).abs().amax(-1, keepdim=True)
+        signs_equal = torch.equal(kern[0], plain[0])
+        zeros_positive = bool((kern[0][:z, : C // 2] == 1).all())
+        err = max(((a - b).abs() / scale).max().item()
+                  for a, b in zip(kern[1:], plain[1:]))
+        abs_err = max(max_err(a, b) for a, b in zip(kern[1:], plain[1:]))
+        print(f"onebit_compress [{R}, {C}]: signs equal {signs_equal}, "
+              f"sign(0) = +1 {zeros_positive}, max_abs_err {abs_err:.3e}, "
+              f"relative to the row's max|c| {err:.3e} (tol {ONEBIT_TOL})")
+        assert signs_equal and zeros_positive, \
+            "onebit_compress signs differ from the plain ones"
+        assert err <= ONEBIT_TOL, "onebit_compress disagrees with plain"
+        worst["onebit_compress"] = max(worst["onebit_compress"], abs_err)
+        del g, e, kern, plain, scale
     torch.cuda.empty_cache()
 
     for name in SEGMENT_KERNELS:
@@ -476,6 +531,19 @@ def main() -> int:
                 kern_fn, plain_fn, None, per_byte * R * 256,
                 per_op * R * 256, F32_FLOPS)
     del g, e, u, calls
+    torch.cuda.empty_cache()
+
+    # onebit_compress (row 4) at the lm_head leaf and the flat w_down layout
+    for key, (R, C), what in (
+            ("onebit_compress", ONEBIT_SHAPES[0], "the lm_head leaf"),
+            ("onebit_compress_flat", (W_DOWN_ROWS, 256),
+             "the stacked w_down leaf, flat")):
+        g, e = randn(R, C, dtype=f32), 0.3 * randn(R, C, dtype=f32)
+        measure(key, f"fp32 [{R}, {C}], {what}",
+                lambda: K1.compress(g, e), lambda: K1.onebit_ref(g, e), None,
+                ONEBIT_COMPRESS_BYTES * R * C + 4 * R,
+                ONEBIT_COMPRESS_FLOP * R * C, F32_FLOPS)
+        del g, e
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- 5 serve
@@ -701,6 +769,131 @@ def main() -> int:
               f"B/step; |kernel - plain| per step "
               f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
         assert max(diffs) <= 1e-3, "kernel path drifts from the plain path"
+
+    # ------------------------------------------------------------ 10 matrix
+    phase("onebit.compress over one full-width gradient (two EF rounds)")
+    p_ = model.init(seed=0, dtype=f32, device=dev)
+    layout = model.leaf_layout(p_)
+    grad_fn = value_and_grad(
+        lambda pp, b: model.loss_fn(pp, b, compute_dtype=f32))
+    _, grads = grad_fn(p_, batches(0, 0))
+    del p_
+    leaves = list(layout.leaves(grads, consume=True))
+    del grads
+    # rows along the trailing channel axis, as the compressor lays out a
+    # leaf (every leaf of this model has at least 2048 channels)
+    rows = [g.reshape(-1, g.shape[-1]) for g in leaves]
+    efs = [torch.zeros_like(g) for g in rows]
+    reset_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for _ in range(2):
+        outs = [K1.compress(g, e) for g, e in zip(rows, efs)]
+        inputs = efs
+        efs = [o[2] for o in outs]
+    torch.cuda.synchronize()
+    compress_ms = 1e3 * (time.perf_counter() - t0)
+    compress_launches = read_all()
+    signs_equal = all(torch.equal(o[0], K1.onebit_ref(g, e)[0])
+                      for o, g, e in zip(outs, rows, inputs))
+    print(f"{len(rows)} leaves ({sum(g.numel() for g in rows)} elements), "
+          f"2 rounds in {compress_ms:.1f} ms wall; launches "
+          f"{compress_launches}; last round's signs equal to onebit_ref's "
+          f"{signs_equal}")
+    assert compress_launches["onebit_compress"] == 2 * len(rows)
+    assert signs_equal
+    del leaves, rows, efs, outs, inputs
+    torch.cuda.empty_cache()
+
+    def matrix_run(spec, kernels: bool, steps, backend="auto", **kw):
+        """``steps`` global steps through Trainer.fit; returns (history,
+        wall ms, peak bytes, metrics)."""
+        m_ = model if kernels else build_model(
+            dataclasses.replace(cfg, attn_backend="ref"))
+        st_ = Strategy.parse(spec, lr=0.01, backend=backend,
+                             kernel_backend="auto" if kernels else "ref",
+                             **kw)
+        p_ = m_.init(seed=0, dtype=f32, device=dev)
+        layout = m_.leaf_layout(p_)
+        grad_fn = value_and_grad(
+            lambda pp, b: m_.loss_fn(pp, b, compute_dtype=f32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, hist, mets = Trainer(st_, device=dev).fit(
+            grad_fn, p_, batches, steps, layout=layout)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        del p_
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        return hist, wall, peak, mets
+
+    matrix_launches = dict.fromkeys(read_all(), 0)
+    for spec, kw, steps in MATRIX_RUNS:
+        backends = ("auto", "sim") if spec.startswith("ssp") else ("auto",)
+        device_hist = None
+        for backend in backends:
+            phase(f"train full-width TinyLlama-1.1B: {spec}, backend="
+                  f"{backend}, {kw or 'wire=modeled'}, fp32")
+            reset_all()
+            hist, wall, peak, mets = matrix_run(spec, True, steps, backend,
+                                                **kw)
+            run_launches = read_all()
+            for name, count in run_launches.items():
+                matrix_launches[name] += count
+            events = len(hist)
+            losses = [h["loss"] for h in hist]
+            for h in hist:
+                print(f"event {h['step']}: worker {h.get('worker', '-')}, "
+                      f"max_staleness {h['max_staleness']}, loss "
+                      f"{h['loss']:.6f}")
+            print(f"{events} events in {wall:.1f} ms = {wall / events:.1f} ms"
+                  f" per event; wire {mets['wire_bytes'] // steps} B/step; "
+                  f"peak device memory {peak / 2**30:.2f} GiB; launches "
+                  f"{run_launches}")
+            assert all(math.isfinite(x) for x in losses)
+            sync = spec.split("/")[0].split(":")[0]
+            per_step = 1 if sync in ("bsp", "sma") else 0
+            assert events == (steps if per_step else steps * K)
+            assert run_launches["flash_attention"] == cfg.num_layers * (
+                K * steps if per_step else events)
+            if "onebit" in spec:
+                assert run_launches["onebit_encode_ef"] > 0
+                if sync == "ssp":
+                    assert run_launches["onebit_encode_ef"] == \
+                        len(layout.names) * events
+            if kw.get("wire") == "measured":
+                ratio = (mets["measured_step_tx_bytes"]
+                         / mets["fp32_step_tx_bytes"])
+                print(f"per worker measured_step_tx_bytes('ps') "
+                      f"{mets['measured_step_tx_bytes']} against the fp32 "
+                      f"ring's {mets['fp32_step_tx_bytes']} = {ratio:.4f}")
+                assert mets["wire_bytes"] == \
+                    mets["measured_step_tx_bytes"] * K * steps
+                assert 0.5 < ratio < 0.55
+            if backend == "sim":
+                seq = [(h["worker"], h["max_staleness"]) for h in hist]
+                dseq = [(h["worker"], h["max_staleness"])
+                        for h in device_hist]
+                diffs = [abs(a["loss"] - b["loss"])
+                         for a, b in zip(hist, device_hist)]
+                print(f"sim against device: same event sequence "
+                      f"{seq == dseq}; |sim - device| per event "
+                      f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
+                assert seq == dseq and max(diffs) <= 1e-3
+            device_hist = device_hist or hist
+            reset_all()
+            plain, plain_wall, plain_peak, _ = matrix_run(spec, False, steps,
+                                                          backend, **kw)
+            assert not any(read_all().values()), "plain path ran a kernel"
+            diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(hist, plain)]
+            print(f"plain path: {plain_wall:.1f} ms, peak "
+                  f"{plain_peak / 2**30:.2f} GiB, losses "
+                  f"{[h['loss'] for h in plain]}; |kernel - plain| per event "
+                  f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
+            assert len(plain) == events and max(diffs) <= 1e-3
     del model
     torch.cuda.empty_cache()
 
@@ -712,6 +905,8 @@ def main() -> int:
                                 "src/repro/kernels/flash_attention/flash_attention.py:160"),
                "onebit_encode_ef": (src + "onebit_encode_ef.cu",
                                     "src/repro/kernels/onebit/fused.py:75"),
+               "onebit_compress": (src + "onebit_compress.cu",
+                                   "src/repro/kernels/onebit/onebit.py:32"),
                "topk_compress": (src + "topk_compress.cu",
                                  "src/repro/kernels/topk/topk.py:24"),
                "terngrad_ternarize": (src + "terngrad.cu",
@@ -722,7 +917,9 @@ def main() -> int:
                                  "src/repro/kernels/qsgd/qsgd.py:21")}
     by_path = {name: {"serve": launches.get(name, 0),
                       "train": train_launches.get(name, 0),
-                      "measured": measured_launches[name]}
+                      "measured": measured_launches[name],
+                      "compress": compress_launches.get(name, 0),
+                      "matrix": matrix_launches[name]}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],

@@ -27,8 +27,10 @@ A plan is built once per (leaf shapes × worker count) and owns:
   ``bsp/*/none`` is identical under both modes: the exact codec routes
   through the full-precision schedules, bit for bit.
 
-Not ported yet: ``ps_exchange`` (``arch="ps"``, ROADMAP queue A item 6),
-the bf16 reduce words (``reduce_dtype``, item 8) and the trace spans
+``ps_exchange`` is the centralized (``arch="ps"``) form of ``exchange``:
+an encoded ring reduce-scatter, SGD on each worker's shard and an exact
+all-gather (``core.parameter_server``).  Not ported yet: the bf16 reduce
+words (``reduce_dtype``, ROADMAP queue A item 8) and the trace spans
 ``hop_model`` / ``emit_trace`` (item 1, with the port's ``obs/trace.py``).
 """
 from __future__ import annotations
@@ -42,12 +44,15 @@ import torch
 from repro_torch.comm.codecs import SPARSE_ELEM_BYTES, SegmentCodec, codec_for
 from repro_torch.comm.transport import (SCHEDULES, compressed_allreduce,
                                         compressed_allreduce_ef,
+                                        compressed_reduce_scatter,
+                                        compressed_reduce_scatter_ef,
                                         fp32_schedule_bytes, pad_for_schedule,
                                         schedule_tx_bytes)
 from repro_torch.core.comm_scheduler import (LayerCost, LinkModel, bucketize,
                                              random_order, schedule_no_overlap,
                                              schedule_overlap, tictac_order)
 from repro_torch.core.compression import Compressor
+from repro_torch.core.parameter_server import all_gather_flat, shard_of_flat
 
 WIRE_MODES = ("modeled", "measured")
 
@@ -91,6 +96,28 @@ def scatter_flat(flat, idxs, leaf_shapes, out):
         out[i] = flat[off:off + size].reshape(shape)
         off += size
     return out
+
+
+def fuse(lists, idxs: Sequence[int], leaf_shapes: Sequence[Shape],
+         length: int) -> torch.Tensor:
+    """Leaves ``idxs`` of every worker's leaf list as one fp32
+    [workers, length] tensor (zero-padded past the leaves).  The fused
+    leaves are dropped from ``lists`` (assigned None), so the workers'
+    tensors leave memory as an exchange proceeds; ``lists`` may be any
+    indexable, such as a ``core.tree.LeafView``."""
+    L = sum(_numel(leaf_shapes[i]) for i in idxs)
+    flat = None
+    for w, leaves in enumerate(lists):
+        parts = [leaves[i].float().reshape(-1) for i in idxs]
+        if flat is None:
+            flat = torch.empty((len(lists), length), dtype=torch.float32,
+                               device=parts[0].device)
+            flat[:, L:] = 0
+        torch.cat(parts, out=flat[w, :L])
+        del parts
+        for i in idxs:
+            leaves[i] = None
+    return flat
 
 
 @dataclasses.dataclass
@@ -138,27 +165,11 @@ class CommPlan:
     def bucket_len(self, b: int) -> int:
         return sum(_numel(self.leaf_shapes[i]) for i in self.buckets[b])
 
-    def _fuse(self, lists: List[List[torch.Tensor]], b: int,
-              length: int) -> torch.Tensor:
-        """Bucket ``b`` of every worker's leaves as one fp32 [n, length]
-        tensor (zero-padded past the bucket).  The fused leaves are
-        dropped from ``lists``, so the workers' tensors leave memory as
-        the exchange proceeds."""
+    def _fuse(self, lists, b: int, length: int) -> torch.Tensor:
         if len(lists) != self.n:
             raise ValueError(f"plan is for {self.n} workers, got "
                              f"{len(lists)}")
-        idxs = self.buckets[b]
-        L = self.bucket_len(b)
-        ref = lists[0][idxs[0]]
-        flat = torch.empty((self.n, length), dtype=torch.float32,
-                           device=ref.device)
-        flat[:, L:] = 0
-        for w, leaves in enumerate(lists):
-            torch.cat([leaves[i].float().reshape(-1) for i in idxs],
-                      out=flat[w, :L])
-            for i in idxs:
-                leaves[i] = None
-        return flat
+        return fuse(lists, self.buckets[b], self.leaf_shapes, length)
 
     # ------------------------------------------------- exact (fp32) ops
     def reduce_grads(self, grads: List[List[torch.Tensor]]
@@ -221,9 +232,53 @@ class CommPlan:
             del red
         return out, new_ef, sent
 
-    def ps_exchange(self, *args, **kwargs):
-        raise NotImplementedError(
-            "arch='ps' is not ported yet: ROADMAP queue A item 6")
+    def ps_exchange(self, params, grads: List[List[torch.Tensor]],
+                    ef: Optional[List[List[torch.Tensor]]], gen, lr: float):
+        """The centralized counterpart of ``exchange``: per bucket in issue
+        order, a compressed ring reduce-scatter of the workers' gradients
+        with their EF (the PS push), SGD on each worker's 1/n shard with
+        ``g_shard / n`` (the server work) and a full-precision all-gather
+        of the updated shards (the pull: parameters travel exact).
+
+        ``params`` is the replicated parameter leaf list (any indexable,
+        e.g. a ``core.tree.LeafView``); ``grads`` and ``ef`` as in
+        ``exchange``.  Returns ``(new parameter leaves, new ef lists or
+        None, sent_elems [n])``."""
+        comp, codec = self.compressor, self.codec
+        gain = comp.ef_gain if comp.method == "onebit" else 1.0
+        out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
+        new_ef = (None if ef is None else
+                  [[None] * len(self.leaf_shapes) for _ in range(self.n)])
+        sent = None
+        for b in self.order:
+            idxs = self.buckets[b]
+            L = self.bucket_len(b)
+            P = pad_for_schedule(L, self.n)
+            g_flat = self._fuse(grads, b, P)
+            if ef is not None:
+                e_flat = self._fuse(ef, b, P)
+                g_shard, new_e, nz = compressed_reduce_scatter_ef(
+                    g_flat, e_flat, codec, gen, gain=gain)
+                del e_flat
+                for w in range(self.n):
+                    scatter_flat(new_e[w, :L], idxs, self.leaf_shapes,
+                                 new_ef[w])
+                del new_e
+            else:
+                g_shard, _, nz = compressed_reduce_scatter(g_flat, codec,
+                                                           gen)
+            del g_flat
+            sent = nz if sent is None else sent + nz
+            p_flat = torch.cat([params[i].float().reshape(-1)
+                                for i in idxs])[None]
+            p_shard = shard_of_flat(p_flat.expand(self.n, L))
+            new_shard = p_shard - lr * (g_shard / self.n)
+            del p_flat, p_shard, g_shard
+            # every worker gathers the same vector: worker 0's is the pull
+            full = all_gather_flat(new_shard, L)[0]
+            scatter_flat(full, idxs, self.leaf_shapes, out)
+            del new_shard, full
+        return out, new_ef, sent
 
     # --------------------------------------------------------- accounting
     def modeled_timeline(self) -> Dict[str, float]:
@@ -245,13 +300,19 @@ class CommPlan:
     def measured_step_tx_bytes(self, arch: str = "allreduce") -> int:
         """Shape-static measured bytes ONE worker puts on the wire per BSP
         step, recomputed per bucket from the plan.  For the exact codec
-        this is the fp32 schedule.  Add ``measured_bytes(sent_elems)`` for
-        dgc."""
-        if arch != "allreduce":
-            raise NotImplementedError(
-                "arch='ps' is not ported yet: ROADMAP queue A item 6")
+        this is the fp32 schedule; for ``ps`` the gradient reduce-scatter
+        is encoded and the parameter all-gather is fp32.  Add
+        ``measured_bytes(sent_elems)`` for dgc."""
         codec = self.codec if self.in_schedule else codec_for(
             Compressor("none"))
+        if arch == "ps":
+            total = 0.0
+            for b in range(len(self.buckets)):
+                m = pad_for_schedule(self.bucket_len(b), self.n) // self.n
+                rs = (self.n - 1) * codec.static_tx_bytes(m)
+                ag = (self.n - 1) * 4 * m          # params travel exact
+                total += rs + ag
+            return int(total)
         return int(sum(
             schedule_tx_bytes(self.topology, self.n,
                               pad_for_schedule(self.bucket_len(b), self.n),

@@ -49,3 +49,16 @@ def psum(x: torch.Tensor) -> torch.Tensor:
     for w in range(1, x.shape[0]):
         acc += x[w]
     return acc[None].expand_as(x)
+
+
+def psum_scatter(x) -> torch.Tensor:
+    """``lax.psum_scatter(x, scatter_dimension=0, tiled=False)``: ``x[w]``
+    is worker w's ``[n, m]`` contribution (``x`` a ``[n, n, m]`` tensor or
+    a sequence of n such tensors); worker r receives the worker-order sum
+    of chunk r, so the result is ``[n, m]``.  A worker that contributes
+    nothing may pass a zero view (``t.new_zeros(()).expand(n, m)``): the
+    sum then adds exact zeros and holds no copy of them."""
+    acc = x[0].clone(memory_format=torch.contiguous_format)
+    for w in range(1, len(x)):
+        acc += x[w]
+    return acc

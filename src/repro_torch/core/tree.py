@@ -21,13 +21,17 @@ import torch
 Path = Tuple[Any, ...]
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nest of dicts, lists and tuples."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a nest of dicts, lists and tuples
+    (with the matching leaves of ``rest``, trees of the same structure,
+    as further arguments)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def leaf_paths(tree, prefix: Path = ()) -> List[Path]:
@@ -75,6 +79,16 @@ class LeafLayout:
             out.append(shape if len(paths) == 1 else (len(paths),) + shape)
         return out
 
+    def leaf(self, tree, i: int) -> torch.Tensor:
+        """Leaf ``i`` of ``tree``, its parts stacked (a copy when there
+        are several)."""
+        ts = [get_path(tree, p) for p in self.parts[i]]
+        return ts[0] if len(ts) == 1 else torch.stack(ts)
+
+    def view(self, tree) -> "LeafView":
+        """The leaves of ``tree`` as a sequence stacked on each read."""
+        return LeafView(self, tree)
+
     def leaves(self, tree, consume: bool = False) -> Iterator[torch.Tensor]:
         """Yield each leaf, stacking its parts.  ``consume=True`` drops the
         parts from ``tree`` as they are read, so a gradient tree's memory
@@ -99,3 +113,24 @@ class LeafLayout:
                 part = leaf if len(paths) == 1 else leaf[j]
                 set_path(out, p, fn(get_path(tree, p), part))
         return out
+
+
+class LeafView:
+    """A tree's leaves as a lazily stacked sequence: item ``i`` is
+    ``layout.leaf(tree, i)``, made on each read, so a consumer that reads
+    leaves bucket by bucket holds one stacked copy at a time.  Assigning
+    to an item does nothing (``CommPlan`` drops the leaves it consumed by
+    assigning None)."""
+
+    def __init__(self, layout: LeafLayout, tree):
+        self.layout = layout
+        self.tree = tree
+
+    def __len__(self) -> int:
+        return len(self.layout.parts)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.layout.leaf(self.tree, i)
+
+    def __setitem__(self, i: int, value) -> None:
+        pass

@@ -99,6 +99,8 @@ def library() -> ctypes.CDLL:
     lib.repro_onebit_encode_ef.argtypes = ([ptr] * 8 + [i32] * 2
                                            + [ctypes.c_float, i32, ptr])
     lib.repro_onebit_encode_ef.restype = i32
+    lib.repro_onebit_compress.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+    lib.repro_onebit_compress.restype = i32
     lib.repro_topk_compress.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.repro_topk_compress.restype = i32
     lib.repro_terngrad.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]

@@ -13,20 +13,22 @@ import torch
 
 from repro_torch.kernels.build import library
 
-LAUNCHES = {"onebit_encode_ef": 0}
+# launch counts of both 1-bit kernels (``onebit.py`` counts its own)
+LAUNCHES = {"onebit_encode_ef": 0, "onebit_compress": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["onebit_encode_ef"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def _check(name, t, shape, dtype, device):
+def _check(name, t, shape, dtype, device, kernel="onebit_encode_ef"):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
-            f"onebit_encode_ef: {name} must be {dtype} {shape} on {device}, "
+            f"{kernel}: {name} must be {dtype} {shape} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"onebit_encode_ef: {name} must be contiguous and "
+        raise ValueError(f"{kernel}: {name} must be contiguous and "
                          "16-byte aligned")
 
 

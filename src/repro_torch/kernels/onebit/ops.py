@@ -1,5 +1,6 @@
-"""Public entries of the 1-bit kernel: ``encode_ef`` through the backend
-seam, the wire format's bit packing and its wire-byte accounting."""
+"""Public entries of the 1-bit kernels: ``compress`` and ``encode_ef``
+through the backend seam, ``decompress``, the wire format's bit packing
+and its wire-byte accounting."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +8,26 @@ import torch
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.onebit.fused import (LAUNCHES, onebit_encode_ef,
                                               reset_launches)
-from repro_torch.kernels.onebit.ref import onebit_encode_ef_ref
+from repro_torch.kernels.onebit.onebit import onebit_compress
+from repro_torch.kernels.onebit.ref import (onebit_decompress_ref,
+                                            onebit_encode_ef_ref, onebit_ref)
+
+
+def compress(g, e, *, backend: str = "auto"):
+    """Symmetric 1-bit compress of ``c = g + e`` [R, C]: ``(signs int8,
+    scale f32 [R, 1], new_e f32)`` (module ``ref.onebit_ref`` for the
+    contract), through the backend seam: a CUDA ``g`` launches the CUDA
+    kernel (or raises), a CPU ``g`` takes the plain version."""
+    if g.dim() != 2 or e.shape != g.shape:
+        raise ValueError(f"compress: want g, e [R, C], got {tuple(g.shape)}"
+                         f", {tuple(e.shape)}")
+    if resolve_backend(backend, g) == "kernel":
+        return onebit_compress(g.float().contiguous(),
+                               e.float().contiguous())
+    return onebit_ref(g, e)
+
+
+decompress = onebit_decompress_ref
 
 
 def encode_ef(g, e=None, valid=None, *, gain: float = 1.0,
@@ -65,5 +85,6 @@ def wire_bytes(numel: int) -> int:
     return numel // 8 + 4 * max(1, numel // 256)
 
 
-__all__ = ["LAUNCHES", "encode_ef", "onebit_encode_ef_ref", "pack_bits",
+__all__ = ["LAUNCHES", "compress", "decompress", "encode_ef",
+           "onebit_encode_ef_ref", "onebit_ref", "pack_bits",
            "reset_launches", "unpack_bits", "wire_bytes"]

@@ -1,14 +1,30 @@
-"""Plain PyTorch version of the fused 1-bit encode + error-feedback kernel
-(Seide et al.): the CPU path of ``ops.encode_ef`` and the yardstick
-``chip_smoke.py`` holds the CUDA kernel against.
+"""Plain PyTorch versions of the two 1-bit kernels (Seide et al.): the CPU
+paths of ``ops.compress`` and ``ops.encode_ef`` and the yardsticks
+``chip_smoke.py`` holds the CUDA kernels against.
 
-It computes what ``repro/kernels/onebit/ref.py::onebit_encode_ef_ref``
-computes, expression for expression, with the same signature and the same
-five outputs.
+They compute what ``repro/kernels/onebit/ref.py``'s ``onebit_ref``,
+``onebit_decompress_ref`` and ``onebit_encode_ef_ref`` compute,
+expression for expression, with the same signatures and outputs.
 """
 from __future__ import annotations
 
 import torch
+
+
+def onebit_ref(g, e):
+    """g, e [R, C] -> (signs int8 in {-1, +1}, scale [R, 1] f32, new_e):
+    ``c = g + e`` (``c >= 0`` -> +1), ``scale = mean|c|`` per row,
+    ``new_e = c - sign * scale``."""
+    c = g.float() + e.float()
+    signs = torch.where(c >= 0, 1, -1).to(torch.int8)
+    scale = c.abs().mean(-1, keepdim=True)
+    decompressed = signs.float() * scale
+    new_e = c - decompressed
+    return signs, scale, new_e
+
+
+def onebit_decompress_ref(signs, scale):
+    return signs.float() * scale
 
 
 def onebit_encode_ef_ref(g, e=None, valid=None, *, gain: float = 1.0,

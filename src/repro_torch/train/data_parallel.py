@@ -1,58 +1,78 @@
 """Data parallelism with compressed, bucketed, topology-explicit
 communication (survey §3.3): the JAX package's
-``train/data_parallel.py::DeviceEngine``, BSP / allreduce part.
+``train/data_parallel.py::DeviceEngine`` over the survey's Table 1,
+{bsp, ssp, asp, sma} x {allreduce, ps}.
 
-K logical workers share one device (``core.collectives``).  Each BSP step
-runs every worker's forward and backward on its own batch (one after
-another on the engine's device) and turns its gradient tree into the
-reference's leaf list (``core.tree.LeafLayout``, stacking each
-layer-stacked leaf and freeing the per-layer gradients as it goes).  Then,
-by ``wire`` mode:
+K logical workers share one device (``core.collectives``); gradients
+travel as the reference's leaf list (``core.tree.LeafLayout``).
 
-  modeled    ``Compressor.roundtrip`` with the worker's error-feedback
-             residuals (one fused encode+EF pass per leaf), then the
-             bucketed allreduce of the reconstructed gradients in
-             ``CommPlan`` issue order (TicTac by default) over the
-             topology's exact schedule.  Wire bytes: the compressor's
-             analytic accounting per worker push.
-  measured   the raw gradients go through ``CommPlan.exchange``: per
-             bucket, the topology's codec schedule with encoded planes
-             inside it and each worker's EF inside the schedule.  Wire
-             bytes: the plan's shape-static plane bytes times K plus 8 B
-             per sparse element the step shipped (dgc).  ``bsp/*/none``
-             runs the exact schedule, bit for bit as under ``modeled``.
+  sync=bsp        every step runs each worker's forward and backward on its
+                  own batch (one after another), then by ``wire`` mode:
+                  modeled, ``Compressor.roundtrip`` with the worker's EF
+                  residuals and a full-precision exchange; measured, the
+                  raw gradients through the codec schedules of
+                  ``CommPlan`` (each worker's EF inside the schedule).
+  sync=ssp | asp  the simulator's deterministic tick schedule
+                  (``core.sync.firing_schedule`` over
+                  ``effective_periods()``) replayed: each firing worker
+                  pushes the gradient of its stale pulled parameters, in
+                  the simulator's event order.  The reference computes
+                  every worker's gradient each tick under ``shard_map`` and
+                  uses the firing ones; on one card only the firing workers
+                  compute, which gives the same values.
+  sync=sma        CROSSBOW synchronous model averaging: K replicas, a
+                  center that is a ``CommPlan`` exchange of the replicas,
+                  and ``r - lr g - mu (r - center)``.
+  arch=allreduce  decentralized: the bucketed topology exchange, the update
+                  replicated.
+  arch=ps         centralized: the reduce-scatter / shard update /
+                  all-gather path of ``core.parameter_server``.  Under BSP
+                  it runs over the same bucket plan and issue order as
+                  allreduce (``make_bucketed_ps_update``, or the encoded
+                  ``CommPlan.ps_exchange`` when measured); under SSP/ASP
+                  each firing worker's push is a per-leaf reduce-scatter in
+                  which the other workers contribute exact zeros.
 
-and finally the SGD update ``p - lr * mean``.  The other sync models
-(ssp, asp, sma), ``arch="ps"``, backup workers and straggler detection
-raise, naming their ROADMAP queue A item.
+Wire bytes: ``modeled`` is the compressor's analytic accounting per push
+(the simulator's); ``measured`` is the plan's shape-static plane bytes
+times K plus 8 B per sparse element shipped (dgc).  SSP/ASP pushes are
+counted as modeled bytes per event in both modes, as in the reference.
+Backup workers and straggler detection raise (ROADMAP queue A item 7).
 
-Each phase of the step runs under a ``torch.profiler.record_function``
-range (``forward_backward``, ``stack_and_compress``, ``allreduce``,
-``sgd_update``; the measured exchange is ``allreduce``), so a profile
-splits the step's device time by phase (``tools/torch_train_profile.py``);
-outside a profile a range costs a few microseconds of host time.
+Each phase runs under a ``torch.profiler.record_function`` range
+(``forward_backward``, ``stack_and_compress``, ``allreduce`` for the
+exchange or the PS round, ``sgd_update``), so a profile splits the step's
+device time by phase (``tools/torch_train_profile.py``).
 
-``torch.Generator``s seeded from (seed, step, worker) drive the stochastic
-methods: one per worker for the modeled roundtrip, one (worker index K)
-for the measured exchange, which draws every worker's noise at once.
-They are not the JAX package's key streams.
+``torch.Generator``s seeded from (seed, step or event, worker) drive the
+stochastic methods (``core.sync.event_generator``): one per worker for the
+modeled roundtrip, one (worker index K) for the measured exchange.  They
+are not the JAX package's key streams.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.comm.plan import WIRE_MODES, CommPlan
+from repro_torch.comm.plan import (WIRE_MODES, CommPlan, fuse, plan_buckets,
+                                   scatter_flat)
+from repro_torch.core.collectives import psum_scatter
 from repro_torch.core.comm_scheduler import LinkModel
 from repro_torch.core.compression import EF_METHODS, Compressor
-from repro_torch.core.sync import ElasticWorkerSet, default_periods
-from repro_torch.core.tree import LeafLayout, tree_map
+from repro_torch.core.parameter_server import (all_gather_flat, make_ps_step,
+                                               pad_to_multiple, sgd_update_fn,
+                                               shard_of_flat)
+from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
+                                   event_generator, firing_schedule, unported)
+from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.elastic.backup import participation_weights
 
+DEVICE_SYNCS = ("bsp", "ssp", "asp", "sma")   # device-executable sync models
 ARCHS = ("allreduce", "ps")                   # §3.3.1 architectures
 
 
@@ -60,8 +80,9 @@ ARCHS = ("allreduce", "ps")                   # §3.3.1 architectures
 class DataParallelConfig:
     num_workers: int = 8
     lr: float = 0.1
-    sync: str = "bsp"                # bsp (ssp | asp | sma: queue A item 6)
-    arch: str = "allreduce"          # allreduce (ps: queue A item 6)
+    sync: str = "bsp"                # bsp | ssp | asp | sma
+    arch: str = "allreduce"          # allreduce | ps
+    staleness: int = 3               # SSP bound s
     periods: Optional[Tuple[int, ...]] = None   # worker speeds
     topology: str = "ring"           # key into core.allreduce.TOPOLOGIES
     compressor: Compressor = Compressor("none")
@@ -72,21 +93,99 @@ class DataParallelConfig:
     link: LinkModel = LinkModel()
     back_s_per_byte: float = 2e-12   # modeled backward s per gradient byte
     wire: str = "modeled"            # modeled | measured
+    sma_mu: float = 0.1              # SMA correction strength
     seed: int = 0
 
 
-def _unported(cfg: DataParallelConfig) -> Optional[str]:
-    if cfg.sync != "bsp":
-        return f"sync={cfg.sync!r}: ROADMAP queue A item 6"
-    if cfg.arch != "allreduce":
-        return f"arch={cfg.arch!r}: ROADMAP queue A item 6"
-    if cfg.backup or cfg.detect:
-        return "backup workers and straggler detection: ROADMAP queue A item 7"
-    return None
+def make_bucketed_ps_update(leaf_shapes, lr: float, bucket_mb: float = 4.0,
+                            order: str = "tictac",
+                            back_s_per_byte: float = 2e-12, seed: int = 0):
+    """Centralized (params, grads) -> new parameter leaves: the same
+    fused-bucket plan and issue order as ``CommPlan.reduce_grads``, but
+    each bucket takes the parameter-server path of
+    ``core.parameter_server``: reduce-scatter the bucket's summed
+    gradient, SGD-update each worker's 1/n shard (the "server" work,
+    ZeRO-style) and all-gather the updated shards back.  Traffic per
+    worker equals the ring allreduce's; update work drops by n.
+
+    ``params`` is the replicated leaf list (any indexable, e.g. a
+    ``core.tree.LeafView``), ``grads[w]`` worker w's leaf list, consumed
+    bucket by bucket."""
+    shapes = [tuple(s) for s in leaf_shapes]
+    buckets, order_idx, _ = plan_buckets(shapes, bucket_mb, order,
+                                         back_s_per_byte, seed)
+
+    def ps_update(params, grads):
+        n = len(grads)
+        step = make_ps_step(sgd_update_fn(lr, mean_over=n))
+        out: List[torch.Tensor] = [None] * len(shapes)
+        for b in order_idx:
+            idxs = buckets[b]
+            pb = torch.cat([params[i].float().reshape(-1) for i in idxs])
+            gb = fuse(grads, idxs, shapes, pb.shape[0])
+            (new_pb,), _ = step([pb[None].expand(n, -1)], [gb], None)
+            del pb, gb
+            scatter_flat(new_pb[0], idxs, shapes, out)
+            del new_pb
+        return out
+
+    return ps_update
+
+
+def async_replay_step(st, batches, t, bound: Optional[int], *, K: int,
+                      push_grad: Callable, apply_fn: Callable,
+                      event_wire: int, eff_periods: Tuple[int, ...]):
+    """Replay the simulator's deterministic tick schedule: each tick's
+    firing events apply in the simulator's worker order, each worker
+    pushing the gradient of its stale pulled parameters.
+
+    ``push_grad(w, pulled, batch, event) -> (loss, leaves)`` computes
+    worker w's (compressed) gradient leaves and renews its EF;
+    ``apply_fn(params, leaves, w)`` applies one push through the
+    architecture.  Only the firing workers compute: a non-firing worker's
+    gradient and EF would be discarded, and a firing worker's pulled
+    parameters cannot change within its tick (each worker fires at most
+    once per tick), so computing at its event gives the reference's
+    values."""
+    events = []
+    while st["updates"] - st["updates_base"] < \
+            (t + 1 - st["step_base"]) * K:
+        st["tick"] += 1
+        # the same deterministic schedule the simulator executes
+        firing = firing_schedule(st["tick"], eff_periods, st["batch_idx"],
+                                 bound)
+        if not firing:
+            continue
+        # a worker's batch index only advances at its own events, so its
+        # batch is cached until it fires (invalidated below)
+        for w in range(K):
+            if st["batch_cache"][w] is None:
+                st["batch_cache"][w] = batches(st["batch_idx"][w], w)
+        for w in firing:
+            loss, leaves = push_grad(w, st["pulled"][w],
+                                     st["batch_cache"][w], st["updates"])
+            staleness = st["server_ver"] - st["pulled_ver"][w]
+            st["params"] = apply_fn(st["params"], leaves, w)
+            del leaves
+            st["server_ver"] += 1
+            st["updates"] += 1
+            st["pulled"][w] = st["params"]   # pull = reference rebind
+            st["pulled_ver"][w] = st["server_ver"]
+            st["batch_idx"][w] += 1
+            st["batch_cache"][w] = None
+            st["wire"] += event_wire
+            events.append(dict(step=st["updates"], loss=float(loss),
+                               max_staleness=staleness, worker=w))
+    return st, events
+
+
+def _tree_bytes(tree) -> int:
+    tensors = (get_path(tree, p) for p in leaf_paths(tree))
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class DeviceEngine(ElasticWorkerSet):
-    """BSP data parallelism over K workers on one device:
+    """{bsp, ssp, asp, sma} x {allreduce, ps} over K workers on one device:
     ``init / step / finalize`` plus a composed ``run`` returning
     ``(params, history, wire_bytes)``, like the reference's engine.
 
@@ -96,11 +195,23 @@ class DeviceEngine(ElasticWorkerSet):
 
     def __init__(self, cfg: DataParallelConfig, grad_fn: Callable,
                  layout: Optional[LeafLayout] = None, device="cuda"):
+        if cfg.sync not in DEVICE_SYNCS:
+            raise ValueError(f"sync={cfg.sync!r} (supported: {DEVICE_SYNCS})")
         if cfg.arch not in ARCHS:
             raise ValueError(f"arch={cfg.arch!r} (supported: {ARCHS})")
         if cfg.wire not in WIRE_MODES:
             raise ValueError(f"wire={cfg.wire!r} (supported: {WIRE_MODES})")
-        why = _unported(cfg)
+        if cfg.sync == "sma":
+            if cfg.compressor.method != "none":
+                raise ValueError("sma exchanges replicas, not gradients: "
+                                 "it has no compression path")
+            if cfg.arch != "allreduce":
+                raise ValueError("sma is a decentralized exchange; use "
+                                 "arch='allreduce'")
+        if cfg.backup and cfg.sync != "bsp":
+            raise ValueError("backup workers compose with bsp only "
+                             "(async modes have no round to drop from)")
+        why = unported(cfg.backup, cfg.detect)
         if why:
             raise NotImplementedError(f"not ported yet: {why}")
         self.cfg = cfg
@@ -113,6 +224,7 @@ class DeviceEngine(ElasticWorkerSet):
         self.slowdowns: List[float] = [1.0] * cfg.num_workers
         self._dropped = 0
         self._plan: Optional[CommPlan] = None
+        self._ps_update: Optional[Callable] = None
         self._wire_total = 0
 
     @property
@@ -145,18 +257,18 @@ class DeviceEngine(ElasticWorkerSet):
         return self._ensure_plan(params).modeled_timeline()
 
     def per_event_wire_bytes(self, params) -> int:
-        """Modeled bytes one worker puts on the wire per gradient push."""
+        """Modeled bytes one worker puts on the wire per gradient push
+        (identical for both architectures and to the simulator's)."""
         return self._ensure_plan(params).modeled_event_bytes()
 
     def wire_bytes_per_step(self, params) -> int:
         """Modeled bytes per BSP step summed over workers."""
         return self.per_event_wire_bytes(params) * self.cfg.num_workers
 
-    # --------------------------------------------------------- bsp stepping
     def _generator(self, t: int, w: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            (self.cfg.seed * 1_000_003 + t) * 31 + w)
+        return event_generator(self.cfg.seed, t, w, self.device)
 
+    # --------------------------------------------------------- bsp stepping
     def _step_bsp(self, st, batches, t):
         cfg = self.cfg
         K = cfg.num_workers
@@ -190,26 +302,44 @@ class DeviceEngine(ElasticWorkerSet):
             losses.append(float(loss))
             del leaves, ef_new
         nz = 0
+        lr = cfg.lr
+        params = layout.view(st["params"])
         with record_function("allreduce"):
+            # the exchange; under arch="ps" it is the whole PS round
+            # (push, shard update, pull)
             if plan.in_schedule:
                 # encoded planes inside the schedule; each worker's EF is
                 # consumed and renewed by the exchange (keeping a dropped
                 # worker's residual comes with backup workers, item 7)
-                avg, ef_new, sent_elems = plan.exchange(
-                    sent, st["ef"], self._generator(t, K))
+                if cfg.arch == "ps":
+                    new, ef_new, sent_elems = plan.ps_exchange(
+                        params, sent, st["ef"], self._generator(t, K), lr)
+                else:
+                    avg, ef_new, sent_elems = plan.exchange(
+                        sent, st["ef"], self._generator(t, K))
                 if ef_new is not None:
                     st["ef"] = ef_new
                 nz = int(sent_elems.sum())
+            elif cfg.arch == "ps":
+                if self._ps_update is None:
+                    self._ps_update = make_bucketed_ps_update(
+                        plan.leaf_shapes, lr, bucket_mb=cfg.bucket_mb,
+                        order=cfg.order,
+                        back_s_per_byte=cfg.back_s_per_byte, seed=cfg.seed)
+                new = self._ps_update(params, sent)
             else:
                 avg = plan.reduce_grads(sent)
-        lr = cfg.lr
         with record_function("sgd_update"):
-            st["params"] = layout.update(st["params"], avg,
-                                         lambda p, g: p - lr * g)
+            if cfg.arch == "ps":
+                st["params"] = layout.update(st["params"], new,
+                                             lambda p, x: x.to(p.dtype))
+            else:
+                st["params"] = layout.update(st["params"], avg,
+                                             lambda p, g: p - lr * g)
         if cfg.wire == "measured":
             # every step from the plan: the shape-static plane bytes of
             # the whole schedule plus dgc's sparse payload (all workers)
-            st["wire"] += plan.measured_step_tx_bytes() * K \
+            st["wire"] += plan.measured_step_tx_bytes(cfg.arch) * K \
                 + plan.measured_bytes(nz)
         else:
             st["wire"] += plan.modeled_event_bytes() * (K - len(drop))
@@ -221,23 +351,151 @@ class DeviceEngine(ElasticWorkerSet):
             ev["dropped"] = sorted(drop)
         return st, [ev]
 
+    # ------------------------------------------------------------------ sma
+    def _step_sma(self, st, batches, t):
+        """CROSSBOW synchronous model averaging: the center is a
+        ``CommPlan`` exchange of the replicas themselves (the gradient
+        paths' bucket fusion and issue order), taken before the step, and
+        each replica moves by ``r - lr g - mu (r - center)``."""
+        cfg = self.cfg
+        K = cfg.num_workers
+        lr, mu = cfg.lr, cfg.sma_mu
+        reps = st["replicas"]
+        layout = self._layout(reps[0])
+        plan = self._ensure_plan(reps[0])
+        with record_function("allreduce"):
+            center = layout.update(
+                reps[0], plan.reduce_grads([layout.view(r) for r in reps]),
+                lambda p, z: z)
+        losses = []
+        for w in range(K):
+            with record_function("forward_backward"):
+                loss, g = self.grad_fn(reps[w], batches(t, w))
+            with record_function("sgd_update"):
+                reps[w] = tree_map(
+                    lambda r, z, gg: r - lr * gg - mu * (r - z),
+                    reps[w], center, g)
+            losses.append(float(loss))
+            del g
+        if cfg.wire == "measured":
+            st["wire"] += plan.measured_step_tx_bytes("allreduce") * K
+        else:
+            # the simulator's accounting: one replica-sized push per worker
+            st["wire"] += 4 * sum(int(np.prod(s))
+                                  for s in plan.leaf_shapes) * K
+        return st, [dict(step=t, loss=float(np.mean(losses)),
+                         max_staleness=0)]
+
+    # --------------------------------------------------- ssp / asp stepping
+    def _push_grad(self, st, w: int, pulled, batch, event: int):
+        """Worker w's gradient leaves against its pulled parameters,
+        compressed with its EF (renewed here: only firing workers consume
+        their residual)."""
+        comp = self.cfg.compressor
+        with record_function("forward_backward"):
+            loss, grads = self.grad_fn(pulled, batch)
+        leaves = self._layout(pulled).leaves(grads, consume=True)
+        del grads
+        with record_function("stack_and_compress"):
+            if comp.method == "none":
+                return loss, list(leaves)
+            out, ef_new, _ = comp.roundtrip(
+                leaves, None if st["ef"] is None else st["ef"][w],
+                self._generator(event, w))
+            if ef_new is not None:
+                st["ef"][w] = ef_new
+        return loss, out
+
+    def _apply(self, params, leaves, w: int):
+        lr = self.cfg.lr
+        with record_function("sgd_update"):
+            return self._layout(params).update(params, leaves,
+                                               lambda p, g: p - lr * g)
+
+    def _ps_push(self, params, leaves, w: int):
+        """The firing worker's push through the parameter server, leaf by
+        leaf: every other worker contributes exact zeros (views, no
+        copies), the reduce-scatter delivers each shard to its owner,
+        which applies plain SGD (the raw sum: one pusher), and the pull
+        all-gathers the updated shards."""
+        n = self.cfg.num_workers
+        layout = self._layout(params)
+        update = sgd_update_fn(self.cfg.lr)
+        new = []
+        with record_function("allreduce"):
+            for i in range(len(leaves)):
+                p = layout.leaf(params, i)
+                g, L = pad_to_multiple(leaves[i].float(), n)
+                leaves[i] = None
+                chunks = g.reshape(n, -1)
+                zero = chunks.new_zeros(()).expand_as(chunks)
+                g_shard = psum_scatter([chunks if v == w else zero
+                                        for v in range(n)])
+                del g, chunks
+                p_shard = shard_of_flat(p.float().reshape(1, L).expand(n, L))
+                (new_shard,), _ = update([p_shard], [g_shard], None)
+                del p_shard, g_shard
+                new.append(all_gather_flat(new_shard, L)[0].reshape(
+                    p.shape).to(p.dtype))
+                del p, new_shard
+        return layout.update(params, new, lambda p, x: x)
+
+    def _step_async(self, st, batches, t, bound: Optional[int]):
+        cfg = self.cfg
+        return async_replay_step(
+            st, batches, t, bound, K=cfg.num_workers,
+            push_grad=functools.partial(self._push_grad, st),
+            apply_fn=self._ps_push if cfg.arch == "ps" else self._apply,
+            event_wire=self.per_event_wire_bytes(st["params"]),
+            eff_periods=self.effective_periods())
+
     # -------------------------------------------------- engine protocol
     def init(self, params) -> Dict[str, Any]:
+        cfg = self.cfg
+        K = cfg.num_workers
         params = tree_map(lambda x: x.to(self.device), params)
         ef = None
         if self._ef_active:
             shapes = self._layout(params).shapes(params)
-            ef = [self.cfg.compressor.init_state(
+            ef = [cfg.compressor.init_state(
                 torch.empty(s, device=self.device) for s in shapes)
-                for _ in range(self.cfg.num_workers)]
-        return dict(params=params, ef=ef, wire=0)
+                for _ in range(K)]
+        st: Dict[str, Any] = dict(params=params, ef=ef, wire=0)
+        if cfg.sync in ("ssp", "asp"):
+            st.update(
+                # per-worker pulled parameters are reference rebinds
+                pulled=[params] * K,
+                pulled_ver=[0] * K,
+                server_ver=0,
+                tick=0,
+                updates=0,
+                batch_idx=[0] * K,
+                batch_cache=[None] * K,
+                updates_base=0,
+                step_base=0)
+        elif cfg.sync == "sma":
+            del st["params"]
+            st["replicas"] = [params] * K    # updates are out of place
+        return st
 
     def step(self, st, batches: Callable[[int, int], Any], t: int):
-        st, ev = self._step_bsp(st, batches, t)
+        sync = self.cfg.sync
+        if sync == "bsp":
+            st, ev = self._step_bsp(st, batches, t)
+        elif sync == "ssp":
+            st, ev = self._step_async(st, batches, t, self.cfg.staleness)
+        elif sync == "asp":
+            st, ev = self._step_async(st, batches, t, None)
+        else:
+            st, ev = self._step_sma(st, batches, t)
         self._wire_total = st["wire"]
         return st, ev
 
     def finalize(self, st):
+        if self.cfg.sync == "sma":
+            # replica average, like the simulator
+            return tree_map(lambda *xs: torch.stack(xs).mean(0),
+                            *st["replicas"])
         return st["params"]
 
     def wire_bytes(self) -> int:
@@ -246,9 +504,20 @@ class DeviceEngine(ElasticWorkerSet):
     def extra_metrics(self) -> Dict[str, Any]:
         m: Dict[str, Any] = {"wire_mode": self.cfg.wire}
         if self._plan is not None:
-            m["measured_step_tx_bytes"] = self._plan.measured_step_tx_bytes()
+            m["measured_step_tx_bytes"] = \
+                self._plan.measured_step_tx_bytes(self.cfg.arch)
             m["fp32_step_tx_bytes"] = self._plan.fp32_step_tx_bytes()
         return m
+
+    def per_device_state_bytes(self, st) -> Dict[str, int]:
+        """Persistent bytes per worker: plain SGD carries no optimizer
+        state; params are replicated, EF residuals are per worker."""
+        params_like = (st["replicas"][0] if self.cfg.sync == "sma"
+                       else st["params"])
+        params = _tree_bytes(params_like)
+        ef = (sum(x.numel() * x.element_size() for e in st["ef"] for x in e)
+              // self.cfg.num_workers if st.get("ef") is not None else 0)
+        return {"params": params, "opt": 0, "ef": ef, "total": params}
 
     def run(self, params, batches: Callable[[int, int], Any], steps: int):
         """batches(t, worker) -> batch.  Returns (params, history,

@@ -1,20 +1,27 @@
 """One declarative ``Strategy`` surface for the survey's §3.3 cross-product
 (the JAX package's ``train/strategy.py``):
 
-    Strategy.parse("bsp/allreduce/onebit@8", lr=0.01).build(grad_fn)
+    Strategy.parse("ssp:3/ps/onebit@8", lr=0.01).build(grad_fn)
     Trainer(Strategy(...)).fit(grad_fn, params, batches, steps)
 
 A spec is ``sync[:staleness]/arch/comp[:density]@workers``; a topology
-name in the arch slot means allreduce over that schedule.  The port runs
-the cells ``registered_cells()`` lists: BSP allreduce with every
-compression method (``none``, ``onebit``, ``dgc``, ``terngrad``,
-``qsgd``) over every topology, ``wire="modeled"`` or ``"measured"``, on
-``DeviceEngine``.  The rest of the reference's matrix parses and raises
-when built or constructed: the other sync models, ``arch="ps"`` and the
-simulator (ROADMAP queue A item 6), backup workers and straggler
-detection (item 7), hybrid meshes (item 8) and elastic plans (item 7).
+name in the arch slot means allreduce over that schedule.
+``registered_cells()`` lists the reference's 33 cells, and the port runs
+every one on its backend:
 
-``backend`` is ``auto`` or ``device``, both ``DeviceEngine``;
+  sim     ``core.sync.SimSyncEngine``, the deterministic discrete-event
+          simulation: any sync model, any compressor.  Architecture is
+          transparent there (the simulated server is the PS).
+  device  ``train.data_parallel.DeviceEngine``: K logical workers on one
+          device, every sync model and both architectures.
+
+``backend="auto"`` resolves to ``device``: the port's workers are logical,
+so one card holds any worker count (the reference falls back to ``sim``
+when the process has fewer devices than workers).  ``wire="measured"``
+needs the device backend.  Backup workers and straggler detection (ROADMAP
+queue A item 7), hybrid meshes (item 8) and elastic plans (item 7) parse
+and raise.
+
 ``kernel_backend`` is the port's seam (``auto``: the CUDA kernels for
 CUDA tensors, the plain versions for CPU tensors; ``kernel``; ``ref``),
 and no environment variable changes it.
@@ -26,7 +33,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 from repro_torch.comm.plan import WIRE_MODES
 from repro_torch.core.allreduce import TOPOLOGIES
-from repro_torch.core.compression import METHODS, Compressor
+from repro_torch.core.compression import EF_METHODS, METHODS, Compressor
+from repro_torch.core.sync import SimSyncEngine, SyncConfig
 from repro_torch.core.tree import LeafLayout
 from repro_torch.kernels.backend import KERNEL_BACKENDS
 from repro_torch.train.data_parallel import (ARCHS, DataParallelConfig,
@@ -34,6 +42,10 @@ from repro_torch.train.data_parallel import (ARCHS, DataParallelConfig,
 from repro_torch.train.train_loop import train_loop
 
 SYNCS = ("bsp", "ssp", "asp", "sma")
+# the reference's acceptance rows (sma is registered separately)
+MATRIX_SYNCS = ("bsp", "ssp", "asp")
+# the tested compression columns: the EF methods plus the baseline
+MATRIX_METHODS = ("none",) + EF_METHODS
 _DENSITY_DEFAULT = 0.01
 
 
@@ -46,9 +58,24 @@ class Cell(NamedTuple):
 
 
 def registered_cells() -> List[Cell]:
-    """Every Strategy cell the port runs (the rest of the reference's
-    matrix is queued in ROADMAP queue A)."""
-    return [Cell("bsp", "allreduce", c, "device") for c in METHODS]
+    """Every supported Strategy cell: the reference's registry, cell for
+    cell."""
+    cells: List[Cell] = []
+    # device: the full EF matrix, plus the stateless quantizers under BSP
+    for s in MATRIX_SYNCS:
+        for a in ARCHS:
+            for c in MATRIX_METHODS:
+                cells.append(Cell(s, a, c, "device"))
+    for c in ("terngrad", "qsgd"):
+        for a in ARCHS:
+            cells.append(Cell("bsp", a, c, "device"))
+    # sim: the staleness replay's source of truth, and SMA on both
+    for s in MATRIX_SYNCS:
+        for c in MATRIX_METHODS:
+            cells.append(Cell(s, "allreduce", c, "sim"))
+    cells.append(Cell("sma", "allreduce", "none", "sim"))
+    cells.append(Cell("sma", "allreduce", "none", "device"))
+    return cells
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +89,7 @@ class Strategy:
     arch: str = "allreduce"
     compression: Union[str, Compressor] = "none"
     workers: int = 4
-    backend: str = "auto"            # auto | device (sim: queue A item 6)
+    backend: str = "auto"            # auto | sim | device
     kernel_backend: str = "auto"     # auto | kernel | ref
     staleness: int = 3               # SSP bound s
     backup: int = 0                  # BSP backup workers
@@ -71,6 +98,7 @@ class Strategy:
     bucket_mb: float = 4.0           # gradient bucket fusion
     order: str = "tictac"            # bucket issue order
     periods: Optional[Tuple[int, ...]] = None   # worker speeds
+    sma_mu: float = 0.1              # SMA correction strength
     density: float = _DENSITY_DEFAULT   # dgc density (compression as str)
     seed: int = 0
     detect: bool = False             # measured straggler detection (bsp)
@@ -211,9 +239,14 @@ class Strategy:
     # ------------------------------------------------------------ backends
     def resolve_backend(self) -> str:
         if self.backend == "sim":
-            raise NotImplementedError(
-                "the simulator backend is not ported yet (ROADMAP queue A "
-                "item 6)")
+            if self.wire == "measured":
+                # the simulator has no payloads to count: measured wire
+                # accounting only exists where planes are exchanged
+                raise ValueError("wire='measured' is device-only; the "
+                                 "simulator models bytes, it does not "
+                                 "move them")
+            return "sim"
+        # auto: the port's workers are logical, one device holds them all
         return "device"
 
     def build(self, grad_fn: Callable, layout: Optional[LeafLayout] = None,
@@ -221,8 +254,8 @@ class Strategy:
         """Construct the engine for this cell on ``device``; ``layout``
         maps the parameter tree onto the reference's leaves (see
         ``DeviceEngine``)."""
-        self.resolve_backend()
-        return DeviceBackend(self, grad_fn, layout, device)
+        return BACKENDS[self.resolve_backend()](self, grad_fn, layout,
+                                                device)
 
 
 # --------------------------------------------------------------- engines
@@ -268,6 +301,20 @@ class Engine:
         return params, events, mets["wire_bytes"]
 
 
+class SimBackend(Engine):
+    """Wraps the deterministic event simulation (``SimSyncEngine``)."""
+
+    backend = "sim"
+
+    def _make_inner(self, s: Strategy, grad_fn, layout, device):
+        return SimSyncEngine(
+            SyncConfig(mode=s.sync, num_workers=s.workers,
+                       staleness=s.staleness, lr=s.lr, sma_mu=s.sma_mu,
+                       periods=s.periods, compressor=s.compressor,
+                       backup=s.backup, detect=s.detect, seed=s.seed),
+            grad_fn, layout, device)
+
+
 class DeviceBackend(Engine):
     """Wraps ``DeviceEngine``."""
 
@@ -277,11 +324,15 @@ class DeviceBackend(Engine):
         return DeviceEngine(
             DataParallelConfig(
                 num_workers=s.workers, lr=s.lr, sync=s.sync, arch=s.arch,
-                periods=s.periods, topology=s.topology,
-                compressor=s.compressor, backup=s.backup,
-                bucket_mb=s.bucket_mb, order=s.order, detect=s.detect,
-                wire=s.wire, seed=s.seed),
+                staleness=s.staleness, periods=s.periods,
+                topology=s.topology, compressor=s.compressor,
+                backup=s.backup, bucket_mb=s.bucket_mb, order=s.order,
+                detect=s.detect, wire=s.wire, sma_mu=s.sma_mu,
+                seed=s.seed),
             grad_fn, layout, device)
+
+
+BACKENDS: Dict[str, type] = {"sim": SimBackend, "device": DeviceBackend}
 
 
 # -------------------------------------------------------------- trainer

@@ -18,6 +18,13 @@ schedules (``wire="measured"``) against the JAX package's.
   and measured; the measured wire ordering onebit < terngrad < qsgd <
   none; dgc's per-step wire following a degenerate step 0; and the JAX
   8-device acceptance cell, ``bsp/ring/onebit@8`` measured, 10 steps.
+* The parameter-server exchange (``arch="ps"``): ``CommPlan.ps_exchange``
+  against JAX's on 4 virtual devices for onebit, dgc, terngrad and qsgd
+  (new parameters and EF within 1e-6 of the largest, sparse counts exact;
+  JAX's uniform draws, one per hop, bucket and worker, are fed to the
+  stochastic codecs); ``measured_step_tx_bytes("ps")`` equal to JAX's for
+  every codec and n in {2, 4, 8}; and the measured ``bsp/ps/onebit@8``
+  engine against the JAX engine as the ring cells above.
 """
 import jax
 import numpy as np
@@ -113,6 +120,53 @@ for topo in %(topos)r:
         out[key + "/ef"] = np.asarray(new_e)
         out[key + "/sent"] = np.asarray(sent)
 
+from repro.comm.plan import CommPlan
+from repro.core.compression import Compressor
+psi = np.load(%(ps)r)
+mesh4 = Mesh(np.array(jax.devices()[:4]), ("w",))
+p_ex = [jnp.asarray(psi["p%%d" %% i]) for i in range(3)]
+keys = jax.random.split(jax.random.PRNGKey(7), 4)
+for method in ("onebit", "dgc", "terngrad", "qsgd"):
+    comp = Compressor(method, density=0.1)
+    plan = CommPlan.plan(p_ex, axis="w", n=4, compressor=comp,
+                         wire="measured", bucket_mb=%(bucket_mb)r)
+    ef_on = method in ("onebit", "dgc")
+    def body(p, g, e, k, plan=plan, ef_on=ef_on):
+        g = [x[0] for x in g]
+        e = [x[0] for x in e] if ef_on else None
+        new, ne, sent = plan.ps_exchange(p, g, e, k[0], 0.1)
+        ne = [x[None] for x in ne] if ef_on else [x[None] for x in g]
+        return [x[None] for x in new], ne, sent[None]
+    f = jax.jit(shard_map(body, mesh=mesh4,
+                          in_specs=(P(), P("w"), P("w"), P("w")),
+                          out_specs=(P("w"), P("w"), P("w")),
+                          check_vma=False))
+    new, ne, sent = f(p_ex, [jnp.asarray(psi["g%%d" %% i]) for i in range(3)],
+                      [jnp.asarray(psi["e%%d" %% i]) for i in range(3)], keys)
+    for i in range(3):
+        out["ps/%%s/p%%d" %% (method, i)] = np.asarray(new[i])
+        out["ps/%%s/e%%d" %% (method, i)] = np.asarray(ne[i])
+    out["ps/%%s/sent" %% method] = np.asarray(sent)
+    # each hop's uniform draws, worker by worker, in bucket issue order
+    draws = []
+    for b in plan.order:
+        m = pad_for_schedule(plan.bucket_len(b), 4) // 4
+        rows = -(-m // 256)
+        per_worker = []
+        for w in range(4):
+            kb = keys[w]
+            for b2 in plan.order[:plan.order.index(b) + 1]:
+                kb, sub = jax.random.split(kb)
+            hops = []
+            for i in range(3):
+                sub, hk = jax.random.split(sub)
+                hops.append(np.asarray(jax.random.uniform(hk, (rows, 256))))
+            per_worker.append(hops)
+        draws += [np.stack([per_worker[w][i] for w in range(4)])
+                  for i in range(3)]
+    for j, d in enumerate(draws):
+        out["ps/%%s/u%%d" %% (method, j)] = d
+
 cfg = get_config("tinyllama-1.1b").reduced()
 model = build_model(cfg)
 params = model.init(jax.random.PRNGKey(0))
@@ -140,7 +194,9 @@ for spec in %(specs)r:
                                   m["fp32_step_tx_bytes"]])
 np.savez(%(out)r, **out)
 """
-ENGINE_SPECS = ("bsp/ring/onebit@8", "bsp/ring/dgc@8")
+ENGINE_SPECS = ("bsp/ring/onebit@8", "bsp/ring/dgc@8", "bsp/ps/onebit@8")
+PS_SHAPES = ((40, 33), (257,), (3, 100))
+PS_BUCKET_MB = 0.002               # two buckets over the PS_SHAPES leaves
 
 
 def _exchange_inputs():
@@ -151,12 +207,29 @@ def _exchange_inputs():
     return x, ef
 
 
+def _ps_inputs():
+    rng = np.random.RandomState(5)
+    inp = {}
+    for i, s in enumerate(PS_SHAPES):
+        inp[f"p{i}"] = rng.standard_normal(s).astype(np.float32)
+        # per-worker scales 1..4, so the codecs' per-worker statistics
+        # differ from worker to worker
+        inp[f"g{i}"] = (rng.standard_normal((4,) + s) * np.arange(
+            1, 5).reshape((4,) + (1,) * len(s))).astype(np.float32)
+        inp[f"e{i}"] = (0.2 * rng.standard_normal((4,) + s)).astype(
+            np.float32)
+    return inp
+
+
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax_comm")
     x, ef = _exchange_inputs()
     np.savez(d / "inp.npz", x=x, ef=ef)
+    np.savez(d / "ps.npz", **_ps_inputs())
     run_multidevice(_JAX_CHILD % dict(inp=str(d / "inp.npz"),
+                                      ps=str(d / "ps.npz"),
+                                      bucket_mb=PS_BUCKET_MB,
                                       topos=TOPOLOGIES, specs=ENGINE_SPECS,
                                       out=str(d / "out.npz")), n_devices=8)
     return dict(np.load(d / "out.npz"))
@@ -219,6 +292,78 @@ def test_compressed_reduce_scatter_is_the_ring_half():
     want = (flat + e).sum(0).reshape(N_EX, m)
     got = shard + new_e.sum(0).reshape(N_EX, m)
     assert (got - want).abs().max() / want.abs().max() < 1e-5
+
+
+# ------------------------------------------- the parameter-server exchange
+class _FedCodec:
+    """A codec whose stochastic encodes take the given draws in order."""
+
+    def __init__(self, codec, draws):
+        self.codec, self.draws = codec, list(draws)
+
+    def encode_ef(self, seg, gen=None, u=None):
+        return self.codec.encode_ef(seg, gen, u=self.draws.pop(0))
+
+    def __getattr__(self, name):
+        return getattr(self.codec, name)
+
+
+@pytest.mark.parametrize("method", ["onebit", "dgc", "terngrad", "qsgd"])
+def test_ps_exchange_matches_jax(jax_ref, method):
+    from repro_torch.comm.plan import CommPlan
+    from repro_torch.core.compression import Compressor
+    inp = {k: torch.from_numpy(v) for k, v in _ps_inputs().items()}
+    plan = CommPlan.plan(PS_SHAPES, n=4, compressor=Compressor(
+        method, density=0.1), wire="measured", bucket_mb=PS_BUCKET_MB)
+    assert len(plan.buckets) == 2
+    stochastic = method in ("terngrad", "qsgd")
+    if stochastic:
+        fed = _FedCodec(plan.codec, [
+            torch.from_numpy(jax_ref[f"ps/{method}/u{j}"])
+            for j in range(3 * len(plan.buckets))])
+        plan.__class__ = type("FedPlan", (CommPlan,),
+                              {"codec": property(lambda self: fed)})
+    params = [inp[f"p{i}"] for i in range(3)]
+    grads = [[inp[f"g{i}"][w] for i in range(3)] for w in range(4)]
+    ef = (None if stochastic else
+          [[inp[f"e{i}"][w] for i in range(3)] for w in range(4)])
+    new, new_ef, sent = plan.ps_exchange(params, grads, ef, None, 0.1)
+    if stochastic:
+        assert not fed.draws                      # every draw consumed
+    for i in range(3):
+        ref = jax_ref[f"ps/{method}/p{i}"]
+        assert np.abs(ref - ref[0]).max() == 0    # one pulled vector
+        scale = float(np.abs(ref).max())
+        assert np.abs(new[i].numpy() - ref[0]).max() <= 1e-6 * scale
+        if not stochastic:
+            ref_e = jax_ref[f"ps/{method}/e{i}"]
+            got = np.stack([new_ef[w][i].numpy() for w in range(4)])
+            assert np.abs(got - ref_e).max() <= 1e-6 * float(
+                np.abs(ref_e).max())
+    assert sent.tolist() == jax_ref[f"ps/{method}/sent"].tolist()
+    assert (sent.sum() > 0) == (method == "dgc")
+    assert all(g is None for w in grads for g in w)   # consumed as fused
+    assert all(torch.equal(a, inp[f"p{i}"]) for i, a in enumerate(params))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ps_step_tx_bytes_match_jax(n):
+    import jax.numpy as jnp
+    from repro.comm.plan import CommPlan as JaxCommPlan
+    from repro.core.compression import Compressor as JaxCompressor
+    from repro_torch.comm.plan import CommPlan
+    from repro_torch.core.compression import Compressor
+    shapes = PS_SHAPES + ((n * 130 + 3,),)
+    for method in METHODS:
+        for wire in ("modeled", "measured"):
+            kw = dict(n=n, wire=wire, bucket_mb=PS_BUCKET_MB)
+            ref = JaxCommPlan.plan([jnp.zeros(s) for s in shapes],
+                                   axis="w", compressor=JaxCompressor(method),
+                                   **kw)
+            plan = CommPlan.plan(shapes, compressor=Compressor(method), **kw)
+            for arch in ("ps", "allreduce"):
+                assert plan.measured_step_tx_bytes(arch) == \
+                    ref.measured_step_tx_bytes(arch), (method, wire, arch)
 
 
 # ------------------------------------------------------ the measured engine

@@ -322,3 +322,66 @@ def test_measured_terngrad_step_kernel_equals_plain(cuda):
     for a, b in zip(layout.leaves(out["auto"][0]),
                     layout.leaves(out["ref"][0])):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ onebit_compress and SSP
+@pytest.mark.parametrize("R,C", [(4096, 200), (2048, 32000), (64, 256),
+                                 (9, 130), (3, 1024)])
+def test_onebit_compress_matches_plain(cuda, R, C):
+    """Signs exactly equal (a block of exact zeros in c checks sign(0) =
+    +1); scale and new_e within 2e-5 of the row's largest |c|."""
+    from repro_torch.kernels import onebit as K1
+    gen = torch.Generator(device=cuda).manual_seed(R + C)
+    g = _randn(gen, torch.float32, R, C)
+    e = 0.3 * _randn(gen, torch.float32, R, C)
+    e[: max(1, R // 8), : C // 2] = -g[: max(1, R // 8), : C // 2]
+    K1.reset_launches()
+    kern = K1.compress(g, e)
+    plain = K1.onebit_ref(g, e)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES["onebit_compress"] == 1
+    assert kern[0].dtype == torch.int8 and kern[1].shape == (R, 1)
+    assert torch.equal(kern[0], plain[0])
+    assert (kern[0][0, : C // 2] == 1).all()
+    scale = (g + e).abs().amax(-1, keepdim=True)
+    for a, b in zip(kern[1:], plain[1:]):
+        assert ((a - b).abs() / scale).max().item() <= ONEBIT_TOL
+
+
+def test_ssp_ps_onebit_step_kernel_equals_plain(cuda):
+    """One global step of ssp:3/ps/onebit@4 on reduced TinyLlama (5 push
+    events): the kernel path (flash attention, onebit_encode_ef) against
+    the plain path, per event: the same workers and staleness, losses
+    within 1e-4."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.kernels import onebit as K1
+    from repro_torch.train import Strategy, value_and_grad
+    cfg = get_config("tinyllama-1.1b").reduced()
+    hists = []
+    for kernels in (True, False):
+        c = cfg if kernels else dataclasses.replace(cfg, attn_backend="ref")
+        model = build_model(c)
+        params = model.init(seed=0, device=cuda)
+        batches = make_lm_batches(LMDataConfig(vocab_size=c.vocab_size,
+                                               seq_len=32, batch_size=2),
+                                  device=cuda)
+        strat = Strategy.parse("ssp:3/ps/onebit@4", lr=0.01,
+                               kernel_backend="auto" if kernels else "ref")
+        K1.reset_launches()
+        FA.reset_launches()
+        _, hist, _ = strat.build(value_and_grad(lambda p, b: model.loss_fn(
+            p, b, compute_dtype=torch.float32)),
+            layout=model.leaf_layout(params), device=cuda).run(
+                params, batches, 1)
+        n_leaves = len(model.leaf_layout(params).names)
+        assert K1.LAUNCHES["onebit_encode_ef"] == (
+            n_leaves * len(hist) if kernels else 0)
+        assert FA.LAUNCHES["flash_attention"] == (
+            cfg.num_layers * len(hist) if kernels else 0)
+        hists.append(hist)
+    kern, plain = hists
+    assert [(h["worker"], h["max_staleness"]) for h in kern] == \
+        [(h["worker"], h["max_staleness"]) for h in plain]
+    assert len(kern) == 5
+    assert max(abs(a["loss"] - b["loss"]) for a, b in zip(kern, plain)) \
+        <= 1e-4

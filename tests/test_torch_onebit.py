@@ -3,7 +3,7 @@
 On the CPU, ``repro_torch``'s ``encode_ef`` runs its plain PyTorch version;
 it is held against the Pallas kernel (interpret mode, as
 tests/test_kernels.py runs it) and the JAX oracle on the same numpy
-inputs: the int8 signs exactly, the fp32 outputs within rtol 1e-6 (a row
+inputs, and so is ``compress`` against ``onebit_compress``: the int8 signs exactly, the fp32 outputs within rtol 1e-6 (a row
 sum may be taken in another order; the bound is relative to the row's
 largest |c_in|, since new_e is a difference that can cancel).  The
 ``Compressor`` is held against the JAX ``Compressor`` leaf by leaf over
@@ -87,6 +87,40 @@ def test_encode_ef_kernel_backend_needs_cuda():
         K1.encode_ef(torch.zeros(2, 4), backend="kernel")
 
 
+# ------------------------------------------------------- onebit_compress
+@pytest.mark.parametrize("R,C", [(8, 128), (64, 256), (100, 512), (3, 1024),
+                                 (33, 200)])
+def test_compress_matches_jax(R, C):
+    """``compress`` (plain version on the CPU) against the Pallas kernel in
+    interpret mode and the JAX oracle, on the shapes of
+    tests/test_kernels.py: signs exactly, scale and new_e within rtol 1e-6
+    of the row's largest |c|."""
+    rng = np.random.RandomState(R * C)
+    g = rng.standard_normal((R, C)).astype(np.float32)
+    e = (0.3 * rng.standard_normal((R, C))).astype(np.float32)
+    e[0, : C // 2] = -g[0, : C // 2]             # c exactly 0: sign +1
+    port = K1.compress(torch.from_numpy(g), torch.from_numpy(e))
+    scale = float(np.abs(g + e).max())
+    assert port[0].dtype == torch.int8 and port[1].shape == (R, 1)
+    assert (port[0][0, : C // 2] == 1).all()
+    for ref in (JK1.compress(jnp.asarray(g), jnp.asarray(e)),
+                JK1.onebit_ref(jnp.asarray(g), jnp.asarray(e))):
+        np.testing.assert_array_equal(port[0].numpy(), np.asarray(ref[0]))
+        for a, b in zip(port[1:], ref[1:]):
+            _close(a, b, scale)
+    np.testing.assert_array_equal(
+        K1.decompress(port[0], port[1]).numpy(),
+        np.asarray(JK1.decompress(jnp.asarray(port[0].numpy()),
+                                  jnp.asarray(port[1].numpy()))))
+
+
+def test_compress_kernel_backend_needs_cuda():
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.compress(torch.zeros(2, 4), torch.zeros(2, 4), backend="kernel")
+    with pytest.raises(ValueError, match="want g, e"):
+        K1.compress(torch.zeros(2, 4), torch.zeros(2, 5))
+
+
 @pytest.mark.parametrize("n", [1, 255, 256, 1000, 65536])
 def test_wire_bytes_matches_jax(n):
     assert K1.wire_bytes(n) == JK1.wire_bytes(n)
@@ -150,14 +184,21 @@ def test_compressor_none_and_wire_bytes_match_jax():
 
 @pytest.mark.parametrize("method", ["dgc", "terngrad", "qsgd"])
 def test_unported_methods_raise(method):
-    """The three methods are ported (tests/test_torch_codecs.py); what
-    still raises for them is the parameter-server exchange."""
+    """The three methods are ported (tests/test_torch_codecs.py), and so
+    is their parameter-server exchange (tests/test_torch_comm.py holds it
+    against JAX): nothing raises any more.  Here: the PS push of one 300-element leaf over 2 workers,
+    (n - 1) encoded half-leaves plus (n - 1) fp32 half-leaves of bytes."""
     from repro_torch.comm.plan import CommPlan
     assert method in TC.METHODS
-    plan = CommPlan.plan([(300,)], n=2, compressor=TC.Compressor(method),
-                         wire="measured")
+    comp = TC.Compressor(method)
+    plan = CommPlan.plan([(300,)], n=2, compressor=comp, wire="measured")
     assert plan.in_schedule
-    with pytest.raises(NotImplementedError, match="queue A"):
-        plan.ps_exchange()
-    with pytest.raises(NotImplementedError, match="queue A"):
-        plan.measured_step_tx_bytes("ps")
+    grads = [[torch.randn(300)], [torch.randn(300)]]
+    ef = ([[torch.zeros(300)], [torch.zeros(300)]]
+          if method in TC.EF_METHODS else None)
+    new, _, sent = plan.ps_exchange([torch.zeros(300)], grads, ef,
+                                    torch.Generator().manual_seed(0), 1.0)
+    assert new[0].shape == (300,) and torch.isfinite(new[0]).all()
+    assert sent.shape == (2,)
+    assert plan.measured_step_tx_bytes("ps") == \
+        plan.codec.static_tx_bytes(150) + 4 * 150

@@ -7,11 +7,13 @@ warm-up step, the wall time of ``STEPS`` unprofiled steps (host clock
 around work that ends in a synchronize), then one step under
 ``torch.profiler`` for the device's busy share, the device time of each
 phase of the step (the engine's ``record_function`` ranges) and the
-kernels that take it.
+kernels that take it.  A global step of ssp or asp is as many push
+events as its ticks hold (one worker's batch each); tokens/s counts them.
 
     PYTHONPATH=src python tools/torch_train_profile.py
     PYTHONPATH=src python tools/torch_train_profile.py bsp/ring/onebit@4 \
         --wire measured
+    PYTHONPATH=src python tools/torch_train_profile.py ssp:3/ps/onebit@4
 """
 from __future__ import annotations
 
@@ -63,22 +65,31 @@ def main(argv) -> int:
     st = engine.init(params)
     del params
     st, _ = engine.step(st, batches, 0)                  # warm-up
-    walls = []
+
+    def worker_batches(events):
+        # a push event carries one worker's batch, a round all K
+        return len(events) if "worker" in events[0] else strat.workers
+
+    walls, batches_per_step = [], []
     for t in range(1, 1 + STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st, _ = engine.step(st, batches, t)
+        st, events = engine.step(st, batches, t)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall_s = min(walls)
-    tokens = strat.workers * BATCH * SEQ
-    print(f"{args.spec} wire={args.wire} step: wall {[round(w * 1e3, 1) for w in walls]} ms, "
-          f"{tokens / wall_s:.1f} tokens/s at the fastest")
+        batches_per_step.append(worker_batches(events))
+    # ssp / asp steps hold varying numbers of events: compare per batch
+    per_batch = [w / b for w, b in zip(walls, batches_per_step)]
+    wall_b = min(per_batch)
+    print(f"{args.spec} wire={args.wire} step: wall {[round(w * 1e3, 1) for w in walls]} ms "
+          f"({batches_per_step} worker batches), {BATCH * SEQ / wall_b:.1f} "
+          "tokens/s at the fastest")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st, _ = engine.step(st, batches, 1 + STEPS)
+        st, events = engine.step(st, batches, 1 + STEPS)
         torch.cuda.synchronize()
+    n_b = worker_batches(events)
     # on the device's timeline a record_function range shows up as an
     # event of its own beside the kernels it covers: the phases are read
     # from those, and the busy time from the kernels alone
@@ -87,10 +98,12 @@ def main(argv) -> int:
     phases = {e.key: e for e in on_device if e.key in PHASES}
     kernels = [e for e in on_device if e.key not in PHASES]
     busy_s = sum(_device_us(e) for e in kernels) * 1e-6
-    print(f"profiled step against the fastest unprofiled wall "
-          f"{wall_s * 1e3:.1f} ms: device busy {busy_s * 1e3:.1f} ms = "
-          f"{100 * busy_s / wall_s:.1f}% (idle "
-          f"{100 * (1 - busy_s / wall_s):.1f}%), "
+    share = busy_s / n_b / wall_b
+    print(f"profiled step ({n_b} worker batches): device busy "
+          f"{busy_s * 1e3:.1f} ms = {busy_s / n_b * 1e3:.1f} ms per worker "
+          f"batch against the fastest unprofiled wall "
+          f"{wall_b * 1e3:.1f} ms per worker batch = {100 * share:.1f}% "
+          f"(idle {100 * (1 - share):.1f}%), "
           f"{sum(e.count for e in kernels)} device ops")
     for name in PHASES:
         if name in phases:
