@@ -8,11 +8,16 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
 
  1. device   card name and power limit (nvidia-smi), torch and CUDA
              versions; TF32 off for matmuls and cuDNN.
- 2. build    compile the CUDA kernels from src/repro_torch/kernels/csrc.
+ 2. build    compile the CUDA kernels from src/repro_torch/kernels/csrc;
+             print each kernel's registers and spills from build.log.
  3. check    each kernel against its plain PyTorch version.  Flash
              attention and decode at the serving path's shapes, fp32
              (<= 1e-4 abs: summation order) and bf16 (<= 2e-2 abs: one
-             bf16 ulp at |out| ~ 2, fp32 accumulation on both sides).
+             bf16 ulp at |out| ~ 2, fp32 accumulation on both sides), and
+             at TinyLlama's full context: prefill S=2048 (causal, window
+             100, non-causal) and decode L=2048 with positions on both
+             sides of every split-K chunk edge and past L, and a ring
+             buffer with unwritten chunks (every output finite).
              onebit_encode_ef at the full-width leaf shapes of
              TinyLlama-1.1B, a flat symmetric [R, 256] block and an
              e=None + valid block: signs exactly equal, sp / sn / out /
@@ -27,7 +32,9 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              the port never calls), beside the least time the card needs
              for the work.  onebit_encode_ef also summed over one
              full-width step's leaves (one worker); flash_attention also
-             in fp32 at the training shape (B=2, S=256).
+             in fp32 at the training shape (B=2, S=256); flash_decode also
+             at B=8 L=2048.  The flash lines print the times of the
+             designs they replaced (PERF.md) beside the rebuilt kernels'.
  5. serve    full-width TinyLlama-1.1B in bf16 with seeded random weights:
              16 requests (prompt 512, 64 new tokens, all at t=0) through
              ServeEngine, continuous batching, paged cache (page 16),
@@ -115,6 +122,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +139,12 @@ ONEBIT_TOL = 2e-5                  # of the row's largest |c_in|
 GRAD_TOL = 1e-5
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 PROMPT, NEW, MAX_LEN = 512, 64, 576
+FULL = 2048                        # TinyLlama-1.1B's context length
+# the flash kernels' designs before their rebuild for the H100, at the
+# phase-4 shapes (PERF.md's kernel table: this script and, at L=2048,
+# tools/torch_flash_bench.py on the older tree; H100 80GB HBM3, 700 W)
+PREVIOUS_MS = {"flash_attention": 0.8635, "flash_decode": 0.0496,
+           "flash_decode_2048": 0.1610}
 TRAIN_SPEC, TRAIN_STEPS = "bsp/allreduce/onebit@4", 3
 TRAIN_B, TRAIN_S = 2, 256          # per-worker batch and sequence
 # leaves of full-width TinyLlama-1.1B as the compressor encodes them
@@ -194,6 +208,40 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def kernel_name(mangled):
+    """kernel<template args> out of a mangled name (length-prefixed parts;
+    a length may follow other digits, so every suffix of a run is tried)."""
+    for m in re.finditer(r"\d+(?=[a-z])", mangled):
+        for k in range(len(m.group())):
+            end = m.end() + int(m.group()[k:])
+            name = mangled[m.end():end]
+            if name.endswith("_kernel") and mangled[end:end + 1] == "I":
+                args = mangled[end + 1:mangled.index("EEv", end)]
+                args = re.sub(r"Li(\d+)E", r"\1,",
+                              args.replace("13__nv_bfloat16", "bf16,"))
+                args = re.sub(r"^f", "float,", args).rstrip(",")
+                return f"{name}<{args.replace(',', ', ')}>"
+    return mangled
+
+
+def kernel_resources(log):
+    """(kernel<template args>, registers, spill line) for every kernel that
+    ``nvcc -Xptxas -v`` reported in ``log``."""
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "registers" in line:
+            out.append((name, re.search(r"Used (\d+) registers", line).group(1),
+                        spills))
+            name = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -212,6 +260,8 @@ def main() -> int:
     from repro_torch.kernels import terngrad as KT
     from repro_torch.kernels import topk as KK
     from repro_torch.kernels.terngrad.ref import std0
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        decode_chunk
     from repro_torch.kernels.flash_attention.ref import decode_mask
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
@@ -239,9 +289,9 @@ def main() -> int:
     kbuild.library()
     print(f"built {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in (kbuild.build_dir() / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip())
+    for name, regs, spills in kernel_resources(
+            (kbuild.build_dir() / "build.log").read_text()):
+        print(f"  {name}: {regs} registers, {spills}")
 
     # ------------------------------------------------------------- 3 check
     phase("kernels against plain versions")
@@ -276,6 +326,39 @@ def main() -> int:
                   f" pos={pos.tolist()}: max_abs_err {e:.3e} (tol {tol})")
             assert e <= tol, "flash_decode disagrees with its plain version"
             worst["flash_decode"] = max(worst["flash_decode"], e)
+        # TinyLlama's full context: prefill S=2048 (B=2); decode L=2048 with
+        # positions on both sides of every split-K chunk edge and past L,
+        # and a ring buffer written only up to pos < W (unwritten chunks)
+        q = randn(2, FULL, H, HD, dtype=dtype)
+        k, v = (randn(2, FULL, KV, HD, dtype=dtype) for _ in range(2))
+        for causal, window in ((True, 0), (True, 100), (False, 0)):
+            e = max_err(FA.attention(q, k, v, causal=causal, window=window),
+                        FA.attention_ref(q, k, v, causal=causal,
+                                         window=window))
+            print(f"flash_attention {str(dtype)[6:]:8s} B=2 S={FULL} causal="
+                  f"{causal} window={window}: max_abs_err {e:.3e} (tol {tol})")
+            assert e <= tol, "flash_attention disagrees with its plain version"
+            worst["flash_attention"] = max(worst["flash_attention"], e)
+        chunk = decode_chunk(B, FULL, KV)
+        edges = sorted({p for c in range(chunk, FULL, chunk) for p in (c - 1, c)}
+                       | {0, FULL - 1, FULL, FULL + 37})
+        edges += [0] * (-len(edges) % B)
+        cases = [(0, edges[i:i + B]) for i in range(0, len(edges), B)]
+        cases.append((FULL, [0, 5, chunk - 1, chunk, 3 * chunk + 1, 700,
+                             FULL - 1, FULL + 100]))
+        q = randn(B, 1, H, HD, dtype=dtype)
+        ck, cv = (randn(B, FULL, KV, HD, dtype=dtype) for _ in range(2))
+        for window, pos in cases:
+            pos = torch.tensor(pos, device=dev)
+            out = FA.decode(q, ck, cv, pos, window=window)
+            e = max_err(out, FA.decode_ref(q, ck, cv, pos, window=window))
+            print(f"flash_decode    {str(dtype)[6:]:8s} L={FULL} chunk {chunk}"
+                  f" window={window} pos={pos.tolist()}: max_abs_err {e:.3e} "
+                  f"(tol {tol})")
+            assert torch.isfinite(out).all() and e <= tol, \
+                "flash_decode disagrees with its plain version"
+            worst["flash_decode"] = max(worst["flash_decode"], e)
+        del q, k, v, ck, cv
     torch.cuda.synchronize()
 
     worst["onebit_encode_ef"] = 0.0
@@ -424,7 +507,9 @@ def main() -> int:
             bound_ms=bound_ms, bound_by=bound_by)
         call_ms = timed_ms(kernel, host_bound=True)
         lib = ("-" if library is None else f"{t['library_ms']:.4f} ms")
-        print(f"{name} ({what}): kernel {t['ms']:.4f} ms on the device "
+        old = (f" [previous design: {PREVIOUS_MS[name]} ms, PERF.md]"
+               if name in PREVIOUS_MS else "")
+        print(f"{name} ({what}): kernel {t['ms']:.4f} ms on the device{old} "
               f"({call_ms:.4f} ms per call when the host issues it alone), "
               f"plain {t['plain_ms']:.4f} ms, library {lib}, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {nbytes} B, "
@@ -438,22 +523,24 @@ def main() -> int:
             2 * (q.numel() + k.numel() + v.numel() + q.numel()),
             4 * B * H * HD * PROMPT * (PROMPT + 1) // 2)   # causal pairs
 
-    qd = randn(B, 1, H, HD, dtype=bf)
-    ck, cv = randn(B, MAX_LEN, KV, HD, dtype=bf), randn(B, MAX_LEN, KV, HD,
-                                                         dtype=bf)
-    pos = torch.tensor([PROMPT + 9 * b for b in range(B)], device=dev,
-                       dtype=torch.int32)                # mid-serve positions
-    mask = decode_mask(pos, MAX_LEN)
-    keys = int(mask.sum())                               # valid cache rows
-    ckt, cvt, qdt = (t.transpose(1, 2).contiguous() for t in (ck, cv, qd))
-    measure("flash_decode", f"bf16, B={B} L={MAX_LEN}, pos 512-575",
-            lambda: FA.decode(qd, ck, cv, pos),
-            lambda: FA.decode_ref(qd, ck, cv, pos),
-            lambda: F.scaled_dot_product_attention(
-                qdt, ckt, cvt, attn_mask=mask[:, None, None, :],
-                enable_gqa=True),
-            2 * (2 * qd.numel() + 2 * keys * KV * HD) + 4 * B,
-            4 * H * HD * keys)
+    for key, L, first in (("flash_decode", MAX_LEN, PROMPT),
+                          ("flash_decode_2048", FULL, FULL - 64)):
+        qd = randn(B, 1, H, HD, dtype=bf)
+        ck, cv = randn(B, L, KV, HD, dtype=bf), randn(B, L, KV, HD, dtype=bf)
+        pos = torch.tensor([first + 9 * b for b in range(B)], device=dev,
+                           dtype=torch.int32)            # mid-serve positions
+        mask = decode_mask(pos, L)
+        keys = int(mask.sum())                           # valid cache rows
+        ckt, cvt, qdt = (t.transpose(1, 2).contiguous() for t in (ck, cv, qd))
+        measure(key, f"bf16, B={B} L={L}, pos {first}-{first + 63}, "
+                f"{-(-L // decode_chunk(B, L, KV))} x {KV} x {B} blocks",
+                lambda: FA.decode(qd, ck, cv, pos),
+                lambda: FA.decode_ref(qd, ck, cv, pos),
+                lambda: F.scaled_dot_product_attention(
+                    qdt, ckt, cvt, attn_mask=mask[:, None, None, :],
+                    enable_gqa=True),
+                2 * (2 * qd.numel() + 2 * keys * KV * HD) + 4 * B,
+                4 * H * HD * keys)
 
     f32 = torch.float32
     q, k, v = (randn(TRAIN_B, TRAIN_S, H, HD, dtype=f32),

@@ -94,7 +94,7 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.repro_flash_attention.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.repro_flash_attention.restype = i32
-    lib.repro_flash_decode.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.repro_flash_decode.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.repro_flash_decode.restype = i32
     lib.repro_onebit_encode_ef.argtypes = ([ptr] * 8 + [i32] * 2
                                            + [ctypes.c_float, i32, ptr])

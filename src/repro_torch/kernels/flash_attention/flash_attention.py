@@ -16,6 +16,17 @@ from repro_torch.kernels.build import library
 
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+
+
+def decode_chunk(B: int, L: int, KV: int) -> int:
+    """Cache rows per block of the split-K decode: a multiple of 16 in
+    [16, 128], small enough that the (chunk, KV head, batch row) grid runs
+    about two blocks on every SM.  At the serving shape (B=8, L=576, KV=4):
+    64 rows, 9 x 4 x 8 = 288 blocks."""
+    splits = -(-2 * SMS // (B * KV))
+    chunk = -(-L // splits)
+    return max(16, min(128, -(-chunk // 16) * 16))
 
 
 def reset_launches() -> None:
@@ -43,12 +54,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_decode(q, ck, cv, pos, *, window: int = 0):
     """q [B, 1, H, hd]; ck, cv [B, L, KV, hd]; pos int32 [B], all on the
-    card -> [B, 1, H, hd]."""
+    card -> [B, 1, H, hd].  Two kernels (the split-K pass and its combine),
+    one launch counted; their fp32 partials go to a scratch tensor."""
     B, _, H, hd = q.shape
+    L, KV = ck.shape[1], ck.shape[2]
+    chunk = decode_chunk(B, L, KV)
+    part = torch.empty(B * H * -(-L // chunk) * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     o = torch.empty_like(q)
     rc = library().repro_flash_decode(
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), B, ck.shape[1], H, ck.shape[2], hd, int(window),
+        o.data_ptr(), part.data_ptr(), B, L, H, KV, hd, int(window), chunk,
         DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_decode")
     LAUNCHES["flash_decode"] += 1

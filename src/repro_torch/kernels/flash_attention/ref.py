@@ -57,3 +57,34 @@ def decode_ref(q, ck, cv, pos, *, window: int = 0):
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     out = torch.einsum("bkgql,blkd->bqkgd", p, cv.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_split_ref(q, ck, cv, pos, *, window: int = 0, chunk: int = 64):
+    """The split-K decode as the CUDA kernel computes it, in plain PyTorch
+    (fp32 math); used by the tests.  Per chunk of ``chunk`` cache rows, a
+    partial (m, l, acc) for every query head: m the chunk's largest visible
+    score (at least -1e30), l and acc the sums of exp(s - m) and of
+    exp(s - m) v.  A chunk with no visible row gives the empty partial
+    (m = -1e30, l = 0, acc = 0).  The partials merge with weights
+    exp(m_i - M) over the non-empty ones (an empty partial weighs exactly
+    0): out = sum w_i acc_i / max(sum w_i l_i, 1e-30)."""
+    B, _, H, hd = q.shape
+    L, KV = ck.shape[1], ck.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd) / math.sqrt(hd)
+    mask = decode_mask(pos, L, window)                 # [B, L]
+    ms, ls, accs = [], [], []
+    for c0 in range(0, L, chunk):
+        s = torch.einsum("bkgd,bckd->bkgc", qg, ck[:, c0:c0 + chunk].float())
+        s = torch.where(mask[:, None, None, c0:c0 + chunk], s, -math.inf)
+        m = s.amax(-1).clamp_min(NEG_INF)              # [B, KV, G]
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p,
+                                 cv[:, c0:c0 + chunk].float()))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    filled = l > 0
+    M = torch.where(filled, m, NEG_INF).amax(0)
+    w = torch.where(filled, torch.exp(m - M), 0.0)
+    out = (w[..., None] * acc).sum(0) / (w * l).sum(0).clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)

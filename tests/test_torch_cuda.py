@@ -79,6 +79,72 @@ def test_flash_decode_matches_plain(cuda, dtype, hd, H, KV):
     assert FA.LAUNCHES["flash_decode"] == 3
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S,H,KV", [
+    (1, 4, 4), (63, 8, 2), (64, 32, 4), (65, 32, 1), (127, 8, 1),
+    (128, 4, 4), (129, 32, 4), (512, 32, 8), (2048, 32, 4)])
+def test_flash_attention_bf16_tile_edges(cuda, hd, S, H, KV):
+    """The bf16 tensor-core kernel at lengths on both sides of its 64-key
+    and 128-query tiles, H/KV of 1 to 32, windows 16 and 100 (straddling
+    tile edges) and non-causal: within the bf16 tolerance, all finite."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(7 * S + hd)
+    B = 2
+    q = _randn(gen, dtype, B, S, H, hd)
+    k, v = _randn(gen, dtype, B, S, KV, hd), _randn(gen, dtype, B, S, KV, hd)
+    FA.reset_launches()
+    modes = ((True, 0), (True, 16), (True, 100), (False, 0))
+    for causal, window in modes:
+        out = FA.attention(q, k, v, causal=causal, window=window)
+        ref = FA.attention_ref(q, k, v, causal=causal, window=window)
+        assert out.dtype == dtype and out.shape == q.shape
+        assert torch.isfinite(out).all(), (causal, window)
+        assert _err(out, ref) <= TOLS[dtype], (causal, window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == len(modes)
+
+
+def _chunk_edge_positions(L, chunk):
+    """Positions on both sides of every chunk edge of an L-row cache, the
+    first and last row, and two past the end."""
+    pos = {0, L - 1, L, L + 37}
+    for e in range(chunk, L, chunk):
+        pos |= {e - 1, e}
+    return sorted(pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("L", [16, 200, 576, 2048])
+def test_flash_decode_split_edges(cuda, dtype, hd, L):
+    """Split-K decode with pos on both sides of every chunk edge and past
+    L (8 rows at a time), with B = 1, and on a ring buffer with pos < W, so
+    that whole chunks are unwritten (empty partials), and pos >= W."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        decode_chunk
+    gen = torch.Generator(device=cuda).manual_seed(L + hd)
+    H, KV, B = 32, 4, 8
+    cases = []
+    for window in (0, L):
+        positions = _chunk_edge_positions(L, decode_chunk(B, L, KV))
+        positions += [0] * (-len(positions) % B)
+        cases += [(window, positions[i:i + B])
+                  for i in range(0, len(positions), B)]
+        cases += [(window, [p]) for p in (0, L // 2 - 1, L - 1, L + 3)]
+    FA.reset_launches()
+    for window, pos in cases:
+        b = len(pos)
+        q = _randn(gen, dtype, b, 1, H, hd)
+        ck, cv = (_randn(gen, dtype, b, L, KV, hd) for _ in range(2))
+        pos = torch.tensor(pos, device=cuda)
+        out = FA.decode(q, ck, cv, pos, window=window)
+        ref = FA.decode_ref(q, ck, cv, pos, window=window)
+        assert torch.isfinite(out).all(), (window, pos)
+        assert _err(out, ref) <= TOLS[dtype], (window, pos)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_decode"] == len(cases)
+
+
 def test_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros(1, 4, 4, 48, device=cuda)       # head_dim 48: no kernel
     with pytest.raises(ValueError, match="head_dim"):

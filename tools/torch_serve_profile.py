@@ -12,6 +12,7 @@ kernels that take its time.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import sys
 import time
 
@@ -107,7 +108,9 @@ def main() -> int:
 
     report(profiled(decode_window), WINDOW * decode_s,
            f"{WINDOW} decode iterations")
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
     return 0
 
 
