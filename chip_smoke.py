@@ -25,7 +25,10 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              rows up to 32000 long, taken in another order).
              attention_grad at the training shape: its forward is the
              flash kernel's output and its q/k/v gradients equal
-             autograd's through attention_ref within 1e-5 (fp32).
+             autograd's through attention_ref within 1e-5 (fp32).  The
+             fp32 forward (3xTF32 on the tensor cores) at the training
+             shape also with scores ~16x larger (|q.k| / sqrt(hd) ~ 16),
+             within 1e-4.
  4. timing   CUDA-event medians (L2 flushed before every launch) of each
              kernel, its plain version and, where one exists, one PyTorch
              library call that computes the same function (a yardstick
@@ -33,8 +36,12 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              for the work.  onebit_encode_ef also summed over one
              full-width step's leaves (one worker); flash_attention also
              in fp32 at the training shape (B=2, S=256); flash_decode also
-             at B=8 L=2048.  The flash lines print the times of the
-             designs they replaced (PERF.md) beside the rebuilt kernels'.
+             at B=8 L=2048.  The rebuilt kernels' lines (flash prefill and
+             decode, the fp32 training forward, terngrad_compress) print
+             the times of the designs they replaced (PERF.md) beside
+             theirs.  The fp32 forward's bound is its route's: 3 TF32
+             tensor-core products per fp32 product (3xTF32) at 495
+             TFLOP/s, or its bytes.
  5. serve    full-width TinyLlama-1.1B in bf16 with seeded random weights:
              16 requests (prompt 512, 64 new tokens, all at t=0) through
              ServeEngine, continuous batching, paged cache (page 16),
@@ -105,14 +112,20 @@ and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
 segment; a ring chunk of it at @4, 4 segments of [247808, 256]; and a
 ragged C = 200): planes and outputs exactly equal, given the same
-per-segment scalars and uniform draws.  It checks the quantile threshold
-on the card against a float64 sort with the float32 position rule, and
+per-segment scalars and uniform draws; terngrad_compress also on uniform
++-1 g at [991232, 256], where every element lies under 2.5 sigma (the
+finishing kernel's second pass against max|g|).  It checks the quantile
+threshold on the card against a float64 sort with the float32 position
+rule, and
 onebit_compress against onebit_ref at the four ONEBIT_SHAPES, the flat
 [991232, 256] w_down layout and a ragged [4096, 200], with a block of
 exact zeros in c (sign(0) = +1): signs exactly equal, scale and new_e
 within 2e-5 of the row's largest |c|.  Phase 4 times the four segment
-kernels at [991232, 256] and onebit_compress at [2048, 32000] and
-[991232, 256].
+kernels at [991232, 256] (terngrad_compress also on uniform g) and
+onebit_compress at [2048, 32000] and [991232, 256].  The bounds of
+terngrad_compress and qsgd_compress count 13 B per element: their
+reduction (std, l2 norm) must read g before their output can be
+written, and g (1.0 GB) cannot stay in the 50 MB L2 in between.
 
 The last lines are the kernels JSON, the nvidia-smi line and the result.
 """
@@ -134,17 +147,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                  # fp32 outside the tensor cores
+TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 ONEBIT_TOL = 2e-5                  # of the row's largest |c_in|
 GRAD_TOL = 1e-5
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 PROMPT, NEW, MAX_LEN = 512, 64, 576
 FULL = 2048                        # TinyLlama-1.1B's context length
-# the flash kernels' designs before their rebuild for the H100, at the
-# phase-4 shapes (PERF.md's kernel table: this script and, at L=2048,
+# the kernels' designs before their rebuild for the H100, at the phase-4
+# shapes (PERF.md's kernel table: this script and, at L=2048,
 # tools/torch_flash_bench.py on the older tree; H100 80GB HBM3, 700 W)
 PREVIOUS_MS = {"flash_attention": 0.8635, "flash_decode": 0.0496,
-           "flash_decode_2048": 0.1610}
+               "flash_decode_2048": 0.1610, "flash_attention_train": 0.0850,
+               "terngrad_compress": 1.5226}
 TRAIN_SPEC, TRAIN_STEPS = "bsp/allreduce/onebit@4", 3
 TRAIN_B, TRAIN_S = 2, 256          # per-worker batch and sequence
 # leaves of full-width TinyLlama-1.1B as the compressor encodes them
@@ -155,12 +170,14 @@ ONEBIT_BYTES_PER_ELEM = 17         # read g, e; write sign, out, new_e
 # 256-lane layout, and one ring chunk of it per worker at @4
 W_DOWN_ROWS, RING_ROWS = 991232, 247808
 # per element: topk reads g, e and writes out, new_e; terngrad and qsgd
-# read g, u and write one int8.  Operations: topk add, abs, compare,
-# select, sub; terngrad clip (2), abs, divide, compare, sign, product;
-# qsgd abs, divide, multiply, floor, sub, compare, add, clip (2), sign,
-# product
+# read g, u and write one int8, and terngrad_compress and qsgd_compress
+# read g once more for the reduction their output needs first (std, l2
+# norm: g cannot stay in L2 between the two).  Operations: topk add, abs,
+# compare, select, sub; terngrad clip (2), abs, divide, compare, sign,
+# product; qsgd abs, divide, multiply, floor, sub, compare, add, clip (2),
+# sign, product
 SEGMENT_KERNELS = {"topk_compress": (16, 5), "terngrad_ternarize": (9, 5),
-                   "terngrad_compress": (9, 7), "qsgd_compress": (9, 11)}
+                   "terngrad_compress": (13, 7), "qsgd_compress": (13, 11)}
 ONEBIT_COMPRESS_BYTES = 13         # read g, e; write sign, new_e (+4 B/row)
 ONEBIT_COMPRESS_FLOP = 4           # c, |c|, row sum, new_e
 MATRIX_RUNS = (("ssp:3/ps/onebit@4", {}, 2),
@@ -441,6 +458,18 @@ def main() -> int:
             assert equal, f"{name} differs from its plain version"
             worst[name] = max(worst[name], err)
         del g, e, u, pairs
+    # uniform +-1: 2.5 sigma ~ 1.44 lies above max|g| = 1, so no element
+    # reaches the clip and the finishing kernel ternarizes again
+    g = 2 * torch.rand(W_DOWN_ROWS, 256, generator=gen, device=dev) - 1
+    u = torch.rand(W_DOWN_ROWS, 256, generator=gen, device=dev)
+    kern, plain = KT.compress(g, u, clip_sigma=2.5), KT.terngrad_ref(g, u, 2.5)
+    equal = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    print(f"terngrad_compress [{W_DOWN_ROWS}, 256] uniform +-1 (max|g| "
+          f"{g.abs().max().item():.6f} < 2.5 sigma "
+          f"{2.5 * std0(g).item():.6f}): outputs equal to the plain "
+          f"version's {equal}, scale {kern[1].item():.6f}")
+    assert equal, "terngrad_compress differs from its plain version"
+    del g, u, kern, plain
     torch.cuda.empty_cache()
 
     # the quantile threshold against a float64 sort of the same data with
@@ -479,6 +508,14 @@ def main() -> int:
           f"autograd through attention_ref: max_abs_err {grad_err:.3e} "
           f"(tol {GRAD_TOL})")
     assert fwd_equal and grad_err <= GRAD_TOL
+    for scale in (1.0, 4.0):
+        qs, ks = q * scale, k * scale
+        e = max_err(FA.attention(qs, ks, v), FA.attention_ref(qs, ks, v))
+        print(f"flash_attention float32  training shape [{TRAIN_B}, {TRAIN_S},"
+              f" {H}, {HD}] q, k x{scale}: max_abs_err {e:.3e} (tol "
+              f"{F32_TOL})")
+        assert e <= F32_TOL, "flash_attention disagrees with its plain version"
+        worst["flash_attention"] = max(worst["flash_attention"], e)
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------ 4 timing
@@ -554,7 +591,8 @@ def main() -> int:
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True),
             4 * (q.numel() + k.numel() + v.numel() + q.numel()),
-            4 * TRAIN_B * H * HD * TRAIN_S * (TRAIN_S + 1) // 2, F32_FLOPS)
+            3 * 4 * TRAIN_B * H * HD * TRAIN_S * (TRAIN_S + 1) // 2,
+            TF32_FLOPS)                                     # 3xTF32
 
     def onebit_bytes(R, C):
         return ONEBIT_BYTES_PER_ELEM * R * C + 8 * R
@@ -617,6 +655,13 @@ def main() -> int:
         measure(name, f"fp32 [{R}, 256], the stacked w_down leaf",
                 kern_fn, plain_fn, None, per_byte * R * 256,
                 per_op * R * 256, F32_FLOPS)
+    # uniform g: the finishing kernel's second pass (9 B more per element)
+    g = 2 * torch.rand(R, 256, generator=gen, device=dev) - 1
+    per_byte, per_op = SEGMENT_KERNELS["terngrad_compress"]
+    measure("terngrad_compress_uniform", f"fp32 [{R}, 256], uniform +-1",
+            lambda: KT.compress(g, u, clip_sigma=2.5),
+            lambda: KT.terngrad_ref(g, u, 2.5), None, per_byte * R * 256,
+            per_op * R * 256, F32_FLOPS)
     del g, e, u, calls
     torch.cuda.empty_cache()
 

@@ -105,6 +105,8 @@ def library() -> ctypes.CDLL:
     lib.repro_topk_compress.restype = i32
     lib.repro_terngrad.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
     lib.repro_terngrad.restype = i32
+    lib.repro_terngrad_compress.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+    lib.repro_terngrad_compress.restype = i32
     lib.repro_qsgd_compress.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.repro_qsgd_compress.restype = i32
     return lib

@@ -1,6 +1,6 @@
-// Helpers shared by the hand-written kernels: 4-wide loads and stores
-// that widen bf16 to fp32 in registers, and the dtype codes the ctypes
-// wrappers pass (0 = float32, 1 = bfloat16).
+// Helpers shared by the hand-written kernels: 4-wide loads that widen
+// bf16 to fp32 in registers, the dtype codes the ctypes wrappers pass
+// (0 = float32, 1 = bfloat16), and the device's SM count.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,30 +22,17 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&lo);
-  raw.y = *reinterpret_cast<unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-__device__ __forceinline__ float4 scale4(float4 a, float s) {
-  return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-}
-
-__device__ __forceinline__ float4 fma4(float s, float4 a, float4 acc) {
-  return make_float4(fmaf(s, a.x, acc.x), fmaf(s, a.y, acc.y),
-                     fmaf(s, a.z, acc.z), fmaf(s, a.w, acc.w));
+// Streaming multiprocessors of the current device: the grid-stride
+// kernels size their grids by it.
+inline int device_sms() {
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms > 0 ? sms : 1;
 }
 
 }  // namespace repro

@@ -53,10 +53,51 @@
 // interleave: neither overlapping one tile's softmax with the last tile's
 // P.V product nor a ping-pong of the two warpgroups made it faster.
 //
-// fp32 (training) runs flash_attention_kernel, unchanged since it was
-// written: 4 threads share a query row on the CUDA cores, K/V tiles staged
-// in shared memory as fp32 (there are no fp32 tensor-core products; TF32
-// would not give the plain version's results within 1e-4).
+// fp32 (training) runs flash_attention_f32_kernel, on the tensor cores in
+// 3xTF32 (CUTLASS's OpMultiplyAddFastF32): each fp32 operand x is split
+// into a TF32 high part hi = rna(x) (the integer form of
+// cvt.rna.tf32.f32: add half a TF32 ulp to the bits, clear the low 13) and
+// a TF32 remainder lo = rna(x - hi), and a product is lo*hi + hi*lo +
+// hi*hi.  The dropped lo*lo term and the rounding of lo leave a relative
+// error of about 2^-22 per product, close to fp32's; one TF32 product
+// (2^-11) would not give the plain version's results within 1e-4.  The
+// tensor cores round their own accumulation toward zero, which chained
+// through |S| >> 1 would cost the large-score case its 1e-4: the small
+// terms of S get an accumulator of their own, the large ones one per 4
+// steps of 8 columns, and each tile's P V starts from 0; they join in fp32
+// (round to nearest).  The bound on this route is 3 x 4*S*S_vis*H*hd FLOPs
+// at the TF32 peak.
+//   - work items of (64 query rows, head, batch row), one warpgroup each,
+//     ordered and walked as the bf16 kernel's (longest causal first, the
+//     H/KV query heads of one KV head side by side, persistent blocks as
+//     many as fit on the card: two per SM at hd <= 64);
+//   - Q (double-buffered) and a two-stage ring of 32-key K/V tiles, loaded
+//     by TMA with mbarrier completion in boxes of 32 floats (128 bytes,
+//     128-byte swizzle);
+//   - wgmma takes TF32 operands from shared memory K-major only (the
+//     transpose bit is for 16-bit types).  So the warpgroup splits each
+//     tile once: Q (once per item) and K in place into their high parts,
+//     beside a copy of their low parts, both still as TMA laid them out;
+//     V into V^T hi and lo, [hd rows][32 keys], K-major for O += P V.
+//     Then fence.proxy.async and one barrier, the only one per tile: a
+//     thread that waited for the last tile's products knows they are done
+//     (they start only once all four warps issued them), so the next split
+//     may overwrite their operands;
+//   - S = Q K^T by wgmma m64n32k8 (both operands from shared memory),
+//     three per 8 columns of hd; then K and V leave the ring;
+//   - the online softmax on S's accumulator fragments as in the bf16
+//     kernel (one FFMA and one ex2.approx per score, the -1e30 start, the
+//     rescale of O); tiles wholly above the diagonal or before the window
+//     are neither split nor multiplied, only edge tiles compute a mask;
+//   - O += P V by wgmma m64n64k8 (m64n32k8 at hd=32, two at hd=128) with
+//     P's A fragments in registers, taken straight from S's accumulator:
+//     it holds keys 2t and 2t+1 of each 8 where an A fragment wants keys t
+//     and t+4, so V^T keeps each 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7.
+// What still bounds it (PERF.md): each warpgroup runs split, barrier,
+// product, softmax and product in turn, and only two warpgroups share an
+// SM (shared memory); mma.sync m16n8k8 in place of wgmma (each warp
+// splitting the fragments it reads) was slower, and a deeper ring at one
+// block per SM slower still.
 #include <cuda.h>
 
 #include <algorithm>
@@ -66,124 +107,6 @@
 
 namespace repro {
 namespace {
-
-constexpr int kBlockQ = 64;                          // query rows per block
-constexpr int kThreadsPerRow = 4;                    // threads sharing a row
-constexpr int kThreads = kBlockQ * kThreadsPerRow;   // 256
-
-template <typename T, int HD, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KV, int causal, int window, float scale) {
-  constexpr int C4 = HD / 4;                 // float4 columns of a row
-  constexpr int NV = C4 / kThreadsPerRow;    // float4 columns per thread
-  __shared__ float4 ks[BK][C4];
-  __shared__ float4 vs[BK][C4];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int part = tid % kThreadsPerRow;
-  const int qpos = q0 + tid / kThreadsPerRow;
-  const int kvh = h / (H / KV);
-  const bool row_valid = qpos < S;
-
-  // thread `part` owns float4 columns part, part+4, ...: the 4 threads of
-  // a row read 4 neighbouring float4s of a K/V row, free of bank conflicts
-  const size_t q_off = ((size_t)(b * S + qpos) * H + h) * HD;
-  float4 qr[NV], acc[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = i * kThreadsPerRow + part;
-    qr[i] = row_valid ? scale4(load4(q + q_off + 4 * c), scale)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -1e30f, l = 0.f;
-
-  // key tiles this query tile can see: causal stops at its last row, a
-  // window starts W-1 keys before its first row
-  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
-  const int k_first = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-
-  for (int k0 = (k_first / BK) * BK; k0 < k_end; k0 += BK) {
-    __syncthreads();                         // previous tile consumed
-    for (int idx = tid; idx < BK * C4; idx += kThreads) {
-      const int j = idx / C4, c = idx % C4, kp = k0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (kp < S) {
-        const size_t off = ((size_t)(b * S + kp) * KV + kvh) * HD + 4 * c;
-        kk = load4(k + off);
-        vv = load4(v + off);
-      }
-      ks[j][c] = kk;
-      vs[j][c] = vv;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-        d += dot4(qr[i], ks[j][i * kThreadsPerRow + part]);
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      const int kp = k0 + j;
-      bool ok = kp < S;
-      if (causal) ok = ok && kp <= qpos && (window <= 0 || kp > qpos - window);
-      s[j] = ok ? d : -INFINITY;             // exp(-inf - m) == 0
-      m_tile = fmaxf(m_tile, s[j]);
-    }
-    const float m_new = fmaxf(m, m_tile);    // finite: m starts at -1e30
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[i] = scale4(acc[i], alpha);
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < NV; ++i)
-        acc[i] = fma4(p, vs[j][i * kThreadsPerRow + part], acc[i]);
-    }
-    m = m_new;
-  }
-
-  if (row_valid) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      store4(o + q_off + 4 * (i * kThreadsPerRow + part), scale4(acc[i], inv));
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, cudaStream_t stream) {
-  constexpr int BK = HD > 64 ? 32 : 64;      // 32 KB of K/V tiles at most
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_attention_kernel<T, HD, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window,
-      rsqrtf(static_cast<float>(HD)));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int head_dim, const void* q, const void* k, const void* v,
-             void* o, int B, int S, int H, int KV, int causal, int window,
-             cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // ---------------------------------------------------------------- bf16
 // The tensor-core kernel of the serving path (see the note at the top).
@@ -358,25 +281,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// One work item: a 128-row query tile of one head and batch row.  Items
-// are numbered longest causal tile first, heads of one KV head adjacent.
+// One work item: a BQ-row query tile of one head and batch row, read in
+// key tiles of BK.  Items are numbered longest causal tile first, heads of
+// one KV head adjacent.
 struct Item {
   int h, b, q0, t_first, n_tiles;
 };
 
+template <int BQ = kBlockQ, int BK = kBK>
 __device__ __forceinline__ Item item(int w, int S, int H, int B, int causal,
                                      int window) {
-  const int n_q = (S + kBlockQ - 1) / kBlockQ;
+  const int n_q = (S + BQ - 1) / BQ;
   Item it;
   it.h = w % H;
   it.b = (w / H) % B;
-  it.q0 = (n_q - 1 - w / (H * B)) * kBlockQ;
+  it.q0 = (n_q - 1 - w / (H * B)) * BQ;
   // key tiles the query tile can see: causal stops at its last row, a
   // window starts W-1 keys before its first row
-  const int k_end = causal ? min(S, it.q0 + kBlockQ) : S;
+  const int k_end = causal ? min(S, it.q0 + BQ) : S;
   const int k_first = (causal && window > 0) ? max(0, it.q0 - window + 1) : 0;
-  it.t_first = k_first / kBK;
-  it.n_tiles = (k_end + kBK - 1) / kBK - it.t_first;
+  it.t_first = k_first / BK;
+  it.n_tiles = (k_end + BK - 1) / BK - it.t_first;
   return it;
 }
 
@@ -595,6 +520,400 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------- fp32
+// The 3xTF32 tensor-core kernel of the training path (see the note at the
+// top).  Its ring, barriers and items work as the bf16 kernel's.
+namespace f32 {
+
+constexpr int kBlockQ = 64;                     // query rows: one warpgroup
+constexpr int kThreads = 128;
+constexpr int kStages = 2;                      // K/V ring depth
+constexpr int kBK = 32;                         // keys per K/V tile
+
+// Shared memory, all in rows of 128 bytes with 16-byte chunks swizzled by
+// the row (TMA's 128-byte swizzle, which wgmma's descriptors read):
+//   Q [2]        TMA's tile in column blocks of 32 floats, split in place
+//                to its TF32 high part; Q lo beside it;
+//   ring [2]     K (split in place to its high part) and V as TMA wrote
+//                them; K lo beside them;
+//   V^T hi, lo   [hd rows][32 keys], the keys of each 8 in the order P's
+//                A fragments take them (0, 2, 4, 6, 1, 3, 5, 7).
+// hd=64: 104 KB, two blocks per SM; hd=128: 208 KB, one.
+template <int HD>
+struct Layout {
+  static constexpr int bk = kBK;
+  static constexpr int blocks = HD / 32;        // column blocks of Q, K, V
+  static constexpr int q_block = kBlockQ * 128; // bytes of one column block
+  static constexpr int kv_block = kBK * 128;
+  static constexpr int q_bytes = blocks * q_block;
+  static constexpr int kv_tile = blocks * kv_block;   // one K or V tile
+  static constexpr int q_lo = 2 * q_bytes;
+  static constexpr int ring = 3 * q_bytes;
+  static constexpr int k_lo = ring + kStages * 2 * kv_tile;
+  static constexpr int vt_hi = k_lo + kv_tile;  // HD rows of 32 keys
+  static constexpr int vt_lo = vt_hi + kv_tile;
+  static constexpr int bars = vt_lo + kv_tile;
+  static constexpr int smem = bars + 8 * (2 * kStages + 4) + 1024;  // + align
+};
+
+// x rounded to TF32, nearest with ties away from zero: what
+// cvt.rna.tf32.f32 gives, as two integer operations
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo in TF32, exact but for lo's rounding (2^-22 relative).  lo
+// keeps its low 13 bits: the tensor cores read a TF32 operand's top 19
+// bits, so adding half an ulp is its rounding
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ float4 split4(float4& x) {   // x becomes hi
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  x = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                  __uint_as_float(h[2]), __uint_as_float(h[3]));
+  return make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                     __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+// hi [n4 float4s] split in place, its low parts to lo (same layout)
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int n4) {
+  for (int c = threadIdx.x; c < n4; c += kThreads) {
+    float4 x = reinterpret_cast<float4*>(hi)[c];
+    reinterpret_cast<float4*>(lo)[c] = split4(x);
+    reinterpret_cast<float4*>(hi)[c] = x;
+  }
+}
+
+// generic-proxy writes to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// descriptor of a 1024-byte-aligned, 128-byte-swizzled K-major tile
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (+)= A B, A [64 x 8] and B [8 x 32] TF32 from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, A [64 x 8] TF32 in registers, B [8 x N] from shared memory;
+// N = 64 or 32
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Persistent: block k serves items k, k + gridDim.x, ...; one warpgroup
+// per item of 64 query rows.  In an accumulator fragment, warp w holds
+// rows 16w..16w+15 and lane l rows l/4 and l/4 + 8, columns 2(l%4) and
+// 2(l%4) + 1 of each 8.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           float* __restrict__ o, int B, int S, int H, int KV,
+                           int causal, int window, float scale_log2) {
+  using Lt = Layout<HD>;
+  constexpr int NB = Lt::blocks;
+  constexpr int NO = HD > 64 ? 64 : HD;         // columns of one P V product
+  constexpr int NP = HD / NO;                   // P V products per 8 keys
+  constexpr int KS = kBK / 8;                   // 8-key steps of a tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sq = (base + 1023) & ~1023u;   // everything below from here
+  const uint32_t full = sq + Lt::bars;          // [kStages] tile landed
+  const uint32_t empty = full + 8 * kStages;    // [kStages] tile consumed
+  const uint32_t qfull = empty + 8 * kStages;   // [2] Q landed
+  const uint32_t qempty = qfull + 16;           // [2] Q consumed
+  float* const sf = reinterpret_cast<float*>(smem_raw + (sq - base));
+
+  const int total = H * B * ((S + kBlockQ - 1) / kBlockQ);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = H / KV;
+
+  // Thread 0 keeps the ring one tile ahead of the tile being multiplied,
+  // as in the bf16 kernel: stream tile g goes to stage g % kStages once
+  // every thread has released tile g - kStages.
+  int pw = blockIdx.x, pi = 0, pg = 0;
+  Item pit = item<kBlockQ, kBK>(pw, S, H, B, causal, window);
+  auto issue_next = [&]() {
+    if (pw >= total) return;
+    const int s = pg % kStages;
+    if (pg >= kStages) mbar_wait(empty + 8 * s, (pg / kStages - 1) & 1);
+    const uint32_t ks = sq + Lt::ring + s * 2 * Lt::kv_tile, vs = ks + Lt::kv_tile;
+    const int k0 = (pit.t_first + pi) * kBK, col0 = (pit.h / group) * HD;
+    mbar_expect_tx(full + 8 * s, 2 * Lt::kv_tile);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      tma_load(ks + n * Lt::kv_block, &kmap, full + 8 * s, col0 + 32 * n, k0, pit.b);
+      tma_load(vs + n * Lt::kv_block, &vmap, full + 8 * s, col0 + 32 * n, k0, pit.b);
+    }
+    ++pg;
+    if (++pi == pit.n_tiles) {
+      pi = 0;
+      pw += gridDim.x;
+      if (pw < total) pit = item<kBlockQ, kBK>(pw, S, H, B, causal, window);
+    }
+  };
+  auto issue_q = [&](int seq, int w) {          // the block's seq-th item
+    const Item it = item<kBlockQ, kBK>(w, S, H, B, causal, window);
+    const uint32_t bar = qfull + 8 * (seq & 1);
+    mbar_expect_tx(bar, Lt::q_bytes);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      tma_load(sq + (seq & 1) * Lt::q_bytes + n * Lt::q_block, &qmap, bar,
+               it.h * HD + 32 * n, it.q0, it.b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads);
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(qfull + 8 * k, 1);
+      mbar_init(qempty + 8 * k, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (blockIdx.x < total) issue_q(0, blockIdx.x);
+    for (int i = 0; i < kStages - 1; ++i) issue_next();
+  }
+  __syncthreads();                              // barriers initialised
+
+  int g = 0;                                    // stream index of the tile
+  for (int w = blockIdx.x, seq = 0; w < total; w += gridDim.x, ++seq) {
+    const Item it = item<kBlockQ, kBK>(w, S, H, B, causal, window);
+    if (tid == 0 && w + gridDim.x < total) {    // the next item's Q
+      if (seq >= 1) mbar_wait(qempty + 8 * ((seq + 1) & 1), ((seq - 1) >> 1) & 1);
+      issue_q(seq + 1, w + gridDim.x);
+    }
+    const int wg_first = it.q0, wg_last = wg_first + kBlockQ - 1;
+    const int row = wg_first + warp * 16 + lane / 4;   // and row + 8
+    const int col = 2 * (lane % 4);                    // + 8j (+1)
+    const uint32_t qh = sq + (seq & 1) * Lt::q_bytes, ql = sq + Lt::q_lo;
+    float acc[NP][NO / 2];
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int i = 0; i < NO / 2; ++i) acc[n][i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    // Q split once per item.  The last item's products are complete: this
+    // thread waited for them, and they ran only once every warp issued them
+    mbar_wait(qfull + 8 * (seq & 1), (seq >> 1) & 1);
+    split_tile(sf + (qh - sq) / 4, sf + Lt::q_lo / 4, Lt::q_bytes / 16);
+    fence_async_smem();
+    __syncthreads();
+
+    for (int i = 0; i < it.n_tiles; ++i, ++g) {
+      if (tid == 0) issue_next();
+      const int s = g % kStages;
+      mbar_wait(full + 8 * s, (g / kStages) & 1);
+      const int k0 = (it.t_first + i) * kBK;
+      const uint32_t kh = sq + Lt::ring + s * 2 * Lt::kv_tile;
+      // tiles wholly above the diagonal or before the window
+      const bool live = !causal || (k0 <= wg_last &&
+                                    (window <= 0 || k0 + kBK - 1 > wg_first - window));
+      if (!live) {
+        mbar_arrive(empty + 8 * s);
+        continue;
+      }
+      // K split in place and its low parts to K lo; V split into V^T, its
+      // keys permuted.  The last tile's products are complete, as for Q
+      split_tile(sf + (kh - sq) / 4, sf + Lt::k_lo / 4, Lt::kv_tile / 16);
+      {
+        const float4* vr = reinterpret_cast<const float4*>(sf + (kh - sq) / 4 + Lt::kv_tile / 4);
+        float* vth = sf + Lt::vt_hi / 4;
+        float* vtl = sf + Lt::vt_lo / 4;
+        for (int c = tid; c < Lt::kv_tile / 16; c += kThreads) {
+          float4 x = vr[c];
+          const float4 lo = split4(x);
+          const int j = (c / 8) % kBK;                       // key in the tile
+          const int d0 = (c / (8 * kBK)) * 32 + (((c % 8) ^ (j & 7)) << 2);
+          const int p = (j & 24) | ((j & 7) >> 1) | ((j & 1) << 2);
+          const float xh[4] = {x.x, x.y, x.z, x.w}, xl[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int d = d0 + e;
+            const int at = d * 32 + ((((p >> 2) ^ d) & 7) << 2) + (p & 3);
+            vth[at] = xh[e];
+            vtl[at] = xl[e];
+          }
+        }
+      }
+      fence_async_smem();
+      __syncthreads();
+
+      // S = Q K^T in 3xTF32: the small terms in one accumulator, the
+      // large ones in NS, each a chain of 4 steps of 8 columns (8 at
+      // hd=128, where registers allow no more)
+      constexpr int NS = HD > 64 ? 2 : HD / 32;
+      float sb[NS][16], ss[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const uint32_t qoff = (kk / 4) * Lt::q_block + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * Lt::kv_block + (kk % 4) * 32;
+        constexpr int per = HD / 8 / NS;          // steps per large chain
+        wgmma_ss(ss, desc(ql + qoff), desc(kh + koff), kk > 0);
+        wgmma_ss(ss, desc(qh + qoff), desc(sq + Lt::k_lo + koff), 1);
+        wgmma_ss(sb[kk / per], desc(qh + qoff), desc(kh + koff), kk % per > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(ss);
+#pragma unroll
+      for (int c = 0; c < NS; ++c) fence_regs(sb[c]);
+      mbar_arrive(empty + 8 * s);                // K and V are out of the ring
+      float sc[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        sc[j] = ss[j];
+#pragma unroll
+        for (int c = 0; c < NS; ++c) sc[j] += sb[c][j];
+      }
+
+      // masked scores become -inf: ex2(-inf) == 0
+      if (k0 + kBK > S || (causal && (k0 + kBK - 1 > wg_first ||
+                                      (window > 0 && k0 <= wg_last - window)))) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int qp = row + 8 * ((j >> 1) & 1);
+          const int kp = k0 + 8 * (j >> 2) + col + (j & 1);
+          bool ok = kp < S;
+          if (causal) ok = ok && kp <= qp && (window <= 0 || kp > qp - window);
+          if (!ok) sc[j] = -INFINITY;
+        }
+      }
+      // row max over this thread's 8 per row and its quad; scale and
+      // log2(e) go into one FFMA per score
+      float alpha[2], ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          mt = fmaxf(mt, fmaxf(sc[4 * u + 2 * r], sc[4 * u + 2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m[r], mt);    // finite: m starts at -1e30
+        alpha[r] = ex2((m[r] - m_new) * scale_log2);
+        ms[r] = m_new * scale_log2;
+        m[r] = m_new;
+      }
+      float ls[2] = {0.f, 0.f};
+      uint32_t ph[KS][4], pl[KS][4];            // P's A fragments
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p = ex2(fmaf(sc[j], scale_log2, -ms[(j >> 1) & 1]));
+        ls[(j >> 1) & 1] += p;
+        // keys 2t, 2t+1 of each 8 are A columns t, t+4: (j & 1) picks the
+        // column half, (j >> 1) & 1 the row half
+        const int a = ((j >> 1) & 1) | ((j & 1) << 1);
+        split(p, ph[j >> 2][a], pl[j >> 2][a]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], ls[r]);
+
+      // O = alpha O + P V: the tile's P V from 0, in 3xTF32
+      float pv[NP][NO / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KS; ++j)
+#pragma unroll
+        for (int n = 0; n < NP; ++n) {
+          const uint32_t voff = n * NO * 128 + j * 32;
+          wgmma_rs(pv[n], pl[j], desc(sq + Lt::vt_hi + voff), j > 0);
+          wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_lo + voff), 1);
+          wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_hi + voff), 1);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int n = 0; n < NP; ++n) {
+        fence_regs(pv[n]);
+#pragma unroll
+        for (int i = 0; i < NO / 2; ++i)
+          acc[n][i] = fmaf(acc[n][i], alpha[(i >> 1) & 1], pv[n][i]);
+      }
+    }
+    mbar_arrive(qempty + 8 * (seq & 1));         // the last product read Q
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    const size_t q_row = static_cast<size_t>(H) * HD;
+#pragma unroll
+    for (int n = 0; n < NP; ++n)
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = row + 8 * r;
+          if (qp >= S) continue;
+          *reinterpret_cast<float2*>(o + (static_cast<size_t>(it.b) * S + qp) * q_row +
+                                     static_cast<size_t>(it.h) * HD + n * NO + 8 * j + col) =
+              make_float2(acc[n][4 * j + 2 * r] * l[r], acc[n][4 * j + 2 * r + 1] * l[r]);
+        }
+  }
+}
+
+}  // namespace f32
+
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
 // library links only the runtime)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -621,28 +940,35 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// [B, S, heads * hd] bf16 as a 3-d tensor map read in boxes of `cols`
-// columns x `rows` rows of one batch row; rows past S read as zeros
+// [B, S, width] as a 3-d tensor map read in boxes of `cols` columns x
+// `rows` rows of one batch row; rows past S read as zeros
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                const void* base, int width, int S, int B, int cols, int rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t w = static_cast<cuuint64_t>(width);
+  const cuuint64_t dims[3] = {w, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {elem_bytes * w, elem_bytes * w * S};  // bytes
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [B, S, heads * hd] bf16 in the layout of Layout<HD>
 template <int HD>
 bool tensor_map(CUtensorMap* map, const void* base, int heads, int S, int B,
                 int rows) {
   using Lt = Layout<HD>;
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t width = static_cast<cuuint64_t>(heads) * HD;
-  const cuuint64_t dims[3] = {width, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {2 * width, 2 * width * S};   // bytes
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(Lt::cols),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Lt::row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                    heads * HD, S, B, Lt::cols, rows,
+                    Lt::row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <int HD>
@@ -675,7 +1001,52 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int causal, int window,
+               cudaStream_t stream) {
+  using Lt = f32::Layout<HD>;
+  const auto map = [&](CUtensorMap* m, const void* base, int heads, int rows) {
+    return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, heads * HD,
+                      S, B, 32, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  CUtensorMap qmap, kmap, vmap;
+  if (!map(&qmap, q, H, f32::kBlockQ) || !map(&kmap, k, KV, Lt::bk) ||
+      !map(&vmap, v, KV, Lt::bk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      f32::flash_attention_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Lt::smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // as many blocks as fit on the card at once, at most one per item
+  static const int per_sm = [] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, f32::flash_attention_f32_kernel<HD>, f32::kThreads, Lt::smem);
+    return std::max(1, n);
+  }();
+  const long items = static_cast<long>(H) * B *
+                     ((S + f32::kBlockQ - 1) / f32::kBlockQ);
+  const int grid = static_cast<int>(
+      std::min<long>(items, static_cast<long>(device_sms()) * per_sm));
+  f32::flash_attention_f32_kernel<HD><<<grid, f32::kThreads, Lt::smem, stream>>>(
+      qmap, kmap, vmap, static_cast<float*>(o), B, S, H, KV, causal, window,
+      1.4426950408889634f * rsqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
+
+int dispatch_f32(int head_dim, const void* q, const void* k, const void* v,
+                 void* o, int B, int S, int H, int KV, int causal, int window,
+                 cudaStream_t stream) {
+  switch (head_dim) {
+    case 32: return tc::launch_f32<32>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 64: return tc::launch_f32<64>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 128: return tc::launch_f32<128>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 int dispatch_bf16(int head_dim, const void* q, const void* k, const void* v,
                   void* o, int B, int S, int H, int KV, int causal, int window,
@@ -701,8 +1072,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32)
-    return repro::dispatch<float>(head_dim, q, k, v, o, B, S, H, KV, causal,
-                                  window, st);
+    return repro::dispatch_f32(head_dim, q, k, v, o, B, S, H, KV, causal,
+                               window, st);
   if (dtype == repro::kBFloat16)
     return repro::dispatch_bf16(head_dim, q, k, v, o, B, S, H, KV, causal,
                                 window, st);

@@ -26,11 +26,13 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace repro {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 32;
+constexpr int kBlocksPerSM = 32;   // grid-stride blocks per SM
 
 struct TopkParams {
   const float* g;
@@ -101,8 +103,9 @@ extern "C" int repro_topk_compress(const void* g, const void* e,
                    repro::aligned16(out) && repro::aligned16(new_e);
   const int per_block = repro::kThreads * (vec ? 4 : 1);
   const long long want = (p.n + per_block - 1) / per_block;
-  const unsigned blocks = static_cast<unsigned>(
-      want < repro::kMaxBlocks ? want : repro::kMaxBlocks);
+  const long long most = static_cast<long long>(repro::device_sms()) *
+                         repro::kBlocksPerSM;
+  const unsigned blocks = static_cast<unsigned>(want < most ? want : most);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
     repro::topk_compress_kernel<4><<<blocks, repro::kThreads, 0, st>>>(p);

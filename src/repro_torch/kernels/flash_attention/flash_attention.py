@@ -16,15 +16,18 @@ from repro_torch.kernels.build import library
 
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-SMS = 132                   # streaming multiprocessors of an H100 SXM
 
 
-def decode_chunk(B: int, L: int, KV: int) -> int:
+def decode_chunk(B: int, L: int, KV: int, sms: int | None = None) -> int:
     """Cache rows per block of the split-K decode: a multiple of 16 in
     [16, 128], small enough that the (chunk, KV head, batch row) grid runs
-    about two blocks on every SM.  At the serving shape (B=8, L=576, KV=4):
-    64 rows, 9 x 4 x 8 = 288 blocks."""
-    splits = -(-2 * SMS // (B * KV))
+    about two blocks on each of ``sms`` SMs (by default the current CUDA
+    device's).  At the serving shape (B=8, L=576, KV=4) on an H100's 132
+    SMs: 64 rows, 9 x 4 x 8 = 288 blocks."""
+    if sms is None:
+        sms = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    splits = -(-2 * sms // (B * KV))
     chunk = -(-L // splits)
     return max(16, min(128, -(-chunk // 16) * 16))
 

@@ -119,6 +119,39 @@ def test_terngrad_matches_jax(C):
             _equal(port[rows], ref)
 
 
+@pytest.mark.parametrize("regime", ["outlier", "uniform", "constant"])
+def test_terngrad_compress_provisional_scale(regime):
+    """The identity the card's terngrad_compress rests on: it ternarizes
+    clip(g, +-sigma) against the provisional scale s = sigma, and only
+    where the scale is not sigma (no element reaches the clip, or sigma is
+    0) once more against s = max|g|.  JAX's terngrad_compress (interpret
+    mode) must equal the port's ternarize_ref of that clip against that
+    scale, bit for bit: a Gaussian with an outlier (max|g| >= sigma),
+    uniform +-1 (2.5 sigma ~ 1.44 > max|g|) and a constant (std exactly 0:
+    no clip, JAX's kernel takes s = max|g|)."""
+    rng = np.random.RandomState(7)
+    R, C = 24, 256
+    if regime == "outlier":
+        g = rng.standard_normal((R, C)).astype(np.float32)
+        g[0, :7] = 0.0
+        g[1, 3] = 40.0
+    elif regime == "uniform":
+        g = rng.uniform(-1.0, 1.0, (R, C)).astype(np.float32)
+    else:
+        g = np.full((R, C), 0.5, np.float32)
+    u = rng.random_sample((R, C)).astype(np.float32)
+    tern, scale = jax_tern(jnp.asarray(g), jnp.asarray(u), clip_sigma=2.5,
+                           interpret=True)
+    sigma = np.float32(jnp.std(jnp.asarray(g)) * 2.5)   # the kernel's sigma
+    amax = np.abs(g).max()
+    provisional = bool(sigma > 0 and amax >= sigma)
+    assert provisional == (regime == "outlier")
+    s = sigma if provisional else amax
+    assert np.float32(scale) == s
+    gc = np.clip(g, -sigma, sigma) if sigma > 0 else g
+    _equal(KT.ternarize_ref(_t(gc), _t(u), _t(s)), tern)
+
+
 @pytest.mark.parametrize("C", [256, 200])
 def test_qsgd_matches_jax(C):
     g, _, u = _inputs(C + 2, 24, C)

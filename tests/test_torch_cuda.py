@@ -104,6 +104,62 @@ def test_flash_attention_bf16_tile_edges(cuda, hd, S, H, KV):
     assert FA.LAUNCHES["flash_attention"] == len(modes)
 
 
+# The fp32 (training) kernel: both products on the tensor cores in
+# 3xTF32, at the training shape, TinyLlama's full context, hd 32 and 128
+# (32-key tiles), a ragged S and large scores
+FP32_CASES = [
+    (2, 256, 32, 4, 64, True, 0, 1.0),       # the training shape
+    (2, 2048, 32, 4, 64, True, 0, 1.0),
+    (2, 2048, 32, 4, 64, True, 100, 1.0),
+    (2, 2048, 32, 4, 64, False, 0, 1.0),
+    (2, 300, 8, 2, 32, True, 0, 1.0),
+    (2, 300, 8, 2, 128, True, 16, 1.0),
+    (2, 200, 32, 4, 64, True, 0, 1.0),       # key padding past S
+    (2, 256, 32, 4, 64, True, 0, 4.0),       # |q.k| / sqrt(hd) ~ 16
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,scale", FP32_CASES)
+def test_flash_attention_fp32_tensor_cores(cuda, B, S, H, KV, hd, causal,
+                                           window, scale):
+    gen = torch.Generator(device=cuda).manual_seed(S + hd + int(scale))
+    q = _randn(gen, torch.float32, B, S, H, hd) * scale
+    k = _randn(gen, torch.float32, B, S, KV, hd) * scale
+    v = _randn(gen, torch.float32, B, S, KV, hd)
+    FA.reset_launches()
+    out = FA.attention(q, k, v, causal=causal, window=window)
+    ref = FA.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _err(out, ref) <= TOLS[torch.float32]
+    assert FA.LAUNCHES["flash_attention"] == 1
+
+
+def _attention_f64(q, k, v, causal):
+    """Attention in float64 (the plain version computes in fp32)."""
+    S, rep = q.shape[1], q.shape[2] // k.shape[2]
+    k, v = (t.double().repeat_interleave(rep, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k) / q.shape[3] ** 0.5
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fp32_large_scores(cuda, causal):
+    """|q.k| / sqrt(hd) ~ 64: each score sums 64 products of size ~64, and
+    the fp32 plain version's own rounding is no longer small against
+    1e-4, so the kernel is held against float64, within the same 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = _randn(gen, torch.float32, 2, 256, 32, 64) * 8.0
+    k = _randn(gen, torch.float32, 2, 256, 4, 64) * 8.0
+    v = _randn(gen, torch.float32, 2, 256, 4, 64)
+    out = FA.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _err(out, _attention_f64(q, k, v, causal)) <= TOLS[torch.float32]
+
+
 def _chunk_edge_positions(L, chunk):
     """Positions on both sides of every chunk edge of an L-row cache, the
     first and last row, and two past the end."""
@@ -325,6 +381,44 @@ def test_terngrad_kernels_match_plain(cuda, R, C, S):
     torch.cuda.synchronize()
     assert torch.equal(tern, rtern) and torch.equal(scale, rscale)
     assert KT.LAUNCHES == {"terngrad_ternarize": 1, "terngrad_compress": 1}
+
+
+@pytest.mark.parametrize("regime", ["outlier", "uniform", "clip0", "zero",
+                                    "constant"])
+def test_terngrad_compress_two_pass(cuda, regime):
+    """terngrad_compress ternarizes against the provisional scale sigma
+    and settles the scale on the device, ternarizing again where it is not
+    sigma: a Gaussian with an outlier (max|g| >= sigma: the provisional
+    plane stands), uniform +-1 (2.5 sigma ~ 1.44 > max|g|: the second
+    pass), clip_sigma=0 (max|g| first) and all zeros give the plain
+    version's plane and scale exactly.  A constant g has std exactly 0:
+    the kernel follows JAX's Pallas kernel (no clip, s = max|g|), where
+    terngrad_ref, as JAX's ref, clips everything to 0."""
+    from repro_torch.kernels import terngrad as KT
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    R, C = 4096, 256
+    g = _randn(gen, torch.float32, R, C)
+    g[0, :5] = 0.0
+    if regime == "outlier":
+        g[7, 9] = 40.0
+    elif regime == "uniform":
+        g = torch.rand(R, C, generator=gen, device=cuda) * 2 - 1
+    elif regime == "zero":
+        g = torch.zeros(R, C, device=cuda)
+    elif regime == "constant":
+        g = torch.full((R, C), 0.5, device=cuda)
+    u = torch.rand(R, C, generator=gen, device=cuda)
+    clip_sigma = 0.0 if regime == "clip0" else 2.5
+    KT.reset_launches()
+    tern, scale = KT.compress(g, u, clip_sigma=clip_sigma)
+    torch.cuda.synchronize()
+    if regime == "constant":
+        amax = g.abs().amax()
+        want = KT.ternarize_ref(g, u, amax), amax
+    else:
+        want = KT.terngrad_ref(g, u, clip_sigma)
+    assert torch.equal(tern, want[0]) and torch.equal(scale, want[1])
+    assert KT.LAUNCHES == {"terngrad_ternarize": 0, "terngrad_compress": 1}
 
 
 @pytest.mark.parametrize("R,C,S", SEGMENT_CASES)

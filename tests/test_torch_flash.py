@@ -9,16 +9,24 @@ tests/test_torch_kernels.py runs it) and against ``decode_ref``, in fp32
 within 1e-5 (only the summation order differs), at chunks of 16, 64 and
 128 rows, on a full cache and a ring buffer, with positions that leave
 whole chunks masked (their partial is empty and must weigh 0, not NaN).
+
+The fp32 prefill kernel (``csrc/flash_attention.cu``) runs both of its
+products on the tensor cores in 3xTF32.  ``_attention_3xtf32`` repeats
+that arithmetic here (TF32 rounding by the ``cvt.rna`` rule on the bits,
+the three products, the softmax with scale and log2 e folded into one
+exponent of 2) and is held against JAX's ``flash_attention`` within 1e-4,
+the card's fp32 tolerance, before any card time is spent on it.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import math
+
 from repro.kernels import flash_attention as FA
 from repro_torch.kernels import flash_attention as TFA
-from repro_torch.kernels.flash_attention.flash_attention import (SMS,
-                                                                 decode_chunk)
+from repro_torch.kernels.flash_attention.flash_attention import decode_chunk
 from repro_torch.kernels.flash_attention.ref import decode_split_ref
 
 torch.set_num_threads(2)
@@ -95,7 +103,74 @@ def test_empty_partials_weigh_nothing(chunk):
     (64, 576, 4, 128),      # many rows: the largest chunk, 1280 blocks
 ])
 def test_decode_chunk_fills_the_card(B, L, KV, want):
-    chunk = decode_chunk(B, L, KV)
+    sms = 132                                       # an H100 SXM
+    chunk = decode_chunk(B, L, KV, sms)
     assert chunk == want and chunk % 16 == 0 and 16 <= chunk <= 128
     blocks = -(-L // chunk) * KV * B
-    assert blocks >= 2 * SMS or chunk == 16
+    assert blocks >= 2 * sms or chunk == 16
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: add half a TF32 ulp
+    to the bits and clear the low 13 (nearest, ties away from zero)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b with each operand split into a TF32 high part and a TF32
+    remainder; lo*hi + hi*lo + hi*hi in fp32, the kernel's order."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    """a @ b as one TF32 product: the high parts alone."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_3xtf32(q, k, v, causal, window, mm=_mm_3xtf32):
+    """The fp32 kernel's arithmetic on numpy fp32 [B, S, H, hd] inputs
+    (``mm`` computes both products)."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    qt = q.transpose(0, 2, 1, 3)
+    kt = np.repeat(k, rep, axis=2).transpose(0, 2, 3, 1)
+    vt = np.repeat(v, rep, axis=2).transpose(0, 2, 1, 3)
+    s = mm(qt, kt)                                   # raw scores [B,H,S,S]
+    if causal:
+        qi, kj = np.arange(S)[:, None], np.arange(S)[None, :]
+        mask = kj <= qi
+        if window:
+            mask &= kj > qi - window
+        s = np.where(mask, s, np.float32(-np.inf))
+    c = np.float32(math.log2(math.e) / math.sqrt(hd))
+    m = s.max(-1, keepdims=True)
+    p = np.exp2(s * c - m * c).astype(np.float32)
+    o = mm(p, vt) / p.sum(-1, keepdims=True)
+    return o.transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,scale", [
+    (2, 64, 4, 2, 32, True, 0, 1.0),       # GQA, causal
+    (1, 100, 4, 1, 64, True, 16, 1.0),     # a window across blocks
+    (2, 48, 2, 2, 32, False, 0, 1.0),      # full attention
+    (1, 80, 4, 2, 128, True, 0, 1.0),      # hd 128
+    (1, 64, 4, 2, 64, True, 0, 4.0),       # |q.k| / sqrt(hd) ~ 16
+])
+def test_3xtf32_attention_within_tolerance(B, S, H, KV, hd, causal, window,
+                                           scale):
+    rng = np.random.RandomState(S + hd)
+    q = _randn(rng, B, S, H, hd) * np.float32(scale)
+    k = _randn(rng, B, S, KV, hd) * np.float32(scale)
+    v = _randn(rng, B, S, KV, hd)
+    out = _attention_3xtf32(q, k, v, causal, window)
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+    pallas = FA.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, window=window,
+                                interpret=True)
+    assert _max_err(out, pallas) <= 1e-4
+    # one TF32 product misses it
+    one = _attention_3xtf32(q, k, v, causal, window, mm=_mm_1xtf32)
+    assert _max_err(one, pallas) > 1e-4

@@ -7,7 +7,9 @@ full context, positions 1984-2047), and the fp32 training forward (B=2,
 S=256).  Each line gives the kernel's CUDA-event median (L2 flushed before
 every launch), one PyTorch library call computing the same function
 (scaled_dot_product_attention, a yardstick the port never calls) and the
-least time the card needs for the work, as one JSON object.
+least time the card needs for the work, as one JSON object.  The fp32
+forward's bound is its route's: 3 TF32 tensor-core products per fp32
+product (3xTF32).
 
     PYTHONPATH=src python tools/torch_flash_bench.py [--src DIR]
 
@@ -28,7 +30,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-F32_FLOPS = 67e12                  # fp32 outside the tensor cores
+TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 
 
@@ -86,8 +88,10 @@ def main() -> int:
                               library_ms=timed_ms(library), bound_ms=b_ms,
                               bound_by=b_by, card=card)), flush=True)
 
-    for dtype, S, Bq, name in ((torch.bfloat16, 512, B, "flash_attention"),
-                               (torch.float32, 256, 2, "flash_attention_train")):
+    # (dtype, S, batch, name, tensor-core products per product, peak)
+    for dtype, S, Bq, name, products, peak in (
+            (torch.bfloat16, 512, B, "flash_attention", 1, BF16_FLOPS),
+            (torch.float32, 256, 2, "flash_attention_train", 3, TF32_FLOPS)):
         q, k, v = (randn(Bq, S, H, HD, dtype=dtype),
                    randn(Bq, S, KV, HD, dtype=dtype),
                    randn(Bq, S, KV, HD, dtype=dtype))
@@ -98,8 +102,7 @@ def main() -> int:
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                size * (2 * q.numel() + k.numel() + v.numel()),
-               4 * Bq * H * HD * S * (S + 1) // 2,
-               BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+               products * 4 * Bq * H * HD * S * (S + 1) // 2, peak)
 
     for L in (576, 2048):
         qd = randn(B, 1, H, HD)

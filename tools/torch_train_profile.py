@@ -6,8 +6,8 @@ by default ``bsp/allreduce/onebit@4`` with ``wire="modeled"``): one
 warm-up step, the wall time of ``STEPS`` unprofiled steps (host clock
 around work that ends in a synchronize), then one step under
 ``torch.profiler`` for the device's busy share, the device time of each
-phase of the step (the engine's ``record_function`` ranges) and the
-kernels that take it.  A global step of ssp or asp is as many push
+phase of the step (the engine's ``record_function`` ranges), the kernels
+that take it and the device time of each of the port's own CUDA kernels.  A global step of ssp or asp is as many push
 events as its ticks hold (one worker's batch each); tokens/s counts them.
 
     PYTHONPATH=src python tools/torch_train_profile.py
@@ -18,6 +18,7 @@ events as its ticks hold (one worker's batch each); tokens/s counts them.
 from __future__ import annotations
 
 import argparse
+import re
 import sys
 import time
 
@@ -113,6 +114,11 @@ def main(argv) -> int:
     for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
         print(f"  {_device_us(e) * 1e-3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+    for e in sorted(kernels, key=_device_us, reverse=True):
+        if "repro::" in e.key:
+            name = re.search(r"\w+_kernel(<[^>]*>)?", e.key)
+            print(f"  port kernel {name.group() if name else e.key[:60]}: "
+                  f"{_device_us(e) * 1e-3:.3f} ms in {e.count} launches")
     print(f"card: {torch.cuda.get_device_name(0)}")
     return 0
 
