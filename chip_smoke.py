@@ -107,6 +107,38 @@ Phases, in order; any failure exits non-zero and no phase catches its own:
              every loss finite, peak memory reported; each run again on the
              plain path with per-event losses within 1e-3.
 
+ 11. launcher the trainer's entry point at full width:
+             repro_torch.launch.train.main(["--arch", "tinyllama-1.1b",
+             "--steps", "3", "--optimizer", "adam", "--compress", "onebit",
+             "--device", "cuda"]) in process (batch 8 x seq 64,
+             cosine_warmup), with --compute-dtype float32 and then
+             bfloat16 (the bf16 flash forward under autograd).  The fp32
+             run again on the plain path (attn_backend="ref", the
+             compressor's backend="ref"): each step's loss within 1e-3 of
+             the kernel path's, wire_bytes and the lr column equal; every
+             bf16 loss finite.  One batch's gradients, per JAX leaf:
+             ||g_kernel,bf16 - g_fp32|| <= 1.25 ||g_plain,bf16 - g_fp32||
+             (g_fp32 on the plain path): the kernel path as close to fp32
+             as the plain bf16 path, phase 6's rule with a tighter factor
+             (one step's gradients do not compound over decode steps).
+             The warm step's wall, the Adam update's share of it (the
+             step's two halves timed apart), peak memory.
+ 12. trainer  examples/train_100m_e2e.py's full trainer path at full width
+             in fp32, phase 7's shapes: Strategy.parse(
+             "bsp/allreduce/onebit@4"), make_bucketed_allreduce (bucket_mb
+             4, tictac), make_train_step(AdamW(0.01), cosine_warmup(6e-4,
+             20, 3), FP32, the onebit compressor, reduce_fn),
+             make_sharded_train_step(compressed=True) through train_loop, 3
+             steps of batch 2 x seq 256 per worker.  22 x 4 flash_attention
+             launches per step and one onebit_encode_ef per leaf per worker
+             per step; the bucket count equal to DeviceEngine's for the
+             spec; the same steps on the plain path: losses within 1e-3,
+             wire_bytes equal.  Step wall and peak memory.
+
+Counts are zeroed just before and read just after phase 11's two
+kernel-path main() runs and phase 12's kernel-path run; they make the
+kernels' "trainer" launches.
+
 Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
@@ -161,6 +193,13 @@ PREVIOUS_MS = {"flash_attention": 0.8635, "flash_decode": 0.0496,
                "flash_decode_2048": 0.1610, "flash_attention_train": 0.0850,
                "terngrad_compress": 1.5226}
 TRAIN_SPEC, TRAIN_STEPS = "bsp/allreduce/onebit@4", 3
+# phase 11: the launcher's flags (its defaults: batch 8 x seq 64, lr 3e-3)
+LAUNCH_ARGV = ["--arch", "tinyllama-1.1b", "--steps", "3", "--optimizer",
+               "adam", "--compress", "onebit", "--device", "cuda"]
+BF16_GRAD_FACTOR = 1.25
+# phase 12: examples/train_100m_e2e.py's trainer (its --lr default, 20
+# warm-up steps)
+TRAINER_LR, TRAINER_WARMUP = 6e-4, 20
 TRAIN_B, TRAIN_S = 2, 256          # per-worker batch and sequence
 # leaves of full-width TinyLlama-1.1B as the compressor encodes them
 ONEBIT_SHAPES = ((2048, 32000), (123904, 2048), (45056, 5632), (22, 2048))
@@ -284,7 +323,15 @@ def main() -> int:
     from repro_torch.models.transformer import tree_map
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.request import Request
-    from repro_torch.train import Strategy, Trainer, value_and_grad
+    from repro_torch.core.precision import FP32
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import cosine_warmup
+    from repro_torch.train import (Strategy, Trainer, TrainState,
+                                   make_bucketed_allreduce,
+                                   make_sharded_train_step, make_train_step,
+                                   train_loop, value_and_grad)
+    from repro_torch.train.train_loop import step_generator
 
     # ------------------------------------------------------------ 1 device
     phase("device")
@@ -1026,7 +1073,184 @@ def main() -> int:
                   f"{[h['loss'] for h in plain]}; |kernel - plain| per event "
                   f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
             assert len(plain) == events and max(diffs) <= 1e-3
-    del model
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 11 launcher
+    phase("launcher: repro_torch.launch.train.main, full width, "
+          "Adam + onebit")
+    fp32_argv = LAUNCH_ARGV + ["--compute-dtype", "float32"]
+    bf16_argv = LAUNCH_ARGV + ["--compute-dtype", "bfloat16"]
+    reset_all()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist32 = launcher.main(fp32_argv)
+    torch.cuda.synchronize()
+    peak32 = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    print(f"main({fp32_argv}) above; peak device memory "
+          f"{peak32 / 2**30:.2f} GiB")
+    hist16 = launcher.main(bf16_argv)
+    torch.cuda.synchronize()
+    trainer_launches = read_all()
+    torch.cuda.empty_cache()
+    print(f"main({bf16_argv}) above; launches of both runs "
+          f"{trainer_launches}")
+    args32 = launcher.parse_args(fp32_argv)
+    n_leaves = len(layout.names)
+    assert trainer_launches["flash_attention"] == 2 * 3 * cfg.num_layers
+    assert trainer_launches["onebit_encode_ef"] == 2 * 3 * n_leaves
+    assert all(math.isfinite(h["loss"]) for h in hist32 + hist16)
+    reset_all()
+    _, plain32 = launcher.train(launcher.build(args32, attn_backend="ref",
+                                               kernel_backend="ref"))
+    assert not any(read_all().values()), "plain path ran a kernel"
+    torch.cuda.empty_cache()
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(hist32, plain32)]
+    print(f"fp32 kernel path losses {[h['loss'] for h in hist32]}; plain "
+          f"path {[h['loss'] for h in plain32]}; |kernel - plain| per step "
+          f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3); wire_bytes "
+          f"{[h['wire_bytes'] for h in hist32]} and "
+          f"{[h['wire_bytes'] for h in plain32]}; lr "
+          f"{[h['lr'] for h in hist32]} and {[h['lr'] for h in plain32]}")
+    print(f"bf16 kernel path losses {[h['loss'] for h in hist16]}")
+    assert len(plain32) == len(hist32) == 3 and max(diffs) <= 1e-3
+    assert [h["wire_bytes"] for h in hist32] == \
+        [h["wire_bytes"] for h in plain32]
+    assert [h["lr"] for h in hist32] == [h["lr"] for h in plain32]
+
+    # one batch's gradients per JAX leaf: bf16 kernel and plain paths
+    # against the plain fp32 path
+    ref_model = build_model(dataclasses.replace(cfg, attn_backend="ref"))
+    p_ = model.init(seed=0, device=dev)
+    batch = make_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args32.seq_len,
+        batch_size=args32.batch_size), device=dev)(0, 0)
+
+    def grad_leaves(m_, dtype):
+        _, g = value_and_grad(
+            lambda pp, b: m_.loss_fn(pp, b, compute_dtype=dtype))(p_, batch)
+        return list(layout.leaves(g, consume=True))
+
+    g32 = grad_leaves(ref_model, torch.float32)
+    dists = {}
+    for name, m_ in (("kernel", model), ("plain", ref_model)):
+        dists[name] = [torch.linalg.vector_norm(a - b).item() for a, b in
+                       zip(grad_leaves(m_, bf), g32)]
+    del p_, g32
+    torch.cuda.empty_cache()
+    ratios = [k / p for k, p in zip(dists["kernel"], dists["plain"])]
+    kern_d, plain_d = ([f"{x:.3e}" for x in dists[k]]
+                       for k in ("kernel", "plain"))
+    print(f"bf16-compute gradients of one batch, ||g_bf16 - g_fp32|| per "
+          f"JAX leaf ({n_leaves}): kernel {kern_d}; plain {plain_d}; "
+          f"kernel/plain median {statistics.median(ratios):.4f}, worst "
+          f"{max(ratios):.4f} "
+          f"({layout.names[ratios.index(max(ratios))]}; tol "
+          f"{BF16_GRAD_FACTOR})")
+    assert max(ratios) <= BF16_GRAD_FACTOR, \
+        "bf16 kernel-path gradients drift from fp32"
+
+    # the warm step's two halves timed apart (the kernel path, fp32)
+    run = launcher.build(args32)
+    state, step = run.state, run.step
+    gen = torch.Generator().manual_seed(0)
+    for t in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mets, leaves, wire = step._worker(
+            state["params"], run.batch_fn(t), state["ef"],
+            step_generator(gen))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step._update(state, leaves, mets, loss, wire)
+        del leaves
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del run, state
+    torch.cuda.empty_cache()
+    warm_ms, update_ms = 1e3 * (t2 - t0), 1e3 * (t2 - t1)
+    tokens = args32.batch_size * args32.seq_len
+    print(f"warm (third) step {warm_ms:.1f} ms = {tokens / warm_ms * 1e3:.1f}"
+          f" tokens/s: gradient and compression {1e3 * (t1 - t0):.1f} ms, "
+          f"Adam update {update_ms:.1f} ms = {update_ms / warm_ms:.1%} of "
+          f"the step; peak device memory of the fp32 run "
+          f"{peak32 / 2**30:.2f} GiB; card {smi}")
+
+    # ----------------------------------------------------------- 12 trainer
+    phase(f"trainer: make_sharded_train_step, full width, {TRAIN_SPEC}, "
+          "AdamW, fp32")
+    strat = Strategy.parse(TRAIN_SPEC, lr=0.01)
+    assert (strat.bucket_mb, strat.order) == (4.0, "tictac")
+
+    def stacked(t):
+        per = [batches(t, w) for w in range(K)]
+        return tree_map(lambda *xs: torch.stack(xs), *per)
+
+    def trainer_run(kernels: bool):
+        """3 steps of the K-worker trainer; returns (history, peak bytes,
+        bucket count)."""
+        m_ = model if kernels else ref_model
+        comp = (strat.compressor if kernels else
+                dataclasses.replace(strat.compressor, backend="ref"))
+        p_ = m_.init(seed=0, device=dev)
+        lay = m_.leaf_layout(p_)
+        reduce_fn = make_bucketed_allreduce(
+            p_, topology=strat.topology, bucket_mb=strat.bucket_mb,
+            order=strat.order, layout=lay)
+        opt = AdamW(0.01)
+        step = make_train_step(
+            m_.loss_fn, opt,
+            cosine_warmup(TRAINER_LR, TRAINER_WARMUP, TRAIN_STEPS),
+            precision=FP32, compressor=comp, reduce_fn=reduce_fn,
+            layout=lay)
+        state = TrainState.create(p_, opt, comp, lay)
+        del p_
+        state["ef"] = [torch.zeros((K,) + e.shape, device=dev)
+                       for e in state["ef"]]
+        sharded = make_sharded_train_step(step, K, compressed=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, hist = train_loop(sharded, state, stacked, TRAIN_STEPS,
+                             log_every=1)
+        del state
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        return hist, peak, len(reduce_fn.fused_layers)
+
+    reset_all()
+    hist, peak, n_buckets = trainer_run(kernels=True)
+    run_launches = read_all()
+    for name, count in run_launches.items():
+        trainer_launches[name] += count
+    p_ = model.init(seed=0, device=dev)
+    engine_buckets = strat.build(
+        value_and_grad(lambda pp, b: model.loss_fn(pp, b)),
+        layout=layout, device=dev).inner.modeled_timeline(p_)["n_buckets"]
+    del p_
+    walls = [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    print(f"losses {[h['loss'] for h in hist]}; lr {[h['lr'] for h in hist]};"
+          f" wire_bytes {[h['wire_bytes'] for h in hist]}; step walls after "
+          f"the first {[f'{1e3 * w:.1f}' for w in walls]} ms "
+          f"({K} x {TRAIN_B} x {TRAIN_S} tokens per step); peak device "
+          f"memory {peak / 2**30:.2f} GiB; {n_buckets} buckets "
+          f"(DeviceEngine {engine_buckets}); launches {run_launches}")
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    assert n_buckets == engine_buckets
+    assert run_launches["flash_attention"] == \
+        cfg.num_layers * K * TRAIN_STEPS
+    assert run_launches["onebit_encode_ef"] == n_leaves * K * TRAIN_STEPS
+    reset_all()
+    plain, plain_peak, _ = trainer_run(kernels=False)
+    assert not any(read_all().values()), "plain path ran a kernel"
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(hist, plain)]
+    print(f"plain path losses {[h['loss'] for h in plain]}, peak "
+          f"{plain_peak / 2**30:.2f} GiB; |kernel - plain| per step "
+          f"{[f'{d:.2e}' for d in diffs]} (tol 1e-3)")
+    assert len(plain) == TRAIN_STEPS and max(diffs) <= 1e-3
+    assert [h["wire_bytes"] for h in hist] == \
+        [h["wire_bytes"] for h in plain]
+    del model, ref_model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- results
@@ -1051,7 +1275,8 @@ def main() -> int:
                       "train": train_launches.get(name, 0),
                       "measured": measured_launches[name],
                       "compress": compress_launches.get(name, 0),
-                      "matrix": matrix_launches[name]}
+                      "matrix": matrix_launches[name],
+                      "trainer": trainer_launches[name]}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
@@ -1064,6 +1289,8 @@ def main() -> int:
                     library_ms=timing[n]["library_ms"])
                for n in sources]
     assert all(math.isfinite(x["ms"]) for x in kernels)
+    assert by_path["flash_attention"]["trainer"] > 0
+    assert by_path["onebit_encode_ef"]["trainer"] > 0
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,120 @@
+"""Training launcher of the port (the JAX package's ``launch/train.py``):
+the Adam trainer (``make_train_step`` under ``cosine_warmup``) on one
+worker, on the synthetic LM stream.
+
+  # full-width TinyLlama-1.1B on the GPU (seeded random weights)
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 3 \\
+      --compress onebit
+
+  # reduced config on the CPU (plain PyTorch path)
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
+      --device cpu
+
+``build`` makes the run from parsed flags (and, optionally, given
+parameters and the plain path's backends), ``train`` drives it and
+``main`` prints one JSON line per logged step.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Callable, Dict, List
+
+from repro_torch.configs import get_config
+from repro_torch.core.compression import METHODS, Compressor
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.tree import tree_map
+from repro_torch.data import LMDataConfig, make_lm_batches
+from repro_torch.models import build_model
+from repro_torch.optim import OPTIMIZERS
+from repro_torch.optim.schedule import cosine_warmup
+from repro_torch.serve.engine import resolve_device
+from repro_torch.train.train_loop import (TrainState, make_train_step,
+                                          train_loop)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (default: full width)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adam", choices=list(OPTIMIZERS))
+    ap.add_argument("--compress", default="none", choices=list(METHODS))
+    ap.add_argument("--compute-dtype", default="float32")
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+@dataclasses.dataclass
+class TrainRun:
+    step: Callable          # make_train_step's train_step
+    state: Dict[str, Any]   # TrainState.create's
+    batch_fn: Callable      # t -> batch on the run's device
+    steps: int
+    log_every: int
+
+
+def build(args: argparse.Namespace, params=None, attn_backend: str = "auto",
+          kernel_backend: str = "auto") -> TrainRun:
+    """The run the flags describe.  ``params`` (a tree for the flags'
+    config, e.g. carried over from the JAX init) replaces the seeded init;
+    ``attn_backend`` and ``kernel_backend`` (``"ref"``: the plain path)
+    go to the model config and the compressor."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    model = build_model(dataclasses.replace(cfg, attn_backend=attn_backend))
+    if params is None:
+        params = model.init(seed=0, device=device)
+    else:
+        params = tree_map(lambda t: t.to(device), params)
+    batches = make_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        batch_size=args.batch_size), device=device)
+    opt = OPTIMIZERS[args.optimizer]()
+    comp = Compressor(args.compress, backend=kernel_backend)
+    layout = model.leaf_layout(params)
+    step = make_train_step(model.loss_fn, opt,
+                           cosine_warmup(args.lr, 5, args.steps),
+                           precision=PrecisionPolicy(
+                               compute_dtype=args.compute_dtype),
+                           compressor=comp, layout=layout)
+    return TrainRun(step=step,
+                    state=TrainState.create(params, opt, comp, layout),
+                    batch_fn=lambda t: batches(t, 0), steps=args.steps,
+                    log_every=max(1, args.steps // 10))
+
+
+def train(run: TrainRun):
+    """Drive the run through ``train_loop``: (state, history)."""
+    return train_loop(run.step, run.state, run.batch_fn, run.steps,
+                      log_every=run.log_every)
+
+
+def json_lines(hist: List[dict]) -> List[str]:
+    """The reference's log lines: each logged step's metrics to 5
+    decimals."""
+    return [json.dumps({k: round(v, 5) for k, v in rec.items()})
+            for rec in hist]
+
+
+def main(argv=None) -> List[dict]:
+    args = parse_args(argv)
+    t0 = time.time()
+    _, hist = train(build(args))
+    for line in json_lines(hist):
+        print(line)
+    print(f"done in {time.time() - t0:.1f}s; "
+          f"loss {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

@@ -71,6 +71,7 @@ from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
                                    event_generator, firing_schedule, unported)
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.elastic.backup import participation_weights
+from repro_torch.train.train_loop import fold_in
 
 DEVICE_SYNCS = ("bsp", "ssp", "asp", "sma")   # device-executable sync models
 ARCHS = ("allreduce", "ps")                   # §3.3.1 architectures
@@ -130,6 +131,90 @@ def make_bucketed_ps_update(leaf_shapes, lr: float, bucket_mb: float = 4.0,
         return out
 
     return ps_update
+
+
+def make_bucketed_allreduce(params_example, topology: str = "ring",
+                            bucket_mb: float = 4.0, order: str = "tictac",
+                            back_s_per_byte: float = 2e-12, seed: int = 0,
+                            layout: Optional[LeafLayout] = None):
+    """Workers' leaf lists -> their mean leaf list, for
+    ``make_train_step(..., reduce_fn=...)``: the reference's leaves (over
+    ``layout``, ``LeafLayout.of_tree(params_example)`` by default) fused
+    into ~bucket_mb buckets in backward order, issued in the chosen
+    transfer order, each reduced with the topology-explicit schedule.  A
+    thin wrapper over ``CommPlan.reduce_grads`` (the exact full-precision
+    path); the plan takes the worker count from the lists it is given."""
+    layout = layout or LeafLayout.of_tree(params_example)
+    plan = CommPlan.plan(layout.shapes(params_example), n=1,
+                         topology=topology, bucket_mb=bucket_mb, order=order,
+                         back_s_per_byte=back_s_per_byte, seed=seed)
+
+    def reduce_grads(grads: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+        p = plan if len(grads) == plan.n else dataclasses.replace(
+            plan, n=len(grads))
+        with record_function("allreduce"):
+            return p.reduce_grads(grads)
+
+    reduce_grads.fused_layers = plan.fused
+    reduce_grads.order = plan.order
+    reduce_grads.plan = plan
+    return reduce_grads
+
+
+def _worker_mean(values) -> np.float32:
+    """The fp32 mean over workers (``jax.lax.pmean`` of fp32 metrics)."""
+    vals = [np.float32(float(v)) for v in values]
+    total = vals[0]
+    for v in vals[1:]:
+        total = np.float32(total + v)
+    return np.float32(total / np.float32(len(vals)))
+
+
+def make_sharded_train_step(train_step: Callable, workers: int,
+                            compressed: bool):
+    """Lift a ``make_train_step`` step (built with ``reduce_fn``, e.g.
+    ``make_bucketed_allreduce``'s) over ``workers`` logical workers on one
+    device: the reference's ``shard_map`` over the worker axis, run as
+
+      1. each worker's gradient, cast and compression in turn, on its
+         slice of the stacked batch (``[workers, ...]`` leaves), with its
+         generator (the step's with the worker index folded in) and, when
+         ``compressed``, its row of the stacked ``[workers, ...]`` EF
+         leaves;
+      2. ``reduce_fn`` once over the workers' leaf lists;
+      3. the optimizer once, on the replicated parameters.
+
+    Metrics are the fp32 mean over workers (``pmean``).  The step has the
+    ``train_loop`` contract ``step(state, stacked_batch, gen) -> (state,
+    metrics)`` and, as ``make_train_step``'s, updates the state in place
+    (each worker renews its row of the EF)."""
+    worker, update = train_step._worker, train_step._update
+    if train_step._reduce_fn is None:
+        raise ValueError("make_sharded_train_step needs a step built with "
+                         "reduce_fn (e.g. make_bucketed_allreduce)")
+
+    def step(state, batch, gen: Optional[torch.Generator] = None):
+        ef = state["ef"] if compressed else None
+        sent, per_worker = [], []
+        for w in range(workers):
+            loss, mets, leaves, wire = worker(
+                state["params"], tree_map(lambda x: x[w], batch),
+                None if ef is None else [e[w] for e in ef],
+                None if gen is None else fold_in(gen, w))
+            sent.append(leaves)
+            per_worker.append(dict(mets, loss=loss, wire_bytes=wire))
+            del leaves
+        mean = train_step._reduce_fn(sent)
+        del sent
+        state, mets = update(state, mean, per_worker[0],
+                             per_worker[0]["loss"],
+                             per_worker[0]["wire_bytes"])
+        for m in per_worker:
+            m["lr"] = mets["lr"]
+        return state, {k: _worker_mean(m[k] for m in per_worker)
+                       for k in mets}
+
+    return step
 
 
 def async_replay_step(st, batches, t, bound: Optional[int], *, K: int,

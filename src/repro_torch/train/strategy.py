@@ -343,7 +343,7 @@ def fit(engine: Engine, params, batches: Callable[[int, int], Any],
     full per-update history."""
     all_events: List[dict] = []
 
-    def step_fn(st, t):
+    def step_fn(st, t, gen=None):
         st, events = engine.step(st, batches, t)
         all_events.extend(events)
         mets = dict(

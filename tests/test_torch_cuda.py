@@ -545,3 +545,109 @@ def test_ssp_ps_onebit_step_kernel_equals_plain(cuda):
     assert len(kern) == 5
     assert max(abs(a["loss"] - b["loss"]) for a, b in zip(kern, plain)) \
         <= 1e-4
+
+
+# ------------------------------------------------------- the Adam trainer
+def test_launcher_adam_onebit_kernel_equals_plain(cuda):
+    """The launcher's Adam + onebit run on reduced TinyLlama, 3 steps:
+    the kernel path (flash attention, onebit_encode_ef) against the plain
+    path (attn_backend and the compressor's backend "ref"): losses within
+    1e-4, wire_bytes and lr equal."""
+    from repro_torch.kernels import onebit as K1
+    from repro_torch.launch import train as launcher
+    args = launcher.parse_args(["--smoke", "--steps", "3", "--compress",
+                                "onebit", "--device", "cuda"])
+    hists = []
+    for backend in ("auto", "ref"):
+        K1.reset_launches()
+        FA.reset_launches()
+        _, hist = launcher.train(launcher.build(
+            args, attn_backend=backend, kernel_backend=backend))
+        on = backend == "auto"
+        assert FA.LAUNCHES["flash_attention"] == (3 * 2 if on else 0)
+        assert K1.LAUNCHES["onebit_encode_ef"] == (3 * 12 if on else 0)
+        hists.append(hist)
+    kern, plain = hists
+    assert max(abs(a["loss"] - b["loss"]) for a, b in zip(kern, plain)) \
+        <= 1e-4
+    for key in ("wire_bytes", "lr"):
+        assert [h[key] for h in kern] == [h[key] for h in plain]
+
+
+def test_bf16_gradients_as_close_to_fp32_as_plain(cuda):
+    """One batch's bf16-compute gradients on reduced TinyLlama, per JAX
+    leaf: ||g_kernel,bf16 - g_fp32|| <= 1.25 ||g_plain,bf16 - g_fp32||
+    (chip_smoke.py phase 11's rule)."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.train import value_and_grad
+    cfg = get_config("tinyllama-1.1b").reduced()
+    models = {b: build_model(dataclasses.replace(cfg, attn_backend=b))
+              for b in ("auto", "ref")}
+    params = models["auto"].init(seed=0, device=cuda)
+    layout = models["auto"].leaf_layout(params)
+    batch = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=64, batch_size=8),
+                            device=cuda)(0, 0)
+
+    def grads(backend, dtype):
+        m = models[backend]
+        _, g = value_and_grad(lambda p, b: m.loss_fn(
+            p, b, compute_dtype=dtype))(params, batch)
+        return list(layout.leaves(g))
+
+    g32 = grads("ref", torch.float32)
+    FA.reset_launches()
+    kern = grads("auto", torch.bfloat16)
+    assert FA.LAUNCHES["flash_attention"] == cfg.num_layers
+    plain = grads("ref", torch.bfloat16)
+    for name, k, p, r in zip(layout.names, kern, plain, g32):
+        dk = torch.linalg.vector_norm(k - r).item()
+        dp = torch.linalg.vector_norm(p - r).item()
+        assert dk <= 1.25 * dp, (name, dk, dp)
+
+
+def test_sharded_step_on_card_equals_cpu(cuda):
+    """make_sharded_train_step over make_bucketed_allreduce at
+    bsp/allreduce/onebit@2 (AdamW, reduced TinyLlama, 3 steps of batch 2 x
+    seq 32 per worker) on the card (the kernels) against the same run on
+    the CPU: losses within 1e-4, wire_bytes equal."""
+    from repro_torch.core.compression import Compressor
+    from repro_torch.core.precision import FP32
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedule import cosine_warmup
+    from repro_torch.train import (TrainState, make_bucketed_allreduce,
+                                   make_sharded_train_step, make_train_step,
+                                   train_loop)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    init = model.init(seed=0)                      # one init for both
+    hists = []
+    for device in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(device), init)
+        layout = model.leaf_layout(params)
+        comp, opt = Compressor("onebit"), AdamW(0.01)
+        step = make_train_step(
+            model.loss_fn, opt, cosine_warmup(3e-3, 1, 3), precision=FP32,
+            compressor=comp, layout=layout,
+            reduce_fn=make_bucketed_allreduce(params, bucket_mb=0.25,
+                                              layout=layout))
+        state = TrainState.create(params, opt, comp, layout)
+        state["ef"] = [torch.zeros((2,) + e.shape, device=device)
+                       for e in state["ef"]]
+        batches = make_lm_batches(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=32, batch_size=2),
+            device=device)
+        FA.reset_launches()
+        _, hist = train_loop(
+            make_sharded_train_step(step, 2, compressed=True), state,
+            lambda t: tree_map(lambda *xs: torch.stack(xs),
+                               *[batches(t, w) for w in range(2)]), 3,
+            log_every=1)
+        assert FA.LAUNCHES["flash_attention"] == (
+            cfg.num_layers * 2 * 3 if device.type == "cuda" else 0)
+        hists.append(hist)
+    card, cpu = hists
+    assert max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu)) <= 1e-4
+    assert [h["wire_bytes"] for h in card] == [h["wire_bytes"] for h in cpu]
