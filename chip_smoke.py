@@ -139,6 +139,39 @@ Counts are zeroed just before and read just after phase 11's two
 kernel-path main() runs and phase 12's kernel-path run; they make the
 kernels' "trainer" launches.
 
+ 13. quickstart examples/quickstart.py's save, register, reload and decode
+             at full width: phase 11's trained fp32 parameters (the warm
+             step's run, 3 launcher steps) saved with save_checkpoint
+             (512 MiB shards, per-leaf hashes) into a temporary directory,
+             registered with ModelRegistry, restored onto the card with
+             load_checkpoint (bitwise equal, leaf by leaf), saved again
+             with incremental_from= (every shard linked) and restored
+             bitwise; then generate (fp32, the kernels) 16 greedy tokens
+             from a seeded 4 x 32 prompt with the restored parameters and
+             with the ones in memory: equal.  Save and load seconds are
+             host-disk numbers.  The directory is removed.
+ 14. traced   repro_torch.launch.serve's engine (serve(), as the launcher
+      serve   runs it) in bf16 at full width on benchmarks/serve_bench.py's
+             traffic (slots 4, max_len 24, prompt 5, Poisson rate 0.6 over
+             30 iterations, seed 0, budgets from {3, 6, 10, 14}), both
+             policies, contiguous and paged (page 4), each untraced and
+             twice with --trace, --slo ttft_p99<8 (the first also
+             --report): the virtual-clock columns equal BENCH_pr7.json's,
+             the trace is strictly valid and its wall-stripped bytes equal
+             between the two traced runs, and the greedy tokens equal the
+             untraced run's.  Wall per run and per engine iteration.
+ 15. traced   the launcher (phase 11's fp32 flags) with --trace and
+      train   --report for 3 steps, and phase 7's bsp/allreduce/onebit@4 for
+             2 steps under tracing: losses equal the untraced runs' (phases
+             11 and 7) bit for bit; the @4 trace holds one exchange span
+             per step with the plan's bucket count, and its hop bytes sum
+             to measured_step_tx_bytes per step.  Step walls with and
+             without tracing.
+
+Counts are zeroed just before and read just after each of phases 13-15's
+runs; they make the kernels' "quickstart", "traced_serve" and
+"traced_train" launches.
+
 Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
@@ -159,7 +192,8 @@ terngrad_compress and qsgd_compress count 13 B per element: their
 reduction (std, l2 norm) must read g before their output can be
 written, and g (1.0 GB) cannot stay in the 50 MB L2 in between.
 
-The last lines are the kernels JSON, the nvidia-smi line and the result.
+The last lines are the script's wall, the kernels JSON, the nvidia-smi
+line and the result.
 """
 from __future__ import annotations
 
@@ -168,9 +202,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -223,6 +259,21 @@ MATRIX_RUNS = (("ssp:3/ps/onebit@4", {}, 2),
                ("asp/allreduce/none@4", {}, 2),
                ("sma/allreduce/none@4", {}, 2),
                ("bsp/ps/onebit@4", {"wire": "measured"}, 2))
+# phase 13: the quickstart's decode (a seeded prompt, greedy tokens)
+QUICK_PROMPT, QUICK_NEW = (4, 32), 16
+# phase 14: benchmarks/serve_bench.py's traffic and engine knobs, and the
+# virtual-clock columns of its tinyllama-1.1b rows in BENCH_pr7.json (the
+# same for both cache layouts; they do not depend on the model)
+BENCH_SLOTS, BENCH_MAX_LEN, BENCH_PROMPT = 4, 24, 5
+BENCH_RATE, BENCH_HORIZON, BENCH_SEED = 0.6, 30.0, 0
+BENCH_BUDGETS = (3, 6, 10, 14)
+BENCH_PR7 = {"continuous": dict(p99_first_token=16.1775, generated_tokens=161,
+                                clock=59.0, decode_iterations=43,
+                                prefill_groups=16),
+             "oneshot": dict(p99_first_token=37.1775, generated_tokens=161,
+                             clock=80.0, decode_iterations=74,
+                             prefill_groups=6)}
+SERVE_SLO = "ttft_p99<8"
 MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
                  ("bsp/ring/terngrad@4", "measured", 2),
                  ("bsp/ring/qsgd@4", "measured", 2),
@@ -302,6 +353,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
     import torch.nn.functional as F
@@ -324,7 +376,16 @@ def main() -> int:
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.serve.request import Request
     from repro_torch.core.precision import FP32
+    from repro_torch.core.tree import get_path, leaf_paths
+    from repro_torch.checkpoint import (ModelRegistry, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as launcher
+    from repro_torch.obs.trace import (canonical_bytes, find_spans,
+                                       load_trace, strip_wall, tracing,
+                                       validate_trace)
+    from repro_torch.serve import generate
+    from repro_torch.serve.autoscale import poisson_trace
     from repro_torch.optim import AdamW
     from repro_torch.optim.schedule import cosine_warmup
     from repro_torch.train import (Strategy, Trainer, TrainState,
@@ -841,6 +902,7 @@ def main() -> int:
     FA.reset_launches()
     K1.reset_launches()
     losses, step_ms, peak, wire, layout, _ = train(kernels=True)
+    phase7_losses, phase7_ms = list(losses), list(step_ms)
     train_launches = {"flash_attention": FA.LAUNCHES["flash_attention"],
                       "onebit_encode_ef": K1.LAUNCHES["onebit_encode_ef"]}
     tokens = K * TRAIN_B * TRAIN_S
@@ -1166,6 +1228,7 @@ def main() -> int:
         del leaves
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+    trained = state.pop("params")      # phase 13's checkpoint, fp32
     del run, state
     torch.cuda.empty_cache()
     warm_ms, update_ms = 1e3 * (t2 - t0), 1e3 * (t2 - t1)
@@ -1250,7 +1313,210 @@ def main() -> int:
     assert len(plain) == TRAIN_STEPS and max(diffs) <= 1e-3
     assert [h["wire_bytes"] for h in hist] == \
         [h["wire_bytes"] for h in plain]
-    del model, ref_model
+    del ref_model
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 13 quickstart
+    phase("quickstart at full width: save, register, load, generate")
+
+    def leaf_list(tree):
+        return [get_path(tree, p) for p in leaf_paths(tree)]
+
+    def leaves_equal(a, b):
+        return leaf_paths(a) == leaf_paths(b) and all(
+            x.device.type == "cuda" and x.dtype == y.dtype
+            and torch.equal(x, y) for x, y in zip(leaf_list(a),
+                                                   leaf_list(b)))
+
+    n_bytes = sum(t.numel() * t.element_size() for t in leaf_list(trained))
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        ck, ck_incr = os.path.join(root, "ckpt"), os.path.join(root, "incr")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        man = save_checkpoint(ck, trained, step=3, hash_leaves=True)
+        save_s = time.perf_counter() - t0
+        reg = ModelRegistry(os.path.join(root, "registry"))
+        mid = reg.register("chip_smoke", ck, arch=cfg.name,
+                           metrics={"loss": hist32[-1]["loss"]})
+        t0 = time.perf_counter()
+        restored, step_no = load_checkpoint(reg.get(mid)["checkpoint"],
+                                            trained)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        direct_equal = leaves_equal(restored, trained)
+        del restored
+        t0 = time.perf_counter()
+        man2 = save_checkpoint(ck_incr, trained, step=3, incremental_from=ck)
+        incr_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = load_checkpoint(ck_incr, trained)
+        torch.cuda.synchronize()
+        incr_load_s = time.perf_counter() - t0
+        incr_equal = leaves_equal(restored, trained)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gib = n_bytes / 2**30
+    print(f"{len(man['leaves'])} leaves, {gib:.2f} GiB fp32 in "
+          f"{man['shards']} shards; registered {mid}; host disk: save (with "
+          f"sha256 per leaf) {save_s:.2f} s = {gib / save_s:.2f} GiB/s, "
+          f"load onto the card {load_s:.2f} s = {gib / load_s:.2f} GiB/s, "
+          f"incremental save {incr_s:.2f} s ({man2['linked_shards']} of "
+          f"{man2['shards']} shards linked), its load {incr_load_s:.2f} s; "
+          f"bitwise equal: direct {direct_equal}, incremental {incr_equal}; "
+          f"card {smi}")
+    assert step_no == 3 and direct_equal and incr_equal
+    assert man2["linked_shards"] == man2["shards"] == man["shards"] > 1
+    prompt = np.random.RandomState(13).randint(1, cfg.vocab_size,
+                                               size=QUICK_PROMPT)
+    reset_all()
+    t0 = time.perf_counter()
+    out_restored = generate(model, restored, prompt, QUICK_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del restored
+    out_memory = generate(model, trained, prompt, QUICK_NEW)
+    quick_launches = read_all()
+    del trained
+    torch.cuda.empty_cache()
+    print(f"generate {QUICK_NEW} tokens from a {QUICK_PROMPT[0]} x "
+          f"{QUICK_PROMPT[1]} prompt in {gen_s:.2f} s: restored "
+          f"{out_restored[:, QUICK_PROMPT[1]:].tolist()}; equal to the "
+          f"in-memory parameters' {torch.equal(out_restored, out_memory)}; "
+          f"launches {quick_launches}")
+    assert out_restored.shape == (QUICK_PROMPT[0],
+                                  QUICK_PROMPT[1] + QUICK_NEW)
+    assert torch.equal(out_restored, out_memory)
+    assert quick_launches["flash_attention"] == 2 * cfg.num_layers
+    assert quick_launches["flash_decode"] == \
+        2 * (QUICK_NEW - 1) * cfg.num_layers
+
+    # ------------------------------------------------------ 14 traced serve
+    phase(f"traced serve: repro_torch.launch.serve, bf16, full width, "
+          f"serve_bench traffic, --slo {SERVE_SLO}")
+    params16 = model.init(seed=0, dtype=bf, device=dev)
+    arrivals = [0.0] + poisson_trace(BENCH_RATE, BENCH_HORIZON,
+                                     seed=BENCH_SEED)
+    # serve_bench.py draws its prompts over the reduced config's vocab, and
+    # the budgets drawn after them depend on that draw
+    rng = np.random.RandomState(BENCH_SEED)
+    bench_prompts = rng.randint(1, cfg.reduced().vocab_size,
+                                size=(len(arrivals), BENCH_PROMPT))
+    budgets = rng.choice(BENCH_BUDGETS, size=len(arrivals))
+
+    def bench_requests():
+        return [Request(rid=i, prompt=[int(t) for t in bench_prompts[i]],
+                        max_new_tokens=int(budgets[i]), arrival=arrivals[i])
+                for i in range(len(arrivals))]
+
+    trace_path = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-trace-"),
+                              "serve.json")
+
+    def serve_run(argv):
+        """(metrics, token outputs, wall-stripped trace or None)."""
+        reqs = bench_requests()
+        m_, _, rec = serve_launcher.serve(serve_launcher.parse_args(argv),
+                                          model, params16, reqs, dev)
+        tr = None if rec is None else load_trace(trace_path)
+        return m_, [r.output for r in reqs], tr
+
+    base_argv = ["--slots", str(BENCH_SLOTS), "--max-len",
+                 str(BENCH_MAX_LEN), "--dtype", "bf16", "--device", "cuda",
+                 "--slo", SERVE_SLO]
+    serve_run(base_argv + ["--pages", "0"])              # warm-up
+    serve_launches = dict.fromkeys(read_all(), 0)
+    serve_walls = []
+    for policy in ("continuous", "oneshot"):
+        for pages in (0, 4):
+            argv = base_argv + ["--policy", policy, "--pages", str(pages)]
+            traced_argv = argv + ["--trace", trace_path]
+            reset_all()
+            m0, outs0, _ = serve_run(argv)
+            m1, outs1, tr1 = serve_run(traced_argv + ["--report"])
+            m2, outs2, tr2 = serve_run(traced_argv)
+            for name, count in read_all().items():
+                serve_launches[name] += count
+            stats = validate_trace(tr1, strict=True)
+            identical = (canonical_bytes(strip_wall(tr1))
+                         == canonical_bytes(strip_wall(tr2)))
+            iters = m0["decode_iterations"] + m0["prefill_groups"]
+            walls = [m_["wall_s"] for m_ in (m0, m1, m2)]
+            serve_walls.append((walls, iters))
+            cols = {k: (round(m1[k], 4) if isinstance(m1[k], float)
+                        else m1[k]) for k in BENCH_PR7[policy]}
+            print(f"{policy}, pages {pages}: {cols} (BENCH_pr7.json "
+                  f"{BENCH_PR7[policy]}); slo_alerts {m1['slo_alerts']}; "
+                  f"trace {stats['events']} events, {stats['spans']} spans,"
+                  f" strictly valid, identical across two traced runs "
+                  f"{identical}; tokens equal untraced "
+                  f"{outs1 == outs0 and outs2 == outs0}; wall untraced "
+                  f"{walls[0]:.3f} s, traced {walls[1]:.3f} and "
+                  f"{walls[2]:.3f} s = {1e3 * walls[0] / iters:.2f}, "
+                  f"{1e3 * walls[1] / iters:.2f} and "
+                  f"{1e3 * walls[2] / iters:.2f} ms per engine iteration "
+                  f"({iters})")
+            assert cols == BENCH_PR7[policy], (policy, pages)
+            assert identical and outs1 == outs0 and outs2 == outs0
+            assert m1["slo_alerts"] == m2["slo_alerts"] == m0["slo_alerts"]
+            assert len(find_spans(tr1, "queued")) == m1["completed"]
+    shutil.rmtree(os.path.dirname(trace_path), ignore_errors=True)
+    del params16
+    torch.cuda.empty_cache()
+    untraced_ms = sum(w[0] for w, _ in serve_walls) / sum(
+        n for _, n in serve_walls)
+    traced_ms = sum(w[1] + w[2] for w, _ in serve_walls) / (2 * sum(
+        n for _, n in serve_walls))
+    print(f"per engine iteration over the 4 cells: untraced "
+          f"{1e3 * untraced_ms:.3f} ms, traced {1e3 * traced_ms:.3f} ms "
+          f"({100 * (traced_ms / untraced_ms - 1):+.1f}%); launches "
+          f"{serve_launches}; card {smi}")
+    assert serve_launches["flash_attention"] > 0
+    assert serve_launches["flash_decode"] > 0
+
+    # ------------------------------------------------------ 15 traced train
+    phase("traced training: the launcher with --trace --report, and "
+          f"{TRAIN_SPEC} under tracing")
+    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+    train_trace = os.path.join(trace_dir, "train.json")
+    reset_all()
+    hist_t = launcher.main(fp32_argv + ["--trace", train_trace, "--report"])
+    traced_launches = read_all()
+    tr = load_trace(train_trace)
+    validate_trace(tr, strict=True)
+    walls_u = [b["wall_s"] - a["wall_s"] for a, b in zip(hist32, hist32[1:])]
+    walls_t = [b["wall_s"] - a["wall_s"] for a, b in zip(hist_t, hist_t[1:])]
+    print(f"launcher traced losses {[h['loss'] for h in hist_t]}, untraced "
+          f"(phase 11) {[h['loss'] for h in hist32]}; step walls after the "
+          f"first: untraced {[f'{1e3 * w:.1f}' for w in walls_u]} ms, "
+          f"traced {[f'{1e3 * w:.1f}' for w in walls_t]} ms; "
+          f"{len(find_spans(tr, 'step'))} step spans")
+    assert [h["loss"] for h in hist_t] == [h["loss"] for h in hist32]
+    assert len(find_spans(tr, "step")) == 3
+    reset_all()
+    with tracing(train_trace):
+        losses_t, ms_t, _, _, _, mets_t = train(True, strat, 2)
+    for name, count in read_all().items():
+        traced_launches[name] += count
+    tr = load_trace(train_trace)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    validate_trace(tr, strict=True)
+    ex = find_spans(tr, "exchange")
+    hop_bytes = sum(ev["args"]["tx_bytes"] for ev in tr["traceEvents"]
+                    if ev.get("name") == "hop")
+    print(f"{TRAIN_SPEC} traced losses {losses_t}, untraced (phase 7) "
+          f"{phase7_losses[:2]}; step walls traced "
+          f"{[f'{x:.1f}' for x in ms_t]} ms, untraced "
+          f"{[f'{x:.1f}' for x in phase7_ms[:2]]} ms; {len(ex)} exchange "
+          f"spans of {[e['args']['n_buckets'] for e in ex]} buckets "
+          f"(DeviceEngine {engine_buckets}); hop bytes {hop_bytes} = 2 x "
+          f"measured_step_tx_bytes {mets_t['measured_step_tx_bytes']}; "
+          f"launches {traced_launches}; card {smi}")
+    assert losses_t == phase7_losses[:2]
+    assert len(ex) == 2 and all(e["args"]["n_buckets"] == engine_buckets
+                                for e in ex)
+    assert len(find_spans(tr, "compute")) == 2
+    assert hop_bytes == 2 * mets_t["measured_step_tx_bytes"]
+    del model
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- results
@@ -1276,7 +1542,10 @@ def main() -> int:
                       "measured": measured_launches[name],
                       "compress": compress_launches.get(name, 0),
                       "matrix": matrix_launches[name],
-                      "trainer": trainer_launches[name]}
+                      "trainer": trainer_launches[name],
+                      "quickstart": quick_launches[name],
+                      "traced_serve": serve_launches[name],
+                      "traced_train": traced_launches[name]}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
@@ -1291,6 +1560,9 @@ def main() -> int:
     assert all(math.isfinite(x["ms"]) for x in kernels)
     assert by_path["flash_attention"]["trainer"] > 0
     assert by_path["onebit_encode_ef"]["trainer"] > 0
+    assert by_path["onebit_encode_ef"]["traced_train"] > 0
+    print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
+          f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,13 +29,15 @@ A plan is built once per (leaf shapes × worker count) and owns:
 
 ``ps_exchange`` is the centralized (``arch="ps"``) form of ``exchange``:
 an encoded ring reduce-scatter, SGD on each worker's shard and an exact
-all-gather (``core.parameter_server``).  Not ported yet: the bf16 reduce
-words (``reduce_dtype``, ROADMAP queue A item 8) and the trace spans
-``hop_model`` / ``emit_trace`` (item 1, with the port's ``obs/trace.py``).
+all-gather (``core.parameter_server``).  ``hop_model`` and
+``emit_trace`` put the exchange a step ran onto the trace timeline
+(``obs.trace``) as the plan's own model of it.  Not ported yet: the bf16
+reduce words (the JAX package's ``reduce_dtype``), so ``word_bytes`` is 4.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -162,6 +164,19 @@ class CommPlan:
         wire mode with a lossy method)."""
         return self.wire == "measured" and self.compressor.method != "none"
 
+    @property
+    def word_bytes(self) -> int:
+        """Bytes per word of the uncompressed gradient exchange: fp32."""
+        return 4
+
+    def _exact_tx(self, codec, length: int) -> float:
+        """``static_tx_bytes`` with the exchange's word width applied to
+        the exact codec (lossy codec planes are unaffected)."""
+        base = codec.static_tx_bytes(length)
+        if codec.exact and self.word_bytes != 4:
+            return base * self.word_bytes / 4
+        return base
+
     def bucket_len(self, b: int) -> int:
         return sum(_numel(self.leaf_shapes[i]) for i in self.buckets[b])
 
@@ -279,6 +294,85 @@ class CommPlan:
             scatter_flat(full, idxs, self.leaf_shapes, out)
             del new_shard, full
         return out, new_ef, sent
+
+    # -------------------------------------------------------------- trace
+    def hop_model(self, b: int, arch: str = "allreduce"
+                  ) -> List[Tuple[str, float]]:
+        """The per-hop wire model of one exchange of bucket ``b``: (hop
+        kind, mean per-worker tx bytes) pairs mirroring the aggregate
+        ``measured_step_tx_bytes`` accounting, so the hops of all buckets
+        sum to it (shape-static part; dgc adds its sparse payload at the
+        step level)."""
+        codec = self.codec if self.in_schedule else codec_for(
+            Compressor("none"))
+        n = self.n
+        if n == 1:
+            return []
+        L = self.bucket_len(b)
+        P = pad_for_schedule(L, n)
+        m = P // n
+        e = lambda length: self._exact_tx(codec, length)
+        if arch == "ps":
+            # gradient reduce-scatter encoded, parameter all-gather fp32
+            return ([("rs", float(e(m)))] * (n - 1)
+                    + [("ag", float(4 * m))] * (n - 1))
+        topo = self.topology
+        if topo in ("ring", "psum"):
+            return ([("rs", float(e(m)))] * (n - 1)
+                    + [("ag", float(e(m)))] * (n - 1))
+        if topo == "butterfly":
+            if codec.exact:
+                return [("exchange", float(e(P)))] * int(math.log2(n))
+            rs = [("rs", float(e((n >> (k + 1)) * m)))
+                  for k in range(int(math.log2(n)))]
+            return rs + [("ag", float(e(m)))] * (n - 1)
+        if topo == "tree":
+            half = (n - 1) / n * e(P)
+            return [("reduce", float(half)), ("broadcast", float(half))]
+        if topo == "fully_connected":
+            return [("send", float(e(P)))] * (n - 1)
+        raise ValueError(topo)
+
+    def emit_trace(self, rec, *, arch: str = "allreduce",
+                   pid: str = "train", tid: str = "loop",
+                   clock=None) -> None:
+        """Emit the exchange this plan just executed onto the trace
+        timeline: an ``exchange`` span holding one span per fused bucket
+        in issue order, each with its ``hop`` instants.  These are the
+        plan's own deterministic model of what ran (virtual clock only,
+        byte-reproducible), with the modeled no-overlap, TicTac and
+        issue-order bounds the analyzer compares, rounded to keep traces
+        byte-stable."""
+        if not rec.enabled:
+            return
+        comp = self.compressor
+        no_overlap_s = schedule_no_overlap(self.fused, self.link)
+        tictac_s = schedule_overlap(self.fused, self.link,
+                                    tictac_order(self.fused))
+        issue_s = schedule_overlap(self.fused, self.link, self.order)
+        rec.begin("exchange", pid=pid, tid=tid, cat="comm", clock=clock,
+                  topology=self.topology, codec=comp.method,
+                  backend=getattr(comp, "backend", "auto"),
+                  wire_mode=self.wire, arch=arch,
+                  n_buckets=len(self.buckets),
+                  step_tx_bytes=self.measured_step_tx_bytes(arch),
+                  modeled_no_overlap_us=round(no_overlap_s * 1e6, 3),
+                  modeled_tictac_overlap_us=round(tictac_s * 1e6, 3),
+                  modeled_issue_overlap_us=round(issue_s * 1e6, 3))
+        for b in self.order:
+            hops = self.hop_model(b, arch)
+            rec.begin(f"bucket{b}", pid=pid, tid=tid, cat="comm",
+                      elems=self.bucket_len(b),
+                      padded=pad_for_schedule(self.bucket_len(b), self.n),
+                      leaves=len(self.buckets[b]),
+                      tx_bytes=int(sum(x for _, x in hops)))
+            for h, (kind, nbytes) in enumerate(hops):
+                # mean per-worker bytes can be fractional (tree halves);
+                # keep the fraction so hop sums match the accounting
+                rec.instant("hop", pid=pid, tid=tid, cat="comm",
+                            hop=h, kind=kind, tx_bytes=round(nbytes, 3))
+            rec.end(pid=pid, tid=tid)
+        rec.end(pid=pid, tid=tid)
 
     # --------------------------------------------------------- accounting
     def modeled_timeline(self) -> Dict[str, float]:

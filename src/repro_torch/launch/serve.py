@@ -8,16 +8,28 @@ device, driven by an open-loop arrival trace.
   # reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --dtype f32 --requests 8 --rate 0.5 --pages 4
+
+  # traced, with the trace analysis and an SLO (obs/)
+  PYTHONPATH=src python -m repro_torch.launch.serve --trace t.json \
+      --report --slo 'ttft_p99<8'
+
+``serve`` runs given requests through the engine the flags configure
+(with tracing, the report and SLO monitoring); ``main`` draws the
+flags' open-loop traffic, serves it and prints the metrics.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
+from repro_torch.obs.slo import SLOMonitor
+from repro_torch.obs.trace import TraceRecorder, tracing
 from repro_torch.serve.autoscale import poisson_trace
 from repro_torch.serve.batcher import POLICIES
 from repro_torch.serve.engine import ServeConfig, ServeEngine, resolve_device
@@ -26,7 +38,7 @@ from repro_torch.serve.request import Request, SamplingParams
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
@@ -55,8 +67,54 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                     help="weights, activations and KV cache")
-    args = ap.parse_args(argv)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Chrome trace (request lifecycles + KV "
+                         "occupancy); see docs/observability.md")
+    ap.add_argument("--report", action="store_true",
+                    help="print the trace analysis (latency summary, SLO "
+                         "burn) after the run; implies tracing even "
+                         "without --trace")
+    ap.add_argument("--slo", action="append", default=[], metavar="SPEC",
+                    help="attach an SLO objective, e.g. ttft_p99<8 "
+                         "(repeatable); burning SLOs emit slo_burn "
+                         "instants (docs/serving.md)")
+    return ap.parse_args(argv)
 
+
+def serve(args: argparse.Namespace, model, params, reqs, device
+          ) -> Tuple[dict, ServeEngine, Optional[TraceRecorder]]:
+    """Run ``reqs`` through the engine the flags configure: the
+    ``--trace`` / ``--report`` recorder around ``run``, an ``SLOMonitor``
+    for the ``--slo`` objectives.  Prints what the JAX package's launcher
+    prints for those flags; returns (metrics, engine, recorder or
+    None)."""
+    dtype = DTYPES[args.dtype]
+    max_len = args.max_len or (args.prompt_len + args.max_new)
+    slo = SLOMonitor(args.slo) if args.slo else None
+    eng = ServeEngine(model, params, ServeConfig(
+        slots=args.slots, max_len=max_len, page_size=args.pages,
+        num_pages=args.num_pages or None, policy=args.policy,
+        window_override=args.window, cache_dtype=dtype, compute_dtype=dtype),
+        device=device, slo=slo)
+    rec = None
+    with contextlib.ExitStack() as stack:
+        if args.trace or args.report:
+            rec = stack.enter_context(tracing(args.trace))
+        metrics = eng.run(reqs)
+    if args.trace:
+        print(f"trace written to {args.trace}")
+    if args.report and rec is not None:
+        from repro_torch.obs.report import render
+        print(render(rec.to_chrome(), slos=args.slo))
+    if slo is not None:
+        print(f"slo alerts: {len(eng.slo_alerts)}"
+              + (f" (first at t={eng.slo_alerts[0]['t']})"
+                 if eng.slo_alerts else ""))
+    return metrics, eng, rec
+
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     cfg = get_config(args.arch)
@@ -65,7 +123,6 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(seed=args.seed, dtype=dtype, device=device)
 
-    max_len = args.max_len or (args.prompt_len + args.max_new)
     horizon = max(1.0, args.requests / args.rate) if args.rate > 0 else 1.0
     arrivals = ([0.0] + poisson_trace(args.rate, horizon, seed=args.seed,
                                       max_requests=args.requests - 1)
@@ -79,13 +136,7 @@ def main(argv=None):
                                             top_k=args.top_k,
                                             seed=args.seed + i))
             for i in range(len(arrivals))]
-
-    eng = ServeEngine(model, params, ServeConfig(
-        slots=args.slots, max_len=max_len, page_size=args.pages,
-        num_pages=args.num_pages or None, policy=args.policy,
-        window_override=args.window, cache_dtype=dtype, compute_dtype=dtype),
-        device=device)
-    metrics = eng.run(reqs)
+    metrics, _, _ = serve(args, model, params, reqs, device)
 
     print(f"{cfg.name}: {cfg.param_count() / 1e9:.2f} B params, {args.dtype} "
           f"on {device}")

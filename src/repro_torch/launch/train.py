@@ -10,6 +10,10 @@ worker, on the synthetic LM stream.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
       --device cpu
 
+  # traced, with the step-time attribution report (obs/)
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 3 \\
+      --trace t.json --report
+
 ``build`` makes the run from parsed flags (and, optionally, given
 parameters and the plain path's backends), ``train`` drives it and
 ``main`` prints one JSON line per logged step.
@@ -17,6 +21,7 @@ parameters and the plain path's backends), ``train`` drives it and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -28,6 +33,7 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.data import LMDataConfig, make_lm_batches
 from repro_torch.models import build_model
+from repro_torch.obs.trace import tracing
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import cosine_warmup
 from repro_torch.serve.engine import resolve_device
@@ -48,6 +54,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--compress", default="none", choices=list(METHODS))
     ap.add_argument("--compute-dtype", default="float32")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Chrome trace (Perfetto-loadable) of the "
+                         "run; see docs/observability.md")
+    ap.add_argument("--report", action="store_true",
+                    help="print the trace analysis (step-time "
+                         "attribution etc.) after the run; implies "
+                         "tracing even without --trace")
     return ap.parse_args(argv)
 
 
@@ -108,7 +121,17 @@ def json_lines(hist: List[dict]) -> List[str]:
 def main(argv=None) -> List[dict]:
     args = parse_args(argv)
     t0 = time.time()
-    _, hist = train(build(args))
+    run = build(args)
+    rec = None
+    with contextlib.ExitStack() as stack:
+        if args.trace or args.report:
+            rec = stack.enter_context(tracing(args.trace))
+        _, hist = train(run)
+    if args.trace:
+        print(f"trace written to {args.trace}")
+    if args.report and rec is not None:
+        from repro_torch.obs.report import render
+        print(render(rec.to_chrome()))
     for line in json_lines(hist):
         print(line)
     print(f"done in {time.time() - t0:.1f}s; "

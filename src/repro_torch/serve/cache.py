@@ -26,6 +26,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.tree import get_path, leaf_paths
+
+
+def cache_bytes(caches) -> int:
+    """Bytes of every tensor of a cache tree (``numel x element_size``)."""
+    leaves = (get_path(caches, p) for p in leaf_paths(caches))
+    return sum(t.numel() * t.element_size() for t in leaves)
+
 
 # ------------------------------------------------------------- allocator
 class BlockAllocator:

@@ -19,6 +19,13 @@ The engine clock is **virtual iteration time** — each prefill group and
 each decode iteration costs 1.0 — so latencies are deterministic and
 machine-independent; ``run`` also reports wall seconds.
 
+With a recorder installed (``obs.trace.tracing``) the engine records each
+request's lifecycle (``queued`` -> ``prefill`` -> ``decode`` spans and a
+``done`` instant on ``tid=req<rid>``), ``admission_stall`` instants and
+the ``kv_pages`` / ``slots`` occupancy counters, all on the
+``serve_iter`` clock.  The hooks read host-side Python state only, so
+tracing off costs one attribute read per hook and no device sync.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for ``cuda`` on a host without CUDA raises.
 """
@@ -31,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import get_recorder
 from repro_torch.serve.batcher import Batcher
 from repro_torch.serve.cache import make_kv_store
 from repro_torch.serve.request import Request, RequestState, summarize
@@ -63,12 +71,21 @@ class ServeConfig:
 
 
 class ServeEngine:
-    def __init__(self, model, params, scfg: ServeConfig, device="cuda"):
+    """``slo`` optionally attaches an ``obs.slo.SLOMonitor``: the engine
+    feeds it TTFT/TPOT on every completion and a stall sample every
+    iteration, emits an ``slo_burn`` instant on each transition into
+    firing, and records the alert times in ``slo_alerts``."""
+
+    def __init__(self, model, params, scfg: ServeConfig, device="cuda",
+                 slo=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
         self.model, self.params, self.scfg = model, params, scfg
+        self.slo = slo
+        self.slo_alerts: List[dict] = []
+        self._slo_firing = False
         self.cfg = model.cfg
         self.vocab = self.cfg.vocab_size
         self.kv = make_kv_store(
@@ -81,6 +98,9 @@ class ServeEngine:
         self.clock = 0.0
         self.decode_iterations = 0
         self.prefill_groups = 0
+        # rids whose lifecycle spans this engine opened: a request is only
+        # ended on the trace if tracing saw it submitted
+        self._traced_rids: set = set()
 
         B = scfg.slots
         self._last_tok = np.zeros(B, np.int64)
@@ -95,11 +115,31 @@ class ServeEngine:
     def submit(self, request: Request) -> None:
         self.requests.append(request)
         self.batcher.submit(request)
+        rec = get_recorder()
+        if rec.enabled:
+            # lifecycle track per request: QUEUED -> PREFILL -> DECODE
+            # spans back to back on tid=req<rid>
+            self._traced_rids.add(request.rid)
+            rec.begin("queued", pid="serve", tid=f"req{request.rid}",
+                      cat="serve", clock=("serve_iter", self.clock),
+                      rid=request.rid, prompt_len=request.prompt_len,
+                      max_new_tokens=request.max_new_tokens,
+                      arrival=request.arrival)
 
     def _finish(self, r: Request) -> None:
         r.state = RequestState.DONE
         r.finish_time = self.clock
         self.batcher.release(r)
+        if self.slo is not None:
+            self.slo.observe("ttft", self.clock, r.first_token_latency())
+            self.slo.observe("tpot", self.clock, r.per_token_latency())
+        rec = get_recorder()
+        if rec.enabled and r.rid in self._traced_rids:
+            rec.end(pid="serve", tid=f"req{r.rid}",      # closes "decode"
+                    generated=len(r.output))
+            rec.instant("done", pid="serve", tid=f"req{r.rid}", cat="serve",
+                        clock=("serve_iter", self.clock), rid=r.rid)
+            self._traced_rids.discard(r.rid)
 
     def _set_slot(self, r: Request, token: int) -> None:
         i = r.slot
@@ -114,8 +154,17 @@ class ServeEngine:
         groups: Dict[int, List[Request]] = {}
         for r in admitted:
             groups.setdefault(r.prompt_len, []).append(r)
+        rec = get_recorder()
         for plen in sorted(groups):
             rs = groups[plen]
+            if rec.enabled:
+                for r in rs:
+                    if r.rid in self._traced_rids:
+                        rec.end(pid="serve", tid=f"req{r.rid}")  # "queued"
+                        rec.begin("prefill", pid="serve",
+                                  tid=f"req{r.rid}", cat="serve",
+                                  clock=("serve_iter", self.clock),
+                                  rid=r.rid, slot=r.slot, group_len=plen)
             toks = self._to_device(np.array([list(r.prompt) for r in rs],
                                             np.int64))
             logits, states = self.model.prefill(
@@ -142,6 +191,12 @@ class ServeEngine:
                 r.first_token_time = self.clock
                 r.state = RequestState.DECODE
                 self._set_slot(r, tok)
+                if rec.enabled and r.rid in self._traced_rids:
+                    rec.end(pid="serve", tid=f"req{r.rid}")  # "prefill"
+                    rec.begin("decode", pid="serve", tid=f"req{r.rid}",
+                              cat="serve",
+                              clock=("serve_iter", self.clock),
+                              rid=r.rid, slot=r.slot)
                 if len(r.output) >= r.max_new_tokens:
                     self._finish(r)
 
@@ -178,12 +233,36 @@ class ServeEngine:
             if len(r.output) >= r.max_new_tokens:
                 self._finish(r)
 
+    def _emit_occupancy(self, rec) -> None:
+        """Counter tracks: paged-KV pool occupancy (or contiguous slot
+        occupancy) sampled once per engine iteration."""
+        alloc = getattr(self.kv, "allocator", None)
+        clock = ("serve_iter", self.clock)
+        if alloc is not None:
+            rec.counter("kv_pages",
+                        {"used": alloc.capacity - alloc.free_pages,
+                         "free": alloc.free_pages},
+                        pid="serve", cat="serve", clock=clock)
+        busy = sum(r is not None for r in self.batcher.running)
+        rec.counter("slots", {"used": busy, "free": self.scfg.slots - busy},
+                    pid="serve", cat="serve", clock=clock)
+
     def step_iteration(self) -> bool:
         """One engine iteration: admit+prefill, then one decode step.
         Returns False when nothing could make progress at this clock
         (the caller should jump the clock to the next arrival)."""
         progressed = False
+        rec = get_recorder()
+        stalls0 = self.batcher.stalls
         admitted = self.batcher.admit(self.clock)
+        if rec.enabled and self.batcher.stalls > stalls0:
+            # the FIFO head could not reserve pages/a slot this iteration
+            rec.instant("admission_stall", pid="serve", tid="engine",
+                        cat="serve", clock=("serve_iter", self.clock),
+                        stalls=self.batcher.stalls,
+                        free_pages=(self.kv.allocator.free_pages
+                                    if getattr(self.kv, "allocator", None)
+                                    is not None else -1))
         if admitted:
             self._prefill(admitted)
             progressed = True
@@ -191,7 +270,33 @@ class ServeEngine:
                for r in self.batcher.running):
             self._decode_iteration()
             progressed = True
+        if rec.enabled:
+            self._emit_occupancy(rec)
+        if self.slo is not None:
+            self.slo.observe("stall", self.clock,
+                             1.0 if self.batcher.stalls > stalls0 else 0.0)
+            self._slo_tick(rec)
         return progressed
+
+    def _slo_tick(self, rec) -> None:
+        """Evaluate the attached monitor at the current clock; on a
+        transition into firing, record the alert and emit an
+        ``slo_burn`` instant on the serve timeline."""
+        firing = self.slo.firing(self.clock)
+        if firing and not self._slo_firing:
+            self.slo_alerts.append(dict(
+                t=self.clock,
+                objectives=[f["objective"] for f in firing]))
+            if rec.enabled:
+                rec.instant(
+                    "slo_burn", pid="serve", tid="slo", cat="serve",
+                    clock=("serve_iter", self.clock),
+                    objectives=",".join(f["objective"] for f in firing),
+                    burn_long=round(max(f["burn_long"] for f in firing),
+                                    4),
+                    burn_short=round(max(f["burn_short"] for f in firing),
+                                     4))
+        self._slo_firing = bool(firing)
 
     def run(self, requests: Optional[Sequence[Request]] = None) -> dict:
         """Drive every submitted request to DONE; returns the metrics row
@@ -223,4 +328,6 @@ class ServeEngine:
             admission_stalls=self.batcher.stalls,
             wall_s=wall,
         )
+        if self.slo is not None:
+            m["slo_alerts"] = len(self.slo_alerts)
         return m

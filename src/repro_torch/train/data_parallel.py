@@ -71,6 +71,7 @@ from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
                                    event_generator, firing_schedule, unported)
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.elastic.backup import participation_weights
+from repro_torch.obs.trace import get_recorder
 from repro_torch.train.train_loop import fold_in
 
 DEVICE_SYNCS = ("bsp", "ssp", "asp", "sma")   # device-executable sync models
@@ -357,10 +358,48 @@ class DeviceEngine(ElasticWorkerSet):
     def _step_bsp(self, st, batches, t):
         cfg = self.cfg
         K = cfg.num_workers
-        comp = cfg.compressor
-        layout = self._layout(st["params"])
         plan = self._ensure_plan(st["params"])
         drop = self.backup_drop(cfg.backup)
+        rec = get_recorder()
+        if rec.enabled:
+            # one compute span over the whole step (the reference's fused
+            # dispatch: gradients, exchange, update), synchronized so its
+            # wall is honest; the exchange structure emitted below is the
+            # plan's deterministic model of what ran inside it
+            with rec.span("compute", pid="train", tid="loop", cat="train",
+                          clock=("train_step", t), workers=K, fused=True):
+                losses, nz = self._bsp_body(st, batches, t, plan, drop)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        else:
+            losses, nz = self._bsp_body(st, batches, t, plan, drop)
+        if cfg.wire == "measured":
+            # every step from the plan: the shape-static plane bytes of
+            # the whole schedule plus dgc's sparse payload (all workers)
+            st["wire"] += plan.measured_step_tx_bytes(cfg.arch) * K \
+                + plan.measured_bytes(nz)
+        else:
+            st["wire"] += plan.modeled_event_bytes() * (K - len(drop))
+        if rec.enabled:
+            plan.emit_trace(rec, arch=cfg.arch, clock=("train_step", t))
+            rec.counter("wire_bytes", {"cumulative": int(st["wire"])},
+                        pid="train", cat="comm", clock=("train_step", t))
+        self._dropped += len(drop)
+        # participant-mean loss, float64 like the reference's accounting
+        part = [losses[w] for w in range(K) if w not in drop]
+        ev = dict(step=t, loss=float(np.mean(part)), max_staleness=0)
+        if drop:
+            ev["dropped"] = sorted(drop)
+        return st, [ev]
+
+    def _bsp_body(self, st, batches, t, plan: CommPlan, drop):
+        """The BSP step's work: every worker's gradient and compression,
+        the exchange and the update of ``st`` in place.  Returns (the
+        workers' losses as floats, dgc's sparse elements sent)."""
+        cfg = self.cfg
+        K = cfg.num_workers
+        comp = cfg.compressor
+        layout = self._layout(st["params"])
         weights = participation_weights(K, drop)
         sent: List[List[torch.Tensor]] = []
         losses = []
@@ -421,20 +460,7 @@ class DeviceEngine(ElasticWorkerSet):
             else:
                 st["params"] = layout.update(st["params"], avg,
                                              lambda p, g: p - lr * g)
-        if cfg.wire == "measured":
-            # every step from the plan: the shape-static plane bytes of
-            # the whole schedule plus dgc's sparse payload (all workers)
-            st["wire"] += plan.measured_step_tx_bytes(cfg.arch) * K \
-                + plan.measured_bytes(nz)
-        else:
-            st["wire"] += plan.modeled_event_bytes() * (K - len(drop))
-        self._dropped += len(drop)
-        # participant-mean loss, float64 like the reference's accounting
-        part = [losses[w] for w in range(K) if w not in drop]
-        ev = dict(step=t, loss=float(np.mean(part)), max_staleness=0)
-        if drop:
-            ev["dropped"] = sorted(drop)
-        return st, [ev]
+        return losses, nz
 
     # ------------------------------------------------------------------ sma
     def _step_sma(self, st, batches, t):

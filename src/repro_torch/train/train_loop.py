@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.compression import EF_METHODS, Compressor
 from repro_torch.core.precision import DEFAULT, PrecisionPolicy
 from repro_torch.core.tree import LeafLayout, get_path, tree_map
+from repro_torch.obs.trace import get_recorder
 from repro_torch.optim.schedule import constant
 
 # ``wire_bytes`` is reported modulo this, as the reference's int32 does
@@ -186,12 +187,21 @@ def train_loop(train_step: Callable, state, batch_fn: Callable[[int], Any],
     the batch).  Step t gets ``train_step(state, batch_fn(t), sub)``, with
     ``sub`` a generator split off ``gen`` (seed 0 by default).  Returns
     (state, history): every ``log_every``-th step's metrics as floats, with
-    ``step`` and the ``wall_s`` since the start."""
+    ``step`` and the ``wall_s`` since the start.  With a recorder
+    installed (``obs.trace.tracing``) each step is a ``step`` span on the
+    ``train_step`` clock (engines emit their sub-spans on its track)."""
     gen = gen if gen is not None else torch.Generator().manual_seed(0)
     hist: List[dict] = []
     t0 = time.time()
+    tracer = get_recorder()     # no-op by default: tracing off is free
     for t in range(steps):
-        state, mets = train_step(state, batch_fn(t), step_generator(gen))
+        sub = step_generator(gen)
+        if tracer.enabled:
+            with tracer.span("step", pid="train", tid="loop", cat="train",
+                             clock=("train_step", t), step=t):
+                state, mets = train_step(state, batch_fn(t), sub)
+        else:
+            state, mets = train_step(state, batch_fn(t), sub)
         if t % log_every == 0 or t == steps - 1:
             rec = {k: float(v) for k, v in mets.items()}
             rec["step"] = t

@@ -651,3 +651,57 @@ def test_sharded_step_on_card_equals_cpu(cuda):
     card, cpu = hists
     assert max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu)) <= 1e-4
     assert [h["wire_bytes"] for h in card] == [h["wire_bytes"] for h in cpu]
+
+
+# ------------------------------------------ checkpoints, generate, tracing
+def test_checkpoint_bf16_cuda_round_trip(cuda, tmp_path):
+    """A tree of bf16, fp32 and int32 CUDA tensors: saved (through the
+    host), restored onto the card bitwise, directly and from an
+    incremental save that links every shard."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": _randn(gen, torch.bfloat16, 300, 70),
+            "layers": [{"b": _randn(gen, torch.float32, 70)},
+                       {"b": _randn(gen, torch.bfloat16, 70)}],
+            "ids": torch.arange(-5, 45, device=cuda, dtype=torch.int32)}
+    base, nxt = str(tmp_path / "a"), str(tmp_path / "b")
+    m1 = save_checkpoint(base, tree, step=3, shard_bytes=20_000,
+                         hash_leaves=True)
+    m2 = save_checkpoint(nxt, tree, step=4, shard_bytes=20_000,
+                         incremental_from=base)
+    assert m1["shards"] > 1 and m2["linked_shards"] == m2["shards"]
+    assert [r["dtype"] for r in m1["leaves"]] == \
+        ["int32", "float32", "bfloat16", "bfloat16"]
+    for path, step in ((base, 3), (nxt, 4)):
+        got, s = load_checkpoint(path, tree)
+        assert s == step
+        for a, b in ((got["w"], tree["w"]), (got["ids"], tree["ids"]),
+                     (got["layers"][0]["b"], tree["layers"][0]["b"]),
+                     (got["layers"][1]["b"], tree["layers"][1]["b"])):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a.view(torch.int16) if a.dtype ==
+                               torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype ==
+                               torch.bfloat16 else b)
+
+
+def test_generate_on_cuda(cuda):
+    """generate on the card (flash prefill and decode) gives the greedy
+    tokens of the same run on the CPU (plain path), reduced TinyLlama,
+    fp32; one prefill and one decode launch per layer and step."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.serve import generate
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    prompt = torch.randint(1, cfg.vocab_size, (3, 7),
+                           generator=torch.Generator().manual_seed(1))
+    FA.reset_launches()
+    out = generate(model, params, prompt, 10)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and out.shape == (3, 17)
+    assert FA.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert FA.LAUNCHES["flash_decode"] == 9 * cfg.num_layers
+    ref = generate(model, tree_map(lambda t: t.cpu(), params), prompt, 10,
+                   device="cpu")
+    assert torch.equal(out.cpu(), ref)
