@@ -172,6 +172,46 @@ Counts are zeroed just before and read just after each of phases 13-15's
 runs; they make the kernels' "quickstart", "traced_serve" and
 "traced_train" launches.
 
+ 16. elastic  Trainer.fit(plan=...) at full width, fp32, phase 7's batch
+      full    per worker drawn over the reduced config's 512 token ids (a
+             chain the model learns within the run), SGD lr 0.1:
+             (a) bsp+backup:1/allreduce/onebit@4 under
+             slow:w2x4@1,resize:3@3,resize:4@5 for 7 steps, no
+             checkpoints: each step's dropped set equals
+             elastic.backup.drop_set over the engine's periods and
+             slowdowns, dropped_updates 7, a dropped worker's EF tensors
+             bitwise unchanged by its step, across each reshard the
+             survivors' EF the same tensors bitwise and the grown slot
+             zeros, resizes 2, final_workers 4, losses finite and the last
+             below the first;
+             (b) bsp/allreduce/none@4 under crash:w1@4,resize:4@5 for 6
+             steps, checkpoint_every 3, traced, into a temporary directory
+             removed at the end: one recovery (restored_step 3,
+             lost_steps 1), executed_steps 7, final_workers 4, and the
+             parameters restored at step 3 bitwise equal to a host copy
+             taken at its commit.  Snapshot spans and the restore in
+             seconds (host disk).
+ 17. elastic  the rest of the plane at 2 layers (TinyLlama's widths, 0.88
+      reduced GB of fp32 parameters), lr 0.03: (c) bsp/allreduce/onebit@4
+             with restart@3 over 6 steps: losses and parameters bitwise
+             equal to an uninterrupted run; (d) ssp:2/ring/onebit@4 under
+             crash:w2@5,resize:4@10 for 15 steps, checkpoint_every 3: one
+             crash recovery, one resize, final_workers 4, the final loss at
+             most 4x the uninterrupted run's and below the first; (e)
+             bsp+backup:1+detect/allreduce/onebit@4 for 6 steps with worker
+             1's fetch sleeping 50 ms: drops [3], [3] (the scheduled
+             ranking while the detector warms up), then the set a
+             slow:w1x4 plan schedules, [1]; (f) the sched simulator (12
+             jobs, 2 x 4 GPUs, fifo, gandiva, elastic) through
+             plan_from_sched_trace (tools/elastic_smoke.py's selection)
+             driving ssp:1/allreduce/none@2 on the device backend, and the
+             Autoscaler (replica_rate 0.5) over phase 14's arrivals with
+             its SLO alert times as burn_times: the decisions and plan.
+             Wall and peak memory of every sub-run.
+
+Counts are zeroed just before phase 16 and read just after phase 17; they
+make the kernels' "elastic" launches.
+
 Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
@@ -274,6 +314,20 @@ BENCH_PR7 = {"continuous": dict(p99_first_token=16.1775, generated_tokens=161,
                              clock=80.0, decode_iterations=74,
                              prefill_groups=6)}
 SERVE_SLO = "ttft_p99<8"
+# phases 16-17: elastic plans (spec, plan, steps[, checkpoint_every]) and
+# the SGD rates (at 0.1 the 2-layer model's last ssp events jump up and
+# down; at 0.03 it descends smoothly, so the 4x bound compares two points
+# of one curve)
+ELASTIC_LR, REDUCED_LR = 0.1, 0.03
+REDUCED_LAYERS = 2
+ELASTIC_BACKUP = ("bsp+backup:1/allreduce/onebit@4",
+                  "slow:w2x4@1,resize:3@3,resize:4@5", 7)
+ELASTIC_CRASH = ("bsp/allreduce/none@4", "crash:w1@4,resize:4@5", 6, 3)
+ELASTIC_RESTART = ("bsp/allreduce/onebit@4", "restart@3", 6)
+ELASTIC_ACCEPT = ("ssp:2/ring/onebit@4", "crash:w2@5,resize:4@10", 15, 3)
+# spec, steps, the worker whose batch fetch sleeps, the sleep (s)
+ELASTIC_DETECT = ("bsp+backup:1+detect/allreduce/onebit@4", 6, 1, 0.05)
+SCHED_SPEC, SCHED_STEPS = "ssp:1/allreduce/none@2", 8
 MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
                  ("bsp/ring/terngrad@4", "measured", 2),
                  ("bsp/ring/qsgd@4", "measured", 2),
@@ -347,6 +401,325 @@ def kernel_resources(log):
                         spills))
             name = None
     return out
+
+
+def span_walls(events, names):
+    """(name, begin args, wall seconds) of every span called one of
+    ``names`` in a recorder's events, nested spans paired by their track's
+    begin/end order."""
+    stacks, out = {}, []
+    for ev in events:
+        key = (ev["pid"], ev["tid"])
+        if ev["ph"] == "B":
+            stacks.setdefault(key, []).append(ev)
+        elif ev["ph"] == "E":
+            b = stacks[key].pop()
+            if b["name"] in names:
+                out.append((b["name"], b["args"],
+                            ev["args"]["wall_s"] - b["args"]["wall_s"]))
+    return out
+
+
+def elastic_phases(cfg, dev, smi, arrivals, horizon, burn_times,
+                   seq=TRAIN_S, batch=TRAIN_B):
+    """Phases 16-17 (module docstring): elastic training of ``cfg`` at full
+    depth, then the rest of the elastic plane at ``REDUCED_LAYERS``
+    layers, through ``Trainer.fit(plan=...)`` on ``dev`` (the CPU
+    rehearses them at ``cfg.reduced()`` and a short ``seq``).  Returns the
+    sub-runs' walls in seconds."""
+    import numpy as np
+
+    from repro_torch.core.sync import default_periods
+    from repro_torch.core.tree import get_path, leaf_paths
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.elastic import EventPlan, drop_set, plan_from_sched_trace
+    from repro_torch.models import build_model
+    from repro_torch.obs.trace import tracing
+    from repro_torch.sched import Cluster, make_trace, simulate
+    from repro_torch.serve.autoscale import AutoscalePolicy, Autoscaler
+    from repro_torch.train import Strategy, Trainer, value_and_grad
+
+    cuda = dev.type == "cuda"
+    f32 = torch.float32
+    engines, watchers = [], []
+
+    class Watched(Strategy):
+        """A Strategy whose build hands the engine that fit_elastic drives
+        to the ``watchers`` (they wrap its methods with checks)."""
+
+        def build(self, grad_fn, layout=None, device="cuda"):
+            eng = Strategy.build(self, grad_fn, layout, device)
+            for watch in watchers:
+                watch(eng)
+            engines.append(eng)
+            return eng
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def leaves(tree):
+        return [get_path(tree, q) for q in leaf_paths(tree)]
+
+    def setup(layers):
+        c = dataclasses.replace(cfg, num_layers=layers)
+        m = build_model(c)
+        params = m.init(seed=0, dtype=f32, device=dev)
+        grad_fn = value_and_grad(
+            lambda pp, b: m.loss_fn(pp, b, compute_dtype=f32))
+        return params, grad_fn, m.leaf_layout(params)
+
+    # the Markov chain over the reduced config's 512 token ids (as phase
+    # 14's prompts): the random-init 32000-token model learns it from
+    # fresh batches within a few steps, where over all 32000 ids a step
+    # moves the loss less than one batch differs from the next
+    batches = make_lm_batches(LMDataConfig(
+        vocab_size=cfg.reduced().vocab_size, seq_len=seq, batch_size=batch),
+        device=dev)
+    walls = {}
+
+    lr = ELASTIC_LR
+
+    def fit(label, spec, model, steps, data=batches, **kw):
+        """Trainer(Watched.parse(spec)).fit; prints the sub-run's wall and
+        peak device memory; returns (params, history, metrics, engine)."""
+        params, grad_fn, layout = model
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = Trainer(Watched.parse(spec, lr=lr), device=dev).fit(
+            grad_fn, params, data, steps, layout=layout, **kw)
+        sync()
+        walls[label] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        h = out[1]
+        plan = kw.get("plan")
+        plan = "" if plan is None else getattr(plan, "spec", lambda: plan)()
+        print(f"{label}: {spec} {plan} {steps} steps: wall "
+              f"{walls[label]:.2f} s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; losses first {h[0]['loss']:.6f} "
+              f"last {h[-1]['loss']:.6f} ({len(h)} records)")
+        return out + (engines[-1],)
+
+    # --------------------------------------------- 16 elastic, full depth
+    phase(f"elastic training, full-width {cfg.name} ({cfg.num_layers} "
+          "layers), fp32")
+    model = setup(cfg.num_layers)
+    spec, plan, steps = ELASTIC_BACKUP
+    log = []
+
+    def watch_backup(eng):
+        inner, step0, reshard0 = eng.inner, eng.step, eng.reshard
+
+        def step(st, b, t):
+            want = sorted(drop_set(inner.periods, inner.cfg.backup,
+                                   inner.slowdowns))
+            kept = [[x.clone() for x in st["ef"][w]] for w in want]
+            st, evs = step0(st, b, t)
+            log.append(dict(t=t, want=want, got=evs[0].get("dropped"),
+                            kept=all(torch.equal(x, y) for w, rows in
+                                     zip(want, kept)
+                                     for x, y in zip(st["ef"][w], rows))))
+            return st, evs
+
+        def reshard(st, new_workers, step=0, lost=()):
+            slots = [w for w in range(inner.cfg.num_workers)
+                     if w not in lost][:new_workers]
+            rows = [(list(st["ef"][s]), [x.clone() for x in st["ef"][s]])
+                    for s in slots]
+            st = reshard0(st, new_workers, step=step, lost=lost)
+            log.append(dict(
+                reshard=new_workers, grown=new_workers - len(slots),
+                same=all(a is b and torch.equal(a, c)
+                         for i, (r, cl) in enumerate(rows)
+                         for a, b, c in zip(st["ef"][i], r, cl)),
+                zero=all(not x.any() for row in st["ef"][len(slots):]
+                         for x in row)))
+            return st
+
+        eng.step, eng.reshard = step, reshard
+
+    watchers[:] = [watch_backup]
+    _, hist, mets, eng = fit("16a", spec, model, steps, plan=plan)
+    steps_log = [x for x in log if "t" in x]
+    reshards = [x for x in log if "reshard" in x]
+    losses = [h["loss"] for h in hist]
+    print(f"dropped per step {[x['got'] for x in steps_log]} (drop_set over "
+          f"the engine's periods and slowdowns "
+          f"{[x['want'] for x in steps_log]}); dropped workers' EF bitwise "
+          f"unchanged {[x['kept'] for x in steps_log]}; reshards "
+          f"{[(x['reshard'], x['same'], x['zero']) for x in reshards]} "
+          f"(to, survivors' EF the same tensors bitwise, grown slots "
+          f"zero); dropped_updates {mets['dropped_updates']}, resizes "
+          f"{mets['resizes']}, final_workers {mets['final_workers']}; "
+          f"losses {losses}")
+    assert [x["got"] for x in steps_log] == [x["want"] for x in steps_log]
+    assert all(x["kept"] for x in steps_log) and len(steps_log) == steps
+    assert mets["dropped_updates"] == steps
+    assert mets["resizes"] == 2 and mets["final_workers"] == 4
+    assert [x["reshard"] for x in reshards] == [3, 4]
+    assert all(x["same"] and x["zero"] for x in reshards)
+    assert sum(x["grown"] for x in reshards) == 1
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    watchers.clear()
+    del eng
+    engines.clear()
+
+    spec, plan, steps, every = ELASTIC_CRASH
+    rstep = int(plan.split("@")[1].split(",")[0]) - 1
+    at_commit, stamps = [], []
+
+    def watch_restore(eng):
+        """Host copies of the parameters each time step ``rstep`` starts
+        (at its commit, and after the rollback), and the restore's
+        wall: the engine's init (the template) to its import_state."""
+        step0, init0, import0 = eng.step, eng.init, eng.import_state
+
+        def step(st, b, t):
+            if t == rstep:
+                at_commit.append([x.detach().to("cpu", copy=True)
+                                  for x in leaves(st["params"])])
+            return step0(st, b, t)
+
+        def init(params):
+            stamps.append(time.perf_counter())
+            return init0(params)
+
+        def import_state(arrays, meta):
+            st = import0(arrays, meta)
+            sync()
+            stamps.append(time.perf_counter() - stamps.pop())
+            return st
+
+        eng.step, eng.init, eng.import_state = step, init, import_state
+
+    watchers[:] = [watch_restore]
+    ckdir = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
+    try:
+        with tracing() as rec:
+            _, hist, mets, eng = fit("16b", spec, model, steps, plan=plan,
+                                     checkpoint_dir=ckdir,
+                                     checkpoint_every=every)
+    finally:
+        watchers.clear()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    (r,) = mets["recoveries"]
+    spans = span_walls(rec.events, ("snapshot", "recovery", "resize"))
+    saves = [(a["step"], a["mode"], a["dispatch"], w) for n, a, w in spans
+             if n == "snapshot"]
+    equal = len(at_commit) == 2 and all(
+        torch.equal(x, y) for x, y in zip(*at_commit))
+    gib = sum(x.numel() * 4 for x in at_commit[0]) / 2**30
+    print(f"recovery {r}; executed_steps {mets['executed_steps']}, "
+          f"final_workers {mets['final_workers']}; parameters restored at "
+          f"step {rstep} bitwise equal to the host copy at its commit: "
+          f"{equal}; host disk ({gib:.2f} GiB of fp32 parameters per "
+          f"snapshot): snapshot spans (step, mode, dispatch, s; an async "
+          f"one times the device-to-host copy and dispatch) "
+          f"{[(s, m, d, round(w, 2)) for s, m, d, w in saves]}, the "
+          f"rollback's restore {stamps[-1]:.2f} s within a recovery span "
+          f"of {sum(w for n, _, w in spans if n == 'recovery'):.2f} s "
+          f"(it joins the step-{rstep} write first), resize spans "
+          f"{[round(w, 2) for n, _, w in spans if n == 'resize']} s; "
+          f"losses {[h['loss'] for h in hist]}; card {smi}")
+    assert r["kind"] == "crash" and r["restored_step"] == rstep
+    assert r["lost_steps"] == 1 and equal and len(stamps) == 2
+    assert mets["executed_steps"] == steps + 1
+    assert mets["final_workers"] == 4 and mets["resizes"] == 1
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    del model, eng, at_commit
+    engines.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------ 17 the rest, reduced depth
+    phase(f"elastic plane at {REDUCED_LAYERS} layers, full widths")
+    model = setup(REDUCED_LAYERS)
+    lr = REDUCED_LR
+    spec, plan, steps = ELASTIC_RESTART
+    p_u, h_u, _, _ = fit("17c uninterrupted", spec, model, steps)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as d:
+        p_r, h_r, m_r, _ = fit("17c", spec, model, steps, plan=plan,
+                               checkpoint_dir=d)
+    same_params = all(torch.equal(x, y) for x, y in zip(leaves(p_u),
+                                                         leaves(p_r)))
+    print(f"restart: recoveries {m_r['recoveries']}; losses equal "
+          f"{[h['loss'] for h in h_u] == [h['loss'] for h in h_r]}, "
+          f"parameters bitwise equal {same_params}")
+    assert [h["loss"] for h in h_u] == [h["loss"] for h in h_r]
+    assert same_params and len(m_r["recoveries"]) == 1
+    assert m_r["recoveries"][0]["lost_steps"] == 0
+    del p_u, p_r
+
+    spec, plan, steps, every = ELASTIC_ACCEPT
+    _, h_u, _, _ = fit("17d uninterrupted", spec, model, steps)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as d:
+        _, h_e, m_e, _ = fit("17d", spec, model, steps, plan=plan,
+                             checkpoint_dir=d, checkpoint_every=every)
+    (r,) = m_e["recoveries"]
+    first, lu, le = h_e[0]["loss"], h_u[-1]["loss"], h_e[-1]["loss"]
+    print(f"acceptance: recovery {r}; resizes {m_e['resizes']}, "
+          f"final_workers {m_e['final_workers']}; final loss {le:.6f} "
+          f"(uninterrupted {lu:.6f}, bound 4x; first {first:.6f})")
+    assert r["kind"] == "crash" and m_e["resizes"] == 1
+    assert m_e["final_workers"] == 4
+    assert le <= 4 * lu and le < first
+
+    spec, steps, slow, delay = ELASTIC_DETECT
+
+    def slow_batches(t, w):
+        if w == slow:
+            time.sleep(delay)
+        return batches(t, w)
+
+    _, h_d, m_d, eng = fit("17e", spec, model, steps, data=slow_batches)
+    drops = [h["dropped"] for h in h_d]
+    slowdowns = [1.0] * 4
+    slowdowns[slow] = 4.0
+    sched = sorted(drop_set(default_periods(4), 1, slowdowns))
+    factors = [round(f, 2) for f in eng.inner.detector.factors()]
+    print(f"detection: dropped per step {drops}; detector ready "
+          f"{eng.inner.detector.ready}, measured factors {factors}; the "
+          f"drop set slow:w{slow}x4 schedules {sched}")
+    assert drops[:2] == [[3], [3]] and all(x == sched for x in drops[2:])
+    del eng
+    engines.clear()
+
+    jobs = make_trace(12, 8, seed=3, mean_interarrival=20.0)
+    res = simulate(jobs, Cluster(n_nodes=2, gpus_per_node=4), "fifo",
+                   gandiva=True, elastic=True)
+    splan = None
+    for j in jobs:
+        full = plan_from_sched_trace(res.trace, j.jid, steps_per_sec=0.005)
+        due = [e for e in full if e.step < SCHED_STEPS
+               and (e.kind != "resize" or e.workers <= 2)]
+        if due:
+            splan = EventPlan(due[:2])
+            break
+    assert splan is not None
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") as d:
+        _, h_s, m_s, _ = fit("17f", SCHED_SPEC, model, SCHED_STEPS,
+                             plan=splan, checkpoint_dir=d,
+                             checkpoint_every=2)
+    auto_plan, decisions = Autoscaler(AutoscalePolicy(
+        replica_rate=0.5)).plan(arrivals, horizon, burn_times=burn_times)
+    print(f"scheduler: {len(res.trace)} allocation events, job {j.jid}'s "
+          f"plan {splan.spec()}: recoveries {len(m_s['recoveries'])}, "
+          f"resizes {m_s['resizes']}, final_workers "
+          f"{m_s['final_workers']}; autoscaler over {len(arrivals)} "
+          f"arrivals with burn times {burn_times}: decisions "
+          f"{[(d.t, round(d.rate, 3), d.replicas) for d in decisions]}, "
+          f"plan {auto_plan.spec()!r}")
+    assert all(math.isfinite(h["loss"]) for h in h_s)
+    assert len(m_s["recoveries"]) + m_s["resizes"] == len(splan)
+    assert decisions[0].replicas == 1
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"walls (s) {dict((k, round(v, 2)) for k, v in walls.items())}; "
+          f"card {smi}")
+    return walls
 
 
 def main() -> int:
@@ -1412,11 +1785,15 @@ def main() -> int:
     trace_path = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-trace-"),
                               "serve.json")
 
+    alert_times = {}
+
     def serve_run(argv):
-        """(metrics, token outputs, wall-stripped trace or None)."""
+        """(metrics, token outputs, wall-stripped trace or None); the
+        engine's SLO alert times go to ``alert_times`` under the argv."""
         reqs = bench_requests()
-        m_, _, rec = serve_launcher.serve(serve_launcher.parse_args(argv),
-                                          model, params16, reqs, dev)
+        m_, eng_, rec = serve_launcher.serve(serve_launcher.parse_args(argv),
+                                             model, params16, reqs, dev)
+        alert_times[tuple(argv)] = [a["t"] for a in eng_.slo_alerts]
         tr = None if rec is None else load_trace(trace_path)
         return m_, [r.output for r in reqs], tr
 
@@ -1519,6 +1896,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # --------------------------------------------- 16-17 elastic training
+    burn_times = alert_times[tuple(base_argv + ["--policy", "continuous",
+                                                "--pages", "0"])]
+    reset_all()
+    elastic_phases(cfg, dev, smi, arrivals, BENCH_HORIZON, burn_times)
+    elastic_launches = read_all()
+    print(f"launches of phases 16-17 {elastic_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -1545,7 +1930,8 @@ def main() -> int:
                       "trainer": trainer_launches[name],
                       "quickstart": quick_launches[name],
                       "traced_serve": serve_launches[name],
-                      "traced_train": traced_launches[name]}
+                      "traced_train": traced_launches[name],
+                      "elastic": elastic_launches[name]}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
@@ -1561,6 +1947,8 @@ def main() -> int:
     assert by_path["flash_attention"]["trainer"] > 0
     assert by_path["onebit_encode_ef"]["trainer"] > 0
     assert by_path["onebit_encode_ef"]["traced_train"] > 0
+    assert by_path["flash_attention"]["elastic"] > 0
+    assert by_path["onebit_encode_ef"]["elastic"] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

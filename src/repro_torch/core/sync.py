@@ -16,13 +16,22 @@ The stochastic methods draw from a ``torch.Generator`` seeded per event
 (``event_generator``), which the device engine seeds the same way; the
 JAX package splits one PRNG key per event, so only the deterministic
 methods (``none``, ``onebit``, ``dgc``) are draw for draw comparable with
-the reference.  Backup workers, straggler detection, ``reshard``,
-``export_state`` and ``import_state`` are ROADMAP queue A item 7; the
-deprecated ``SyncEngine`` alias is not ported.
+the reference.
+
+Every engine (this simulator and the device engine) inherits
+``ElasticWorkerSet``: straggler slowdowns, the ``bsp+backup:k`` drop set
+(scheduled, or measured by ``elastic.detector.StepTimeEMA`` with
+``detect``) and the worker-schedule half of ``reshard`` and of the
+snapshots.  Engine snapshots (``export_state``) hold no PRNG state: the
+port's generators are pure in (seed, step or event, worker), where the
+reference snapshots its JAX key, so an engine snapshot of one package
+does not load into the other.  The deprecated ``SyncEngine`` alias is not
+ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +40,7 @@ import torch
 from repro_torch.core.compression import Compressor
 from repro_torch.core.tree import LeafLayout, tree_map
 from repro_torch.elastic.backup import drop_set
+from repro_torch.elastic.detector import StepTimeEMA
 
 SYNCS = ("bsp", "ssp", "asp", "sma")
 
@@ -45,8 +55,10 @@ class SyncConfig:
     # deterministic worker speeds: worker i finishes every periods[i] ticks
     periods: Optional[Tuple[int, ...]] = None
     compressor: Compressor = Compressor("none")
-    backup: int = 0              # BSP backup workers (queue A item 7)
-    detect: bool = False         # straggler detection (queue A item 7)
+    backup: int = 0              # BSP backup workers: drop the k slowest
+    # measured straggler detection: per-worker step-time EMA replaces the
+    # scheduled ranking in the backup drop set (elastic/detector.py)
+    detect: bool = False
     seed: int = 0
 
 
@@ -85,22 +97,23 @@ def event_generator(seed: int, t: int, worker: int,
         (seed * 1_000_003 + t) * 31 + worker)
 
 
-def unported(backup: int, detect: bool) -> Optional[str]:
-    """Why a configuration is not ported yet, or None."""
-    if backup or detect:
-        return "backup workers and straggler detection: ROADMAP queue A item 7"
-    return None
-
-
 class ElasticWorkerSet:
     """The worker-schedule surface every engine inherits: straggler
-    slowdowns over the base ``periods`` and the backup-drop accounting.
-    Subclass ``__init__`` sets ``self.periods``, ``self.slowdowns`` (per
-    worker period factors, 1.0 = none) and ``self._dropped``."""
+    slowdowns over the base ``periods``, the backup-drop accounting and
+    measured straggler detection, so the effective schedule (the async
+    firing order and the backup drop set) cannot differ between the
+    backends.  Subclass ``__init__`` sets ``self.cfg`` (with
+    ``num_workers``, ``periods`` and ``backup`` fields), ``self.periods``,
+    ``self.slowdowns`` (per worker period factors, 1.0 = none) and
+    ``self._dropped``, and calls ``_init_detector``."""
 
     periods: Tuple[int, ...]
     slowdowns: List[float]
     _dropped: int
+    detector: Optional[StepTimeEMA]
+
+    def _init_detector(self, detect: bool, num_workers: int):
+        self.detector = StepTimeEMA(num_workers) if detect else None
 
     def set_slowdown(self, worker: int, factor: float):
         """Apply a straggler event: worker's period scales by ``factor``
@@ -115,8 +128,11 @@ class ElasticWorkerSet:
                      for p, s in zip(self.periods, self.slowdowns))
 
     def backup_drop(self, k: int):
-        """The round's backup drop set: the scheduled ranking of
-        ``elastic.backup.drop_set``."""
+        """The round's backup drop set: the *measured* step-time ranking
+        once detection has warmed up, else the scheduled ranking
+        (``elastic.backup.drop_set``), the same rule on both backends."""
+        if self.detector is not None and self.detector.ready:
+            return self.detector.drop_set(k)
         return drop_set(self.periods, k, self.slowdowns)
 
     def dropped_updates(self) -> int:
@@ -127,6 +143,94 @@ class ElasticWorkerSet:
         """Backend-specific additions to ``Engine.metrics()``; the
         simulator has none."""
         return {}
+
+    # ------------------------------------------- elastic reshard / snapshot
+    def _reshard_workers(self, new_workers: int,
+                         lost: Tuple[int, ...]) -> Tuple[List[int], int]:
+        """The schedule half of ``reshard``: validate the N->M resize,
+        remap ``cfg``, ``periods``, ``slowdowns`` and the detector onto the
+        survivor slots (old slots minus ``lost``, in order; they keep their
+        speed identity, grown slots take the default-schedule tail) and
+        return ``(slots, grown)``."""
+        cfg = self.cfg
+        if new_workers < 1:
+            raise ValueError("new_workers must be >= 1")
+        if cfg.backup >= new_workers:
+            raise ValueError(f"backup k={cfg.backup} needs > k workers")
+        bad = [w for w in lost if w < 0 or w >= cfg.num_workers]
+        if bad:
+            raise ValueError(f"lost workers {bad} out of range for "
+                             f"{cfg.num_workers} workers")
+        survivors = [w for w in range(cfg.num_workers) if w not in set(lost)]
+        slots = survivors[:new_workers]
+        grown = new_workers - len(slots)
+        periods = tuple([self.periods[s] for s in slots]
+                        + list(default_periods(new_workers))[len(slots):])
+        self.cfg = dataclasses.replace(cfg, num_workers=new_workers,
+                                       periods=periods)
+        self.periods = periods
+        self.slowdowns = [self.slowdowns[s] for s in slots] + [1.0] * grown
+        if self.detector is not None:
+            self.detector.reshard(slots, new_workers)
+        return slots, grown
+
+    @staticmethod
+    def _rebase_async(st, slots: List[int], grown: int, step: int) -> None:
+        """ssp/asp at a reshard, a synchronization barrier: every worker
+        re-pulls the current parameters at the current server version,
+        survivors keep their batch clocks, grown slots start at the
+        frontier, and the step<->update accounting rebases at ``step`` so
+        one global step stays M updates."""
+        M = len(slots) + grown
+        frontier = max([st["batch_idx"][s] for s in slots] or [0])
+        st["pulled"] = [st["params"]] * M
+        st["pulled_ver"] = [st["server_ver"]] * M
+        st["batch_idx"] = ([st["batch_idx"][s] for s in slots]
+                           + [frontier] * grown)
+        st["updates_base"] = st["updates"]
+        st["step_base"] = step
+
+    def _snapshot_meta(self, backend: str, mode: str, st) -> Dict[str, Any]:
+        """The JSON-able half of ``export_state``: the reference's meta
+        keys."""
+        meta: Dict[str, Any] = dict(
+            backend=backend, mode=mode, num_workers=self.cfg.num_workers,
+            wire=int(st["wire"]), periods=list(self.periods),
+            slowdowns=list(self.slowdowns), dropped=self._dropped,
+            detector=(self.detector.state() if self.detector is not None
+                      else None))
+        if mode in ("ssp", "asp"):
+            meta.update(pulled_ver=list(st["pulled_ver"]),
+                        server_ver=int(st["server_ver"]),
+                        tick=int(st["tick"]), updates=int(st["updates"]),
+                        batch_idx=list(st["batch_idx"]),
+                        updates_base=int(st["updates_base"]),
+                        step_base=int(st["step_base"]))
+        return meta
+
+    def _load_snapshot_meta(self, meta: Dict[str, Any], mode: str,
+                            st: Dict[str, Any]) -> None:
+        """The schedule and bookkeeping of ``import_state``: the speed
+        schedule travels with the snapshot (a resharded run's remapped
+        periods survive a restore in another process)."""
+        if meta["num_workers"] != self.cfg.num_workers:
+            raise ValueError(
+                f"snapshot has {meta['num_workers']} workers, engine has "
+                f"{self.cfg.num_workers}; reshard the engine first")
+        self.periods = tuple(int(p) for p in meta["periods"])
+        self.cfg = dataclasses.replace(self.cfg, periods=self.periods)
+        self.slowdowns = [float(s) for s in meta["slowdowns"]]
+        self._dropped = int(meta["dropped"])
+        if self.detector is not None:
+            self.detector.load_state(meta.get("detector"))
+        st["wire"] = int(meta["wire"])
+        if mode in ("ssp", "asp"):
+            st.update(pulled_ver=list(meta["pulled_ver"]),
+                      server_ver=int(meta["server_ver"]),
+                      tick=int(meta["tick"]), updates=int(meta["updates"]),
+                      batch_idx=list(meta["batch_idx"]),
+                      updates_base=int(meta["updates_base"]),
+                      step_base=int(meta["step_base"]))
 
 
 class SimSyncEngine(ElasticWorkerSet):
@@ -148,9 +252,6 @@ class SimSyncEngine(ElasticWorkerSet):
                              "(async modes have no round to drop from)")
         if cfg.backup >= cfg.num_workers:
             raise ValueError("backup k must leave at least one worker")
-        why = unported(cfg.backup, cfg.detect)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.cfg = cfg
         self.grad_fn = grad_fn
         self.layout = layout
@@ -161,6 +262,7 @@ class SimSyncEngine(ElasticWorkerSet):
         self.periods = periods
         self.slowdowns: List[float] = [1.0] * cfg.num_workers
         self._dropped = 0
+        self._init_detector(cfg.detect, cfg.num_workers)
         self._wire = 0
 
     def _layout(self, params) -> LeafLayout:
@@ -216,9 +318,23 @@ class SimSyncEngine(ElasticWorkerSet):
     def _step_bsp(self, st, batches, t):
         K = self.cfg.num_workers
         params = st["params"]
+        # backup workers: the k slowest (scheduled, or measured once
+        # detection has warmed up) never reach the server this round:
+        # their batch is discarded and their EF state is untouched
+        drop = self.backup_drop(self.cfg.backup)
         losses, acc = [], None
         for w in range(K):
+            t0 = time.perf_counter()
+            if w in drop:
+                if self.detector is not None:
+                    # a real straggler still runs, so keep measuring it
+                    # (a recovered worker must not stay dropped forever)
+                    self.grad_fn(params, batches(t, w))
+                    self.detector.observe(w, time.perf_counter() - t0)
+                continue
             loss, g = self.grad_fn(params, batches(t, w))
+            if self.detector is not None:
+                self.detector.observe(w, time.perf_counter() - t0)
             leaves = self._compress(st, w, g, t)
             del g
             losses.append(float(loss))
@@ -229,9 +345,13 @@ class SimSyncEngine(ElasticWorkerSet):
                 for a, x in zip(acc, leaves):
                     a += x
             del leaves
-        st["params"] = self._apply(params, [a / K for a in acc])
-        return st, [dict(step=t, loss=float(np.mean(losses)),
-                         max_staleness=0)]
+        self._dropped += len(drop)
+        n = K - len(drop)
+        st["params"] = self._apply(params, [a / n for a in acc])
+        ev = dict(step=t, loss=float(np.mean(losses)), max_staleness=0)
+        if drop:
+            ev["dropped"] = sorted(drop)
+        return st, [ev]
 
     # ------------------------------------------------------- SSP / ASP core
     def _step_async(self, st, batches, t, bound: Optional[int]):
@@ -312,6 +432,58 @@ class SimSyncEngine(ElasticWorkerSet):
 
     def wire_bytes(self) -> int:
         return self._wire
+
+    # ------------------------------------------- elastic reshard / snapshot
+    def reshard(self, st, new_workers: int, step: int = 0,
+                lost: Tuple[int, ...] = ()):
+        """Re-size the simulated worker set N->M in place and return the
+        resharded run-state.  Survivors (old slots minus ``lost``, in
+        order) keep their EF state and batch clocks; grown slots start
+        with zero residuals at the batch frontier (ssp/asp) or at the
+        pre-reshard center (sma)."""
+        mode = self.cfg.mode
+        params_like = st["replicas"][0] if mode == "sma" else st["params"]
+        slots, grown = self._reshard_workers(new_workers, lost)
+        st["comp_states"] = (
+            [st["comp_states"][s] for s in slots]
+            + [self.cfg.compressor.init_state(
+                self._layout(params_like).leaves(params_like))
+               for _ in range(grown)])
+        if mode in ("ssp", "asp"):
+            self._rebase_async(st, slots, grown, step)
+        elif mode == "sma":
+            center = self._avg(st["replicas"])
+            st["replicas"] = ([st["replicas"][s] for s in slots]
+                              + [center] * grown)
+        return st
+
+    def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Split the run-state into (tensor tree, JSON-able meta) for
+        ``checkpoint.store``: the inverse of ``import_state``."""
+        mode = self.cfg.mode
+        arrays: Dict[str, Any] = {"comp_states": st["comp_states"]}
+        if mode == "sma":
+            arrays["replicas"] = st["replicas"]
+        else:
+            arrays["params"] = st["params"]
+        if mode in ("ssp", "asp"):
+            arrays["pulled"] = st["pulled"]
+        return arrays, self._snapshot_meta("sim", mode, st)
+
+    def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
+        """Rebuild the run-state from an ``export_state`` snapshot.  The
+        engine must already be configured at ``meta['num_workers']``."""
+        mode = self.cfg.mode
+        st: Dict[str, Any] = dict(comp_states=arrays["comp_states"])
+        self._load_snapshot_meta(meta, mode, st)
+        if mode == "sma":
+            st["replicas"] = arrays["replicas"]
+        else:
+            st["params"] = arrays["params"]
+        if mode in ("ssp", "asp"):
+            st["pulled"] = arrays["pulled"]
+        self._wire = st["wire"]
+        return st
 
     def run(self, params, batches: Callable[[int, int], Any], steps: int):
         """batches(t, worker) -> batch.  Returns (params, history,

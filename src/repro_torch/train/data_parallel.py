@@ -37,7 +37,15 @@ Wire bytes: ``modeled`` is the compressor's analytic accounting per push
 (the simulator's); ``measured`` is the plan's shape-static plane bytes
 times K plus 8 B per sparse element shipped (dgc).  SSP/ASP pushes are
 counted as modeled bytes per event in both modes, as in the reference.
-Backup workers and straggler detection raise (ROADMAP queue A item 7).
+
+Backup workers (``backup=k``, bsp only): each step the k slowest workers
+(``ElasticWorkerSet.backup_drop``: the scheduled ranking, or with
+``detect`` the measured step-time EMA of each worker's batch fetch) send
+with weight 0 and the participants with K/(K-k); a dropped worker's EF
+residual is kept on both wire modes.  ``reshard``, ``export_state`` and
+``import_state`` are the elastic interface (``elastic.recovery``).  The
+workers are logical, so a resize needs no more devices (the reference
+checks its device count).
 
 Each phase runs under a ``torch.profiler.record_function`` range
 (``forward_backward``, ``stack_and_compress``, ``allreduce`` for the
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,7 +77,7 @@ from repro_torch.core.parameter_server import (all_gather_flat, make_ps_step,
                                                pad_to_multiple, sgd_update_fn,
                                                shard_of_flat)
 from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
-                                   event_generator, firing_schedule, unported)
+                                   event_generator, firing_schedule)
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.elastic.backup import participation_weights
 from repro_torch.obs.trace import get_recorder
@@ -88,8 +97,10 @@ class DataParallelConfig:
     periods: Optional[Tuple[int, ...]] = None   # worker speeds
     topology: str = "ring"           # key into core.allreduce.TOPOLOGIES
     compressor: Compressor = Compressor("none")
-    backup: int = 0                  # BSP backup workers (queue A item 7)
-    detect: bool = False             # straggler detection (queue A item 7)
+    backup: int = 0                  # BSP backup workers: drop the k slowest
+    # measured straggler detection: per-worker step-time EMA replaces the
+    # scheduled ranking in the backup drop set (elastic/detector.py)
+    detect: bool = False
     bucket_mb: float = 4.0           # gradient bucket fusion size
     order: str = "tictac"            # "tictac" | "random" | "layer"
     link: LinkModel = LinkModel()
@@ -297,9 +308,8 @@ class DeviceEngine(ElasticWorkerSet):
         if cfg.backup and cfg.sync != "bsp":
             raise ValueError("backup workers compose with bsp only "
                              "(async modes have no round to drop from)")
-        why = unported(cfg.backup, cfg.detect)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
+        if cfg.backup >= cfg.num_workers:
+            raise ValueError("backup k must leave at least one worker")
         self.cfg = cfg
         self.grad_fn = grad_fn
         self.layout = layout
@@ -309,6 +319,7 @@ class DeviceEngine(ElasticWorkerSet):
             raise ValueError("periods must name every worker")
         self.slowdowns: List[float] = [1.0] * cfg.num_workers
         self._dropped = 0
+        self._init_detector(cfg.detect, cfg.num_workers)
         self._plan: Optional[CommPlan] = None
         self._ps_update: Optional[Callable] = None
         self._wire_total = 0
@@ -401,6 +412,20 @@ class DeviceEngine(ElasticWorkerSet):
         comp = cfg.compressor
         layout = self._layout(st["params"])
         weights = participation_weights(K, drop)
+        if self.detector is not None:
+            # each worker's batch fetch is its host work here (a straggling
+            # input pipeline is the detectable straggler); the gradients
+            # run asynchronously on a card, so they are not timed, and the
+            # previous step's queued work drains first (a fetch that copies
+            # to the card would wait for it and charge it to worker 0)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            fetched = []
+            for w in range(K):
+                t0 = time.perf_counter()
+                fetched.append(batches(t, w))
+                self.detector.observe(w, time.perf_counter() - t0)
+            batches = lambda _t, w: fetched[w]   # noqa: E731
         sent: List[List[torch.Tensor]] = []
         losses = []
         for w in range(K):
@@ -432,9 +457,11 @@ class DeviceEngine(ElasticWorkerSet):
             # the exchange; under arch="ps" it is the whole PS round
             # (push, shard update, pull)
             if plan.in_schedule:
-                # encoded planes inside the schedule; each worker's EF is
-                # consumed and renewed by the exchange (keeping a dropped
-                # worker's residual comes with backup workers, item 7)
+                # encoded planes inside the schedule; the exchange consumes
+                # and renews every worker's EF, and a dropped worker keeps
+                # its old residual (its push never reached the server)
+                kept = ({w: list(st["ef"][w]) for w in drop}
+                        if st["ef"] is not None else {})
                 if cfg.arch == "ps":
                     new, ef_new, sent_elems = plan.ps_exchange(
                         params, sent, st["ef"], self._generator(t, K), lr)
@@ -442,6 +469,8 @@ class DeviceEngine(ElasticWorkerSet):
                     avg, ef_new, sent_elems = plan.exchange(
                         sent, st["ef"], self._generator(t, K))
                 if ef_new is not None:
+                    for w, row in kept.items():
+                        ef_new[w] = row
                     st["ef"] = ef_new
                 nz = int(sent_elems.sum())
             elif cfg.arch == "ps":
@@ -619,6 +648,62 @@ class DeviceEngine(ElasticWorkerSet):
                 self._plan.measured_step_tx_bytes(self.cfg.arch)
             m["fp32_step_tx_bytes"] = self._plan.fp32_step_tx_bytes()
         return m
+
+    # --------------------------------------------------- elastic interface
+    def reshard(self, st, new_workers: int, step: int = 0,
+                lost: Tuple[int, ...] = ()):
+        """Re-size the worker set N->M in place and return the resharded
+        run-state.  Survivors (old slots minus ``lost``, in order) keep
+        their EF tensors (no copy) and batch clocks; grown slots start with
+        zero residuals at the batch frontier (ssp/asp) or at the
+        pre-reshard center (sma).  The comm plan depends on the worker
+        count and is re-planned at the next step."""
+        ef = st["ef"]
+        slots, grown = self._reshard_workers(new_workers, lost)
+        self._plan, self._ps_update = None, None
+        if ef is not None:
+            st["ef"] = [ef[s] for s in slots] + [
+                [torch.zeros_like(x) for x in ef[0]] for _ in range(grown)]
+        if self.cfg.sync in ("ssp", "asp"):
+            self._rebase_async(st, slots, grown, step)
+            st["batch_cache"] = [None] * new_workers
+        elif self.cfg.sync == "sma":
+            reps = st["replicas"]
+            center = tree_map(lambda *xs: torch.stack(xs).mean(0), *reps)
+            st["replicas"] = [reps[s] for s in slots] + [center] * grown
+        return st
+
+    def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """Split the run-state into (tensor tree, JSON-able meta) for
+        ``checkpoint.store``: the inverse of ``import_state``.  The batch
+        cache is dropped (batches are a pure function of (batch index,
+        worker)); ``ef`` is a list per worker of the reference's leaves,
+        where the reference stacks a worker axis."""
+        sync = self.cfg.sync
+        arrays: Dict[str, Any] = {"ef": st["ef"]}
+        if sync == "sma":
+            arrays["replicas"] = st["replicas"]
+        else:
+            arrays["params"] = st["params"]
+        if sync in ("ssp", "asp"):
+            arrays["pulled"] = st["pulled"]
+        return arrays, self._snapshot_meta("device", sync, st)
+
+    def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
+        """Rebuild the run-state from an ``export_state`` snapshot.  The
+        engine must already be configured at ``meta['num_workers']``."""
+        sync = self.cfg.sync
+        st: Dict[str, Any] = dict(ef=arrays["ef"])
+        self._load_snapshot_meta(meta, sync, st)
+        if sync == "sma":
+            st["replicas"] = arrays["replicas"]
+        else:
+            st["params"] = arrays["params"]
+        if sync in ("ssp", "asp"):
+            st.update(pulled=arrays["pulled"],
+                      batch_cache=[None] * self.cfg.num_workers)
+        self._wire_total = st["wire"]
+        return st
 
     def per_device_state_bytes(self, st) -> Dict[str, int]:
         """Persistent bytes per worker: plain SGD carries no optimizer

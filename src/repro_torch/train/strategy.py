@@ -18,9 +18,11 @@ every one on its backend:
 ``backend="auto"`` resolves to ``device``: the port's workers are logical,
 so one card holds any worker count (the reference falls back to ``sim``
 when the process has fewer devices than workers).  ``wire="measured"``
-needs the device backend.  Backup workers and straggler detection (ROADMAP
-queue A item 7), hybrid meshes (item 8) and elastic plans (item 7) parse
-and raise.
+needs the device backend.  ``bsp+backup:k`` drops the k slowest workers
+each round, ``+detect`` ranks them by measured step times, and
+``Trainer.fit(plan=...)`` runs under an elastic event plan
+(``elastic.recovery.fit_elastic``).  Hybrid mesh suffixes (``@8:d2.t2``)
+parse and raise (ROADMAP queue A item 6).
 
 ``kernel_backend`` is the port's seam (``auto``: the CUDA kernels for
 CUDA tensors, the plain versions for CPU tensors; ``kernel``; ``ref``),
@@ -187,7 +189,7 @@ class Strategy:
             if ":" in w:
                 raise NotImplementedError(
                     f"{spec!r}: hybrid mesh suffixes are not ported yet "
-                    "(ROADMAP queue A item 8)")
+                    "(ROADMAP queue A item 6)")
             fields["workers"] = int(w)
         parts = s.split("/") if s else [""]
         if not parts[0]:
@@ -296,6 +298,23 @@ class Engine:
         m.update(self.inner.extra_metrics())
         return m
 
+    # --------------------------------------------------- elastic interface
+    # (elastic.recovery drives these; every backend implements them)
+    def reshard(self, state, new_workers: int, step: int = 0,
+                lost: Tuple[int, ...] = ()):
+        # self.strategy stays the launched configuration: metrics() keeps
+        # reporting its spec, and the current size is the engine's
+        return self.inner.reshard(state, new_workers, step=step, lost=lost)
+
+    def set_slowdown(self, worker: int, factor: float):
+        self.inner.set_slowdown(worker, factor)
+
+    def export_state(self, state):
+        return self.inner.export_state(state)
+
+    def import_state(self, arrays, meta):
+        return self.inner.import_state(arrays, meta)
+
     def run(self, params, batches: Callable[[int, int], Any], steps: int):
         params, events, mets = fit(self, params, batches, steps)
         return params, events, mets["wire_bytes"]
@@ -360,8 +379,14 @@ def fit(engine: Engine, params, batches: Callable[[int, int], Any],
 class Trainer:
     """``Trainer(strategy).fit(grad_fn, params, batches, steps)`` builds
     the strategy's engine and drives it through the shared loop.  Returns
-    (params, history, metrics).  Elastic plans (``plan=``) are ROADMAP
-    queue A item 7."""
+    (params, history, metrics).
+
+    Passing ``plan`` (an ``elastic.events.EventPlan``, a typed plan, or a
+    spec string like ``"crash:w1@5,resize:4@10"``) routes the run through
+    the elastic trainer: the engine is snapshotted through
+    ``checkpoint.store`` into ``checkpoint_dir`` and lives through
+    crashes, resizes, restarts and straggler events in the same
+    process."""
 
     def __init__(self, strategy: Strategy, device="cuda"):
         self.strategy = strategy
@@ -369,6 +394,14 @@ class Trainer:
 
     def fit(self, grad_fn: Callable, params,
             batches: Callable[[int, int], Any], steps: int, *,
-            layout: Optional[LeafLayout] = None):
+            layout: Optional[LeafLayout] = None, plan=None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 5):
+        if plan is not None:
+            from repro_torch.elastic.recovery import fit_elastic
+            return fit_elastic(self.strategy, grad_fn, params, batches,
+                               steps, plan, checkpoint_dir=checkpoint_dir,
+                               checkpoint_every=checkpoint_every,
+                               layout=layout, device=self.device)
         engine = self.strategy.build(grad_fn, layout, self.device)
         return fit(engine, params, batches, steps)

@@ -705,3 +705,76 @@ def test_generate_on_cuda(cuda):
     ref = generate(model, tree_map(lambda t: t.cpu(), params), prompt, 10,
                    device="cpu")
     assert torch.equal(out.cpu(), ref)
+
+
+# ------------------------------------------------------- elastic training
+def _elastic_engine(cuda, spec):
+    from repro_torch.train import Strategy, value_and_grad
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    grad_fn = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, compute_dtype=torch.float32))
+    eng = Strategy.parse(spec, lr=0.01, bucket_mb=0.25).build(
+        grad_fn, layout=model.leaf_layout(params), device=cuda)
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=32, batch_size=2),
+                              device=cuda)
+    return eng, params, batches
+
+
+def test_device_reshard_keeps_survivor_ef_on_card(cuda):
+    """bsp+backup:1/allreduce/onebit@4 on the card (the kernels): a
+    dropped worker's EF is bitwise unchanged by its step, and a reshard
+    that loses worker 1 and grows back to 4 keeps the survivors' EF
+    tensors (the same tensors, bitwise) and gives the grown slot zeros."""
+    from repro_torch.kernels import onebit as K1
+    eng, params, batches = _elastic_engine(
+        cuda, "bsp+backup:1/allreduce/onebit@4")
+    st = eng.init(params)
+    K1.reset_launches()
+    st, _ = eng.step(st, batches, 0)
+    assert K1.LAUNCHES["onebit_encode_ef"] > 0
+    dropped = [x.clone() for x in st["ef"][3]]
+    st, (ev,) = eng.step(st, batches, 1)
+    assert ev["dropped"] == [3]
+    assert all(torch.equal(a, b) for a, b in zip(st["ef"][3], dropped))
+    rows = [list(r) for r in st["ef"]]
+    clones = [[x.clone() for x in r] for r in st["ef"]]
+    st = eng.reshard(st, 4, step=2, lost=(1,))
+    for slot, old in zip((0, 1, 2), (0, 2, 3)):
+        assert all(a is b and torch.equal(a, c) for a, b, c in
+                   zip(st["ef"][slot], rows[old], clones[old]))
+    assert all(x.device.type == "cuda" and not x.any() for x in st["ef"][3])
+    st, (ev,) = eng.step(st, batches, 2)
+    assert torch.isfinite(torch.tensor(ev["loss"]))
+
+
+def test_background_save_survives_inplace_step_on_card(cuda, tmp_path):
+    """export_state -> save_engine_state(background=True) -> a step and an
+    in-place update of every exported tensor -> join -> restore gives the
+    pre-step state bitwise: the device->host copy is taken before the
+    write thread starts."""
+    from repro_torch.core.tree import get_path, leaf_paths, tree_map
+    from repro_torch.elastic import restore_engine_state, save_engine_state
+    eng, params, batches = _elastic_engine(cuda, "bsp/allreduce/onebit@2")
+    st = eng.init(params)
+    st, _ = eng.step(st, batches, 0)
+    arrays, _ = eng.export_state(st)
+    want = tree_map(lambda x: x.clone(), arrays)
+    th = save_engine_state(str(tmp_path / "ck"), eng, st, 1,
+                           background=True)
+    st, _ = eng.step(st, batches, 1)
+    for path in leaf_paths(arrays):
+        get_path(arrays, path).mul_(-3.0).add_(1.0)
+    th.join(timeout=300)
+    assert not th.is_alive()
+    eng2, _, _ = _elastic_engine(cuda, "bsp/allreduce/onebit@2")
+    got, meta = restore_engine_state(str(tmp_path / "ck"), eng2, params)
+    assert meta["step"] == 1
+    got_arrays, _ = eng2.export_state(got)
+    assert leaf_paths(got_arrays) == leaf_paths(want)
+    for path in leaf_paths(want):
+        a, b = get_path(got_arrays, path), get_path(want, path)
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -323,8 +323,9 @@ def test_strategy_parse_and_cells():
 
 @pytest.mark.parametrize("spec,kw", [
     # ssp / asp / sma, arch="ps" and the simulator run
-    # (tests/test_torch_sync.py); what stays unported is backup workers
-    # and straggler detection on either backend, and hybrid meshes
+    # (tests/test_torch_sync.py), and so do backup workers and straggler
+    # detection on either backend (tests/test_torch_elastic.py); what
+    # stays unported is hybrid meshes
     ("bsp+backup:1/allreduce/none@4", {}), ("bsp+backup:1/ps/onebit@4", {}),
     ("bsp+detect/allreduce/none@4", {}),
     ("bsp+detect/ps/none@4", {"backend": "sim"}),
@@ -335,5 +336,12 @@ def test_strategy_parse_and_cells():
     ("bsp/ps/none@4:d4.z3.adamw", {}),
     ("bsp/ring/onebit@8:d2.t2.s2", {})])
 def test_unported_cells_raise(spec, kw):
-    with pytest.raises(NotImplementedError, match="queue A"):
-        Strategy.parse(spec, **kw).build(lambda p, b: None, device="cpu")
+    if ":d" in spec:
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            Strategy.parse(spec, **kw).build(lambda p, b: None, device="cpu")
+        return
+    strat = Strategy.parse(spec, **kw)
+    eng = strat.build(lambda p, b: None, device="cpu")
+    assert eng.backend == strat.resolve_backend()
+    assert eng.inner.cfg.backup == strat.backup
+    assert (eng.inner.detector is not None) == strat.detect
