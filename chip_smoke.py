@@ -212,6 +212,36 @@ runs; they make the kernels' "quickstart", "traced_serve" and
 Counts are zeroed just before phase 16 and read just after phase 17; they
 make the kernels' "elastic" launches.
 
+ 18. hybrid   parallel.HybridEngine through Strategy.parse and Trainer.fit.
+             (a) full-width TinyLlama-1.1B, fp32, 4 data slots of batch
+             2 x 256, each repeating its batch, AdamW lr 1e-4:
+             bsp/ps/none@4:d4.z1.adamw and .z3.adamw for 3 steps each:
+             losses, each within 1e-4 of plain AdamW (optim.adam, one
+             step over the whole tree on the slots' mean gradient, plain
+             attention, no kernel launched), the
+             z1-z3 loss gap (bound 1e-4), per_device_state_bytes equal to
+             parallel.zero.state_bytes_per_device (opt + the 4 B step
+             count), peak memory with the allocator reset between specs;
+             (b) bsp/ps/onebit@4:d4.z3.adamw in fp32 and .bf16 (the path
+             that launches flash_attention in both dtypes and
+             onebit_encode_ef): losses finite and the last below the
+             first, the warm step wall, the peak, and the same run on the
+             plain path (kernel_backend="ref", attn_backend="ref", no
+             kernel launched) within 1e-3 (fp32) and 1e-2 (bf16); the
+             compute dtype is the spec's precision; (c) the tensor and stage
+             axes: make_tiny_transformer(4, d_model=2048, d_ff=5632),
+             bsp/ring/none@8:d2.t2.s2 and ...m8.1f1b on 16 rows per data
+             slot for 4 steps, SGD lr 0.05, TF32 off: losses and
+             parameters within 1e-4 of the stacked reference on the card
+             (both slots' rows through stacked_grad_fn), analytic bubble
+             and ticks 0.2 / 5 (GPipe, 4 micro-batches) and 0.0588 / 17
+             (1F1B v2, 8 micro-batches).  hybrid_phases(cfg, dev, ...)
+             runs on the CPU too (cfg.reduced(), a short seq and a small
+             tiny model rehearse it).
+
+Counts are zeroed just before phase 18 and read just after it; they make
+the kernels' "hybrid" launches.
+
 Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
@@ -325,6 +355,21 @@ ELASTIC_BACKUP = ("bsp+backup:1/allreduce/onebit@4",
 ELASTIC_CRASH = ("bsp/allreduce/none@4", "crash:w1@4,resize:4@5", 6, 3)
 ELASTIC_RESTART = ("bsp/allreduce/onebit@4", "restart@3", 6)
 ELASTIC_ACCEPT = ("ssp:2/ring/onebit@4", "crash:w2@5,resize:4@10", 15, 3)
+# phase 18: the hybrid engine.  ZeRO AdamW at full width on 4 data slots,
+# each repeating its batch (lr small enough for Adam's first, sign-sized
+# steps on 1.1 B parameters); then the tiny transformer at TinyLlama's FFN
+# widths on d2.t2.s2, each mesh with its analytic bubble and ticks
+HYBRID_DATA, HYBRID_STEPS, HYBRID_LR = 4, 3, 1e-4
+HYBRID_ZERO = ("bsp/ps/none@4:d4.z1.adamw", "bsp/ps/none@4:d4.z3.adamw")
+HYBRID_ONEBIT = "bsp/ps/onebit@4:d4.z3.adamw"
+# precision suffix and the kernel-against-plain loss bound: fp32 that of
+# phase 7; bf16 ten times it (the kernel and the plain attention round
+# their bf16 products in other places)
+HYBRID_ONEBIT_TOL = (("", 1e-3), (".bf16", 1e-2))
+HYBRID_TINY, HYBRID_ROWS = (4, 2048, 5632), 16
+HYBRID_TINY_STEPS, HYBRID_TINY_LR = 4, 0.05
+HYBRID_MESHES = (("bsp/ring/none@8:d2.t2.s2", 0.2, 5),
+                 ("bsp/ring/none@8:d2.t2.s2.m8.1f1b", 0.0588, 17))
 # spec, steps, the worker whose batch fetch sleeps, the sleep (s)
 ELASTIC_DETECT = ("bsp+backup:1+detect/allreduce/onebit@4", 6, 1, 0.05)
 SCHED_SPEC, SCHED_STEPS = "ssp:1/allreduce/none@2", 8
@@ -720,6 +765,225 @@ def elastic_phases(cfg, dev, smi, arrivals, horizon, burn_times,
     print(f"walls (s) {dict((k, round(v, 2)) for k, v in walls.items())}; "
           f"card {smi}")
     return walls
+
+
+def hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
+                  tiny=HYBRID_TINY, rows=HYBRID_ROWS):
+    """Phase 18 (module docstring): the hybrid engine through
+    ``Strategy.parse`` and ``Trainer.fit`` on ``dev``: ZeRO-1/3 AdamW and
+    onebit ZeRO-3 on ``cfg`` at full depth, then the tensor and stage
+    axes on the tiny transformer at ``tiny`` = (layers, d_model, d_ff)
+    against its stacked reference (the CPU rehearses them at
+    ``cfg.reduced()``, a short ``seq`` and a small ``tiny``)."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import onebit as K1
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import (make_tiny_transformer,
+                                      stacked_grad_fn,
+                                      state_bytes_per_device)
+    from repro_torch.train import Strategy, Trainer, value_and_grad
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    class Captured(Strategy):
+        """A Strategy whose engine reports its state and plan at
+        ``finalize`` (Trainer.fit's last call into it)."""
+
+        def build(self, grad_fn, layout=None, device="cuda"):
+            eng = Strategy.build(self, grad_fn, layout, device)
+            fin = eng.finalize
+
+            def finalize(st):
+                info.update(state=eng.inner.per_device_state_bytes(st),
+                            plan=eng.inner.plan)
+                return fin(st)
+            eng.finalize = finalize
+            return eng
+
+    def fit(label, spec, model, params, data, steps, lr, layout=None,
+            **kw):
+        """Captured.parse(spec, **kw) through Trainer.fit; step walls are
+        read where the engine asks for data slot 0's batch, after a
+        synchronize.  Returns (params, losses, info)."""
+        info.clear()
+        marks = []
+
+        def timed(t, w):
+            if w == 0:
+                sync()
+                marks.append(time.perf_counter())
+            return data(t, w)
+
+        sync()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        p, hist, mets = Trainer(Captured.parse(spec, lr=lr, **kw),
+                                device=dev).fit(model, params, timed, steps,
+                                                layout=layout)
+        sync()
+        marks.append(time.perf_counter())
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        losses = [h["loss"] for h in hist]
+        ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        info.update(mets=mets, ms=ms, peak=peak)
+        print(f"{label} {spec}, {steps} steps: losses "
+              f"{[round(x, 6) for x in losses]}; step walls "
+              f"{[round(x, 1) for x in ms]} ms; peak device memory "
+              f"{peak / 2**30:.2f} GiB")
+        return p, losses, dict(info)
+
+    info = {}
+    # --------------------------- 18a/b: ZeRO on the full-width model
+    phase(f"hybrid: ZeRO-1/3 AdamW, full-width {cfg.name} "
+          f"({cfg.num_layers} layers), {HYBRID_DATA} data slots")
+    m = build_model(cfg)
+    params = m.init(seed=0, dtype=torch.float32, device=dev)
+    layout = m.leaf_layout(params)
+    lm = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, batch_size=batch),
+                         device=dev)
+    fixed = [lm(0, w) for w in range(HYBRID_DATA)]
+
+    def same(t, w):
+        return fixed[w]
+
+    def grad_fn(model, spec):
+        """The model's loss in the compute dtype ``spec``'s precision
+        names (bf16 for .bf16 / .bf16r, on the engine's fp32 masters)."""
+        dtype = (torch.float32 if Strategy.parse(spec).precision == "fp32"
+                 else torch.bfloat16)
+        return value_and_grad(lambda pp, b: model.loss_fn(
+            pp, b, compute_dtype=dtype))
+
+    def launches():
+        return dict(FA.LAUNCHES), dict(K1.LAUNCHES)
+
+    # the plain data-parallel reference: the data slots' mean gradient and
+    # one AdamW step (optim.adam) over the whole tree, no mesh and no ZeRO,
+    # on the plain attention
+    ref_m = build_model(dataclasses.replace(cfg, attn_backend="ref"))
+    gf, adam = grad_fn(ref_m, HYBRID_ZERO[0]), AdamW()
+    before = launches()
+    ref_p = tree_map(torch.clone, params)
+    opt, plain = adam.init(ref_p), []
+    for _ in range(HYBRID_STEPS):
+        acc, ls = None, []
+        for w in range(HYBRID_DATA):
+            loss, g = gf(ref_p, fixed[w])
+            ls.append(float(loss))
+            acc = g if acc is None else tree_map(torch.Tensor.add_, acc, g)
+            del g
+        adam.step(ref_p, tree_map(lambda a: a.div_(HYBRID_DATA), acc), opt,
+                  HYBRID_LR)
+        plain.append(sum(ls) / HYBRID_DATA)
+        del acc
+    del ref_p, opt
+    assert launches() == before, "plain path ran a kernel"
+    print(f"18a plain AdamW over the mean gradient of {HYBRID_DATA} slots "
+          f"(plain attention, no kernel launched), {HYBRID_STEPS} steps: "
+          f"losses {[round(x, 6) for x in plain]}")
+
+    zero_losses = {}
+    for spec in HYBRID_ZERO:
+        p, losses, inf = fit("18a", spec, grad_fn(m, spec),
+                             params, same, HYBRID_STEPS, HYBRID_LR, layout)
+        del p      # the run's parameters leave before the next run's peak
+        st = Strategy.parse(spec)
+        want = state_bytes_per_device(inf["plan"], st.zero, st.optimizer,
+                                      st.moments)
+        got = inf["state"]
+        print(f"  per_device_state_bytes {got}; state_bytes_per_device "
+              f"{want} (opt + the 4 B step count)")
+        assert got["params"] == want["params"]
+        assert got["opt"] == want["opt"] + 4
+        assert all(math.isfinite(x) for x in losses)
+        zero_losses[spec] = losses
+        gap = max(abs(a - b) for a, b in zip(losses, plain))
+        print(f"  against plain AdamW: loss gap {gap:.3e} (bound 1e-4)")
+        assert gap <= 1e-4
+    gap = max(abs(a - b) for a, b in zip(*zero_losses.values()))
+    print(f"  z1-z3 loss gap {gap:.3e} (bound 1e-4)")
+    assert gap <= 1e-4
+
+    phase(f"hybrid: {HYBRID_ONEBIT}, fp32 and bf16, full-width {cfg.name}")
+    for suffix, tol in HYBRID_ONEBIT_TOL:
+        spec = HYBRID_ONEBIT.replace(".adamw", suffix + ".adamw")
+        p, losses, inf = fit("18b", spec, grad_fn(m, spec), params,
+                             same, HYBRID_STEPS, HYBRID_LR, layout)
+        del p
+        print(f"  warm step wall {statistics.mean(inf['ms'][1:]):.1f} ms")
+        assert all(math.isfinite(x) for x in losses)
+        assert losses[-1] < losses[0]
+        # the same run on the plain path: no kernel launched
+        before = launches()
+        p, plain, _ = fit("18b plain path", spec, grad_fn(ref_m, spec),
+                          params, same, HYBRID_STEPS, HYBRID_LR, layout,
+                          kernel_backend="ref")
+        del p
+        assert launches() == before, "plain path ran a kernel"
+        gap = max(abs(a - b) for a, b in zip(losses, plain))
+        print(f"  |kernel - plain| loss gap {gap:.3e} (bound {tol})")
+        assert gap <= tol
+    del params, fixed, m, ref_m
+    # ---------------------- 18c: the tensor and stage axes, tiny model
+    layers, d_model, d_ff = tiny
+    phase(f"hybrid: d2.t2.s2 GPipe and 1F1B, make_tiny_transformer("
+          f"{layers}, d_model={d_model}, d_ff={d_ff}), {rows} rows per slot")
+    params, model = make_tiny_transformer(layers, d_model, d_ff, seed=0,
+                                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    w_t = torch.randn(d_model, d_model, generator=gen, device=dev) \
+        / math.sqrt(d_model)
+    xs = [[torch.randn(rows, d_model, generator=gen, device=dev)
+           for _ in range(2)] for _ in range(HYBRID_TINY_STEPS)]
+    tiny_batches = [[{"x": x, "y": torch.tanh(x @ w_t)} for x in row]
+                    for row in xs]
+
+    def tiny_data(t, w):
+        return tiny_batches[t][w]
+
+    # the stacked reference: both slots' rows through the unpipelined,
+    # unsharded model, SGD on the mean gradient
+    ref_p, ref_losses = dict(params), []
+    gf = stacked_grad_fn(model)
+    for t in range(HYBRID_TINY_STEPS):
+        cat = {k: torch.cat([tiny_data(t, w)[k] for w in range(2)])
+               for k in ("x", "y")}
+        loss, g = gf(ref_p, cat)
+        ref_losses.append(float(loss))
+        ref_p = {k: ref_p[k] - HYBRID_TINY_LR * g[k] for k in ref_p}
+    for spec, bubble, ticks in HYBRID_MESHES:
+        p, losses, inf = fit("18c", spec, model, params, tiny_data,
+                             HYBRID_TINY_STEPS, HYBRID_TINY_LR)
+        plan, v = inf["plan"], inf["mets"].get("interleave", 1)
+        if ".1f1b" in spec:
+            got_b = PL.onefb_bubble_fraction(2, plan.micro, v)
+            got_t = PL.onefb_ticks(2, plan.micro, v)
+        else:
+            got_b = PL.bubble_fraction(2, plan.micro)
+            got_t = PL.gpipe_ticks(2, plan.micro)
+        dl = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        dp = max(float((p[k] - ref_p[k]).abs().max()) for k in p)
+        print(f"  micro {plan.micro}, v {v}: analytic_bubble "
+              f"{round(got_b, 4)}, modeled_step_ticks {got_t}; against the "
+              f"stacked reference: losses {dl:.3e}, parameters {dp:.3e} "
+              f"(bound 1e-4; TF32 off)")
+        assert (round(got_b, 4), got_t) == (bubble, ticks)
+        assert dl <= 1e-4 and dp <= 1e-4
+        del p
+    del params, ref_p, tiny_batches
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"card {smi}")
 
 
 def main() -> int:
@@ -1904,6 +2168,12 @@ def main() -> int:
     elastic_launches = read_all()
     print(f"launches of phases 16-17 {elastic_launches}")
 
+    # ------------------------------------------------------------ 18 hybrid
+    reset_all()
+    hybrid_phases(cfg, dev, smi)
+    hybrid_launches = read_all()
+    print(f"launches of phase 18 {hybrid_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -1931,7 +2201,8 @@ def main() -> int:
                       "quickstart": quick_launches[name],
                       "traced_serve": serve_launches[name],
                       "traced_train": traced_launches[name],
-                      "elastic": elastic_launches[name]}
+                      "elastic": elastic_launches[name],
+                      "hybrid": hybrid_launches[name]}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
@@ -1949,6 +2220,8 @@ def main() -> int:
     assert by_path["onebit_encode_ef"]["traced_train"] > 0
     assert by_path["flash_attention"]["elastic"] > 0
     assert by_path["onebit_encode_ef"]["elastic"] > 0
+    assert by_path["flash_attention"]["hybrid"] > 0
+    assert by_path["onebit_encode_ef"]["hybrid"] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

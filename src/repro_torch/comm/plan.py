@@ -31,8 +31,11 @@ A plan is built once per (leaf shapes × worker count) and owns:
 an encoded ring reduce-scatter, SGD on each worker's shard and an exact
 all-gather (``core.parameter_server``).  ``hop_model`` and
 ``emit_trace`` put the exchange a step ran onto the trace timeline
-(``obs.trace``) as the plan's own model of it.  Not ported yet: the bf16
-reduce words (the JAX package's ``reduce_dtype``), so ``word_bytes`` is 4.
+(``obs.trace``) as the plan's own model of it.  ``reduce_dtype`` is the
+dtype gradients travel in on the uncompressed exchange: "bfloat16" (the
+hybrid engine's ``bf16r`` precision) rounds the pushed words to bf16 and
+halves the exact schedules' bytes (``word_bytes`` 2); codec planes and
+the parameter all-gathers are unaffected.
 """
 from __future__ import annotations
 
@@ -89,6 +92,15 @@ def plan_buckets(leaf_shapes: Sequence[Shape], bucket_mb: float, order: str,
     return buckets, order_idx, fused
 
 
+def modeled_event_bytes(compressor: Compressor,
+                        leaf_shapes: Sequence[Shape]) -> int:
+    """The compressor's analytic per-push accounting over leaves of
+    ``leaf_shapes`` (what ``Compressor.roundtrip`` and the simulator
+    report): the one implementation every engine's modeled wire
+    increment uses."""
+    return sum(compressor.wire_bytes(tuple(s)) for s in leaf_shapes)
+
+
 def scatter_flat(flat, idxs, leaf_shapes, out):
     """Split a fused bucket vector back into its leaves (into ``out``)."""
     off = 0
@@ -134,6 +146,11 @@ class CommPlan:
     fused: List[LayerCost]
     leaf_shapes: List[Shape]
     link: LinkModel = LinkModel()
+    # dtype gradients travel in on the uncompressed exchange: "bfloat16"
+    # halves the wire words of the exact schedules (codec payloads are
+    # already quantized planes and are unaffected; parameter all-gathers
+    # always travel exact fp32)
+    reduce_dtype: str = "float32"
 
     @classmethod
     def plan(cls, leaf_shapes: Sequence[Shape], *, n: int,
@@ -141,7 +158,8 @@ class CommPlan:
              compressor: Compressor = Compressor("none"),
              wire: str = "modeled", bucket_mb: float = 4.0,
              order: str = "tictac", back_s_per_byte: float = 2e-12,
-             seed: int = 0, link: LinkModel = LinkModel()) -> "CommPlan":
+             seed: int = 0, link: LinkModel = LinkModel(),
+             reduce_dtype: str = "float32") -> "CommPlan":
         if wire not in WIRE_MODES:
             raise ValueError(f"wire={wire!r} (want {WIRE_MODES})")
         if topology not in SCHEDULES:
@@ -151,7 +169,8 @@ class CommPlan:
             shapes, bucket_mb, order, back_s_per_byte, seed)
         return cls(n=n, topology=topology, compressor=compressor, wire=wire,
                    buckets=buckets, order=order_idx, fused=fused,
-                   leaf_shapes=shapes, link=link)
+                   leaf_shapes=shapes, link=link,
+                   reduce_dtype=reduce_dtype)
 
     # ------------------------------------------------------------ derived
     @property
@@ -166,8 +185,9 @@ class CommPlan:
 
     @property
     def word_bytes(self) -> int:
-        """Bytes per word of the uncompressed gradient exchange: fp32."""
-        return 4
+        """Bytes per word of the uncompressed gradient exchange (4 fp32,
+        2 when ``reduce_dtype="bfloat16"``)."""
+        return getattr(torch, self.reduce_dtype).itemsize
 
     def _exact_tx(self, codec, length: int) -> float:
         """``static_tx_bytes`` with the exchange's word width applied to
@@ -197,10 +217,13 @@ class CommPlan:
         mean leaves come back once.  The bucket's leaves are dropped from
         ``grads`` as soon as they are fused."""
         reduce_leaf = SCHEDULES[self.topology]
+        rdt = getattr(torch, self.reduce_dtype)
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
         for b in self.order:                   # the executed schedule
             flat = self._fuse(grads, b, self.bucket_len(b))
-            red = reduce_leaf(flat)[0] / self.n
+            if rdt != torch.float32:
+                flat = flat.to(rdt)            # the bf16 wire words
+            red = reduce_leaf(flat)[0].float() / self.n
             del flat
             scatter_flat(red, self.buckets[b], self.leaf_shapes, out)
         return out
@@ -389,7 +412,7 @@ class CommPlan:
         """The compressor's analytic per-push accounting over the plan's
         leaves (what ``roundtrip`` reports; the ``wire="modeled"`` step
         increment per worker)."""
-        return sum(self.compressor.wire_bytes(s) for s in self.leaf_shapes)
+        return modeled_event_bytes(self.compressor, self.leaf_shapes)
 
     def measured_step_tx_bytes(self, arch: str = "allreduce") -> int:
         """Shape-static measured bytes ONE worker puts on the wire per BSP
@@ -399,19 +422,23 @@ class CommPlan:
         ``measured_bytes(sent_elems)`` for dgc."""
         codec = self.codec if self.in_schedule else codec_for(
             Compressor("none"))
-        if arch == "ps":
-            total = 0.0
-            for b in range(len(self.buckets)):
-                m = pad_for_schedule(self.bucket_len(b), self.n) // self.n
-                rs = (self.n - 1) * codec.static_tx_bytes(m)
+        # bf16 reduce halves the exact codec's wire words (its accounting
+        # is linear in length, so scaling the schedule total is exact);
+        # lossy planes and the fp32 parameter all-gather are unaffected
+        scale = (self.word_bytes / 4
+                 if codec.exact and self.word_bytes != 4 else 1.0)
+        total = 0.0
+        for b in range(len(self.buckets)):
+            P = pad_for_schedule(self.bucket_len(b), self.n)
+            if arch == "ps":
+                m = P // self.n
+                rs = (self.n - 1) * codec.static_tx_bytes(m) * scale
                 ag = (self.n - 1) * 4 * m          # params travel exact
                 total += rs + ag
-            return int(total)
-        return int(sum(
-            schedule_tx_bytes(self.topology, self.n,
-                              pad_for_schedule(self.bucket_len(b), self.n),
-                              codec)
-            for b in range(len(self.buckets))))
+            else:
+                total += schedule_tx_bytes(self.topology, self.n, P,
+                                           codec) * scale
+        return int(total)
 
     def measured_bytes(self, sent_elems: int) -> int:
         """Data-dependent measured bytes of ``sent_elems`` sparse elements

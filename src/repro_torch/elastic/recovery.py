@@ -127,8 +127,8 @@ def _engine_workers(engine) -> int:
 
 def _engine_streams(engine) -> int:
     """Batch streams the engine consumes: the data-parallel slot count.
-    For the flat engines that equals the worker count; a hybrid engine
-    (ROADMAP queue A item 6) spreads its workers over tensor/stage axes
+    For the flat engines that equals the worker count; the hybrid engine
+    (``parallel.HybridEngine``) spreads its workers over tensor/stage axes
     too and exposes the data axis as ``data_streams``."""
     inner = getattr(engine, "inner", engine)
     return getattr(inner, "data_streams", inner.cfg.num_workers)
@@ -376,7 +376,7 @@ def fit_elastic(strategy, grad_fn: Callable, params,
                         # a flat engine loses one worker; a hybrid mesh
                         # loses the dead device's whole tensor*stage
                         # block (one data replica) — the engine knows
-                        # (``crash_plan``, ROADMAP queue A item 6)
+                        # (``parallel.HybridEngine.crash_plan``)
                         inner = getattr(engine, "inner", engine)
                         if hasattr(inner, "crash_plan"):
                             survivors, lost = inner.crash_plan(ev.worker)

@@ -1,0 +1,1127 @@
+"""The hybrid-parallel engine: one train step over a data x tensor x stage
+mesh of logical devices, with ZeRO-sharded optimizer state (the JAX
+package's ``parallel/engine.py``).
+
+``HybridEngine`` composes the three parallelization methods of the
+survey's §3.2 into one step:
+
+  stage axis    ``core.pipeline``'s GPipe or interleaved-1F1B micro-batch
+                schedule: each stage device holds a contiguous chunk of
+                layers, activations hop stage to stage, and autograd runs
+                the reverse pipeline (the graph is never cut between
+                stages).
+  tensor axis   ``core.parallelism``'s role rules made explicit: each leaf
+                is cut on its role dimension (column-parallel on the output
+                dim, row-parallel on the input dim) and the StagedModel
+                places the two Megatron collectives (``parallel.staged``).
+  data axis     the bucketed / compressed / error-feedback exchange of
+                ``comm.plan`` over the same bucket planner as the pure
+                data-parallel engine, either as a topology-explicit
+                allreduce (z0) or through the reduce-scatter / shard-update
+                / all-gather ZeRO path of ``core.parameter_server`` (z1-z3,
+                ``parallel.zero``).
+
+**Logical devices.**  The reference runs one XLA program per device under
+``shard_map``; here all D x T x S logical devices compute on the one
+``device`` the engine runs on.  A data slot's forward and backward run
+one after another (as the device engine's workers), its T tensor ranks as
+dimension 0 of every tensor-sharded tensor, its S stages as the entries
+of the pipeline's stage list.  What each logical device owns:
+
+  * replicated state is held once: the parameters under z0-z2 (a tree
+    like the caller's, every device's block a view of it) and, under z0,
+    the AdamW moments;
+  * sharded state is one tensor with the device grid in its leading dims:
+    under z3 the parameters and under z1-z3 the moments, ``[D, S, T, m]``
+    per bucket (device (d, t, s) owns row ``[d, s, t]``, the reference's
+    ``P(DATA, STAGE, TENSOR)``), and the EF residuals, ``[D, S, T,
+    *block]`` per leaf;
+  * the gradients of one step: one full set per data slot (T x S blocks
+    of it), freed bucket by bucket as the exchange consumes them.
+
+``per_device_state_bytes`` divides each tensor by the devices it is
+shared over, so it equals ``parallel.zero.state_bytes_per_device`` (plus
+the AdamW step count, 4 B) however the state is stored.
+
+The engine speaks the Engine / elastic protocol of the other backends
+(init / step / finalize, export_state / import_state / reshard,
+crash_plan, data_streams), so ``Trainer.fit(plan=...)`` recovers and
+resizes hybrid runs; resizing rebuilds the *data* axis (tensor x stage
+geometry is a property of the model and survives).  sync=ssp/asp replays
+the simulator's staleness schedule per data slot and sma keeps a replica
+per data slot; both need stage=1, zero=0, sgd and fp32.
+
+Random draws (the stochastic codecs) come from ``torch.Generator``s
+seeded from (seed, step, device); the reference folds every axis index
+into one JAX key, so only the deterministic methods (``none``,
+``onebit``, ``dgc``) are draw for draw comparable with it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.comm.codecs import SPARSE_ELEM_BYTES, codec_for, make_codec
+from repro_torch.comm.plan import (CommPlan, fuse, modeled_event_bytes,
+                                   scatter_flat)
+from repro_torch.comm.transport import (compressed_allreduce,
+                                        compressed_reduce_scatter,
+                                        schedule_tx_bytes)
+from repro_torch.core.compression import EF_METHODS, Compressor
+from repro_torch.core.parameter_server import shard_of_flat
+from repro_torch.core.pipeline import (bubble_fraction, gpipe_forward,
+                                       gpipe_ticks, onefb_bubble_fraction,
+                                       onefb_forward, onefb_ticks)
+from repro_torch.core.precision import policy_for
+from repro_torch.core.sync import default_periods, event_generator
+from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
+from repro_torch.launch.mesh import make_hybrid_mesh
+from repro_torch.obs.trace import get_recorder
+from repro_torch.parallel.mesh_plan import MeshPlan, MeshSpec, plan_mesh
+from repro_torch.parallel.staged import StagedModel, is_staged_model
+from repro_torch.parallel.zero import (flatten_bucket, init_opt_state,
+                                       make_optimizer_step,
+                                       make_zero_bucket_update,
+                                       state_bytes_per_device,
+                                       wire_bytes_per_device)
+from repro_torch.train.data_parallel import async_replay_step
+
+ASYNC_SYNCS = ("ssp", "asp")
+
+
+def emit_pipeline_trace(rec, stages: int, micro: int, *,
+                        schedule: str = "gpipe", interleave: int = 1,
+                        pid: str = "pipeline", clock=None) -> None:
+    """The pipeline schedule this step executed, as trace spans on the
+    deterministic tick clock: a ``pipe`` parent span on
+    ``pipeline/schedule`` carrying the schedule's analytic bubble
+    fraction, and per-stage tracks ``stage<s>`` with one span per tick:
+    ``mb<k>`` while the stage device computes micro-batch k, ``bubble``
+    for the fill/drain ticks where it sits idle.  Under GPipe stage s
+    holds micro k = tick - s; under (interleaved) 1F1B device i is busy
+    for its ``v * m`` consecutive chunk calls from tick i, computing micro
+    ``(tick - i) mod m``.  This is the plan's own model of the schedule
+    (``obs.analyze.pipeline_accounting`` measures the bubble back off
+    these spans)."""
+    if not rec.enabled:
+        return
+    if schedule == "1f1b":
+        v = interleave
+        ticks = onefb_ticks(stages, micro, v)
+        analytic = onefb_bubble_fraction(stages, micro, v)
+    else:
+        v = 1
+        ticks = gpipe_ticks(stages, micro)
+        analytic = bubble_fraction(stages, micro)
+    rec.begin("pipe", pid=pid, tid="schedule", cat="pipeline", clock=clock,
+              stages=stages, micro=micro, ticks=ticks, schedule=schedule,
+              interleave=v, analytic_bubble=round(analytic, 6))
+    for s in range(stages):
+        tid = f"stage{s}"
+        for k in range(ticks):
+            if schedule == "1f1b":
+                active = s <= k < s + v * micro
+                mb = (k - s) % micro
+            else:
+                mb = k - s
+                active = 0 <= mb < micro
+            rec.begin(f"mb{mb}" if active else "bubble", pid=pid, tid=tid,
+                      cat="pipeline", clock=("pipe_tick", k), stage=s)
+            rec.end(pid=pid, tid=tid)
+    rec.end(pid=pid, tid="schedule")
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    mesh: MeshSpec = MeshSpec()
+    lr: float = 0.1
+    compressor: Compressor = Compressor("none")
+    zero: int = 0                    # ZeRO level 0-3 (data-axis sharding)
+    optimizer: str = "sgd"           # sgd | adamw
+    topology: str = "ring"           # z0 data-axis allreduce schedule
+    bucket_mb: float = 4.0
+    order: str = "tictac"
+    micro_batches: int = 0           # 0 = auto (2*stages when pipelined)
+    schedule: str = "gpipe"          # pipeline schedule: gpipe | 1f1b
+    interleave: int = 0              # 1f1b virtual stages/device (0 = auto 2)
+    precision: str = "fp32"          # fp32 | bf16 | bf16r (core.precision)
+    moments: str = "float32"         # AdamW EMA storage: float32 | bfloat16
+    # sync model over the DATA axis: bsp natively; ssp/asp replay the
+    # simulator's staleness schedule per data slot, sma keeps a replica
+    # per data slot; all three need stage=1, zero=0, sgd
+    sync: str = "bsp"
+    staleness: int = 3
+    periods: Optional[Tuple[int, ...]] = None   # per data-slot speeds
+    sma_mu: float = 0.1
+    wire: str = "modeled"            # modeled | measured
+    seed: int = 0
+
+    @property
+    def num_workers(self) -> int:
+        """Total logical devices: the elastic layer's worker count."""
+        return self.mesh.size
+
+
+class HybridEngine:
+    """BSP over a d x t x s mesh of logical devices with ZeRO-0/1/2/3
+    state sharding (module docstring).
+
+    The model is either a plain ``grad_fn(params, batch) -> (loss,
+    grads)`` (pure data axis: the mesh must be dK.t1.s1; ``layout`` maps
+    its tree onto the reference's leaves, as for ``DeviceEngine``) or a
+    ``StagedModel`` with stage-stacked params (any mesh).
+    ``batches(t, w)`` is keyed by *data-parallel slot* w in [0,
+    mesh.data): the tensor and stage axes share the slot's batch."""
+
+    def __init__(self, cfg: HybridConfig, model,
+                 layout: Optional[LeafLayout] = None, device="cuda"):
+        if cfg.zero not in (0, 1, 2, 3):
+            raise ValueError(f"zero={cfg.zero} (want 0..3)")
+        if cfg.optimizer not in ("sgd", "adamw"):
+            raise ValueError(f"optimizer={cfg.optimizer!r}")
+        if cfg.sync not in ("bsp",) + ASYNC_SYNCS + ("sma",):
+            raise ValueError(f"sync={cfg.sync!r}")
+        if cfg.wire not in ("modeled", "measured"):
+            raise ValueError(f"wire={cfg.wire!r}")
+        if cfg.sync != "bsp" and (cfg.mesh.stage != 1 or cfg.zero
+                                  or cfg.optimizer != "sgd"):
+            raise ValueError(
+                f"sync={cfg.sync!r} composes with the data axis only: "
+                "needs stage=1, zero=0, optimizer='sgd'")
+        if cfg.schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"schedule={cfg.schedule!r} (want gpipe|1f1b)")
+        if cfg.schedule == "1f1b" and cfg.mesh.stage < 2:
+            raise ValueError(
+                "schedule='1f1b' needs a pipeline (mesh stage >= 2)")
+        if cfg.interleave and cfg.schedule != "1f1b":
+            raise ValueError(
+                f"interleave=v{cfg.interleave} only applies to the 1f1b "
+                "schedule")
+        if cfg.interleave < 0:
+            raise ValueError(f"interleave={cfg.interleave} (want >= 1)")
+        if cfg.moments not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"moments={cfg.moments!r} (want float32|bfloat16)")
+        self._policy = policy_for(cfg.precision)   # raises on unknown name
+        if cfg.sync != "bsp" and cfg.precision != "fp32":
+            raise ValueError(
+                f"sync={cfg.sync!r} cells run fp32 (precision="
+                f"{cfg.precision!r} composes with BSP only)")
+        # effective 1f1b interleave: v virtual stages per device
+        self._v = (cfg.interleave or 2) if cfg.schedule == "1f1b" else 1
+        self.staged = is_staged_model(model)
+        if not self.staged and not cfg.mesh.is_trivial:
+            raise ValueError(
+                f"mesh {cfg.mesh.spec()} has tensor/stage axes; pass a "
+                "repro_torch.parallel.StagedModel (a bare grad_fn cannot "
+                "be pipelined or tensor-sharded)")
+        self.cfg = cfg
+        self.model: Optional[StagedModel] = model if self.staged else None
+        self.grad_fn: Optional[Callable] = None if self.staged else model
+        self.layout = layout
+        self.device = torch.device(device)
+        self.mesh = make_hybrid_mesh(cfg.mesh.data, cfg.mesh.tensor,
+                                     cfg.mesh.stage)
+        self.plan: Optional[MeshPlan] = None
+        self.periods = cfg.periods or default_periods(cfg.mesh.data)
+        assert len(self.periods) == cfg.mesh.data
+        self.slowdowns: List[float] = [1.0] * cfg.mesh.data
+        self._act_cell: List[int] = []
+        self._comm: Optional[CommPlan] = None
+        self._dev_event_bytes: Optional[int] = None
+        self._measured_tx: Optional[int] = None
+        self._event_wire: Optional[int] = None
+        self._wire_total = 0
+        self._skeleton = None
+        self._full_shapes: List[Tuple[int, ...]] = []
+
+    # ------------------------------------------------------------ helpers
+    @property
+    def data_streams(self) -> int:
+        """Batch streams the engine consumes (the data axis size): the
+        elastic layer keys ``ElasticBatches`` on this, not on the total
+        device count."""
+        return self.cfg.mesh.data
+
+    @property
+    def _ef_active(self) -> bool:
+        return self.cfg.compressor.method in EF_METHODS
+
+    def _ensure_plan(self, params) -> MeshPlan:
+        if self.plan is None:
+            if self.layout is None:
+                self.layout = LeafLayout.of_tree(params)
+            self.plan = plan_mesh(
+                params, self.cfg.mesh, staged=self.staged,
+                bucket_mb=self.cfg.bucket_mb, order=self.cfg.order,
+                micro_batches=self.cfg.micro_batches, seed=self.cfg.seed,
+                layout=self.layout)
+            self._full_shapes = [tuple(s) for s in
+                                 self.layout.shapes(params)]
+            self._skeleton = tree_map(lambda x: None, params)
+            if self.cfg.schedule == "1f1b":
+                s = self.cfg.mesh.stage
+                if self.plan.micro < s:
+                    raise ValueError(
+                        f"1f1b needs micro_batches >= stages (got "
+                        f"m={self.plan.micro} < s={s}); the wrap-link "
+                        "FIFO gap m - s must be >= 0")
+                chunk = self.plan.local_shapes[0][0]
+                if chunk % self._v:
+                    raise ValueError(
+                        f"1f1b interleave v{self._v}: per-stage layer "
+                        f"count {chunk} not divisible into v virtual "
+                        "stages")
+        return self.plan
+
+    def _tree(self, leaves):
+        """A tree like the caller's parameters over ``leaves`` (layout
+        order); stacked leaves are split into views of their rows."""
+        return self.layout.update(self._skeleton, leaves, lambda _, x: x)
+
+    def _generator(self, t: int, idx: int) -> torch.Generator:
+        return event_generator(self.cfg.seed, t, idx, self.device)
+
+    # ------------------------------------------- 1f1b virtual-stage layout
+    def _stage_perm(self, n_rows: int) -> np.ndarray:
+        """Row permutation of a globally stacked leaf for interleaved 1F1B:
+        device i must hold virtual stages {c*S + i | c < v} as its v
+        contiguous local chunks (chunk-major), so the contiguous stage
+        slicing of ``_block`` hands every device exactly the layers
+        ``onefb_forward``'s per-chunk slice expects."""
+        s, v = self.cfg.mesh.stage, self._v
+        cl = n_rows // (s * v)
+        idx: List[int] = []
+        for i in range(s):
+            for c in range(v):
+                vs = c * s + i
+                idx.extend(range(vs * cl, (vs + 1) * cl))
+        return np.asarray(idx)
+
+    def _permute_stacked(self, params, inverse: bool = False):
+        """Reorder stacked-leaf rows into (or back out of) the 1f1b
+        virtual-stage layout.  Identity for gpipe / v=1."""
+        if not self.staged or self._v == 1:
+            return params
+
+        def f(leaf):
+            perm = self._stage_perm(leaf.shape[0])
+            if inverse:
+                perm = np.argsort(perm)
+            return leaf[torch.as_tensor(perm, device=leaf.device)]
+        return tree_map(f, params)
+
+    # -------------------------------------------------- device blocks
+    def _block(self, leaf: torch.Tensor, i: int, s: int, t: int):
+        """Device (s, t)'s block of stacked leaf ``i`` (a view): a
+        contiguous chunk of layers along dim 0 and a role-dim slice along
+        the tensor axis."""
+        x = leaf
+        if self.staged:
+            chunk = x.shape[0] // self.cfg.mesh.stage
+            x = x[s * chunk:(s + 1) * chunk]
+        td = self.plan.tensor_dims[i]
+        if self.cfg.mesh.tensor > 1 and td is not None:
+            m = x.shape[td] // self.cfg.mesh.tensor
+            x = x.narrow(td, t * m, m)
+        return x
+
+    def _grid(self):
+        S, T = self.cfg.mesh.stage, self.cfg.mesh.tensor
+        return [(s, t) for s in range(S) for t in range(T)]
+
+    def _locals(self, leaves) -> Dict[Tuple[int, int], List[torch.Tensor]]:
+        """Every device's (s, t) block list of full ``leaves``; the leaves
+        themselves when the mesh has one (s, t) block."""
+        if self.cfg.mesh.is_trivial:
+            return {(0, 0): leaves}
+        return {st: [self._block(x, i, *st) for i, x in enumerate(leaves)]
+                for st in self._grid()}
+
+    def _assemble(self, blocks) -> List[torch.Tensor]:
+        """Full leaves from every device's (s, t) block list (inverse of
+        ``_locals``)."""
+        if self.cfg.mesh.is_trivial:
+            return blocks[(0, 0)]
+        ref = blocks[(0, 0)]
+        full = [torch.empty(shape, dtype=ref[i].dtype, device=ref[i].device)
+                for i, shape in enumerate(self._full_shapes)]
+        for st, lst in blocks.items():
+            for i, x in enumerate(lst):
+                self._block(full[i], i, *st).copy_(x)
+        return full
+
+    def _bucket_flat(self, leaves, b: int, s: int, t: int) -> torch.Tensor:
+        """Flat (s, t)-local bucket vector of full ``leaves``, padded to
+        a multiple of the data axis."""
+        plan = self.plan
+        idxs = plan.buckets[b]
+        flat = flatten_bucket([self._block(leaves[i], i, s, t)
+                               for i in idxs], range(len(idxs)))
+        return torch.nn.functional.pad(flat, (0, (-flat.shape[0])
+                                              % plan.mesh.data))
+
+    def _shard_array(self, leaves, b: int) -> torch.Tensor:
+        """[D, S, T, m] per-device flat shards of bucket ``b``."""
+        cfg, plan = self.cfg, self.plan
+        d, t, s = cfg.mesh.data, cfg.mesh.tensor, cfg.mesh.stage
+        out = torch.zeros((d, s, t, plan.shard_sizes[b]),
+                          dtype=torch.float32, device=self.device)
+        for si, ti in self._grid():
+            out[:, si, ti] = self._bucket_flat(leaves, b, si, ti).reshape(
+                d, -1)
+        return out
+
+    def _materialize(self, shards: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Inverse of ``_shard_array``: the full stacked leaves from the
+        per-bucket [D, S, T, m] shards (the data-axis all-gather; views of
+        the shards when the mesh has one (s, t) block)."""
+        plan = self.plan
+        blocks = {}
+        for st in self._grid():
+            out: List[Any] = [None] * len(plan.local_shapes)
+            for x, b in zip(shards, plan.order):
+                flat = x[:, st[0], st[1]].reshape(-1)[:plan.bucket_sizes[b]]
+                scatter_flat(flat, plan.buckets[b], plan.local_shapes, out)
+            blocks[st] = out
+        return self._assemble(blocks)
+
+    # ---------------------------------------------------------------- init
+    def init(self, params) -> Dict[str, Any]:
+        cfg = self.cfg
+        params = tree_map(lambda x: x.to(self.device), params)
+        plan = self._ensure_plan(params)
+        # 1f1b interleaving holds params in virtual-stage row order for
+        # the whole run (identity otherwise); finalize() restores it
+        params = self._permute_stacked(params)
+        st: Dict[str, Any] = dict(wire=0)
+        D = cfg.mesh.data
+        if cfg.sync in ASYNC_SYNCS:
+            # async over the data axis: per-slot pulled copies of the FULL
+            # stacked params (reference rebinds, like the flat engines);
+            # the EF is per slot over full leaves too, since a slot's push
+            # is its assembled full gradient
+            st.update(
+                params=params, opt=None,
+                ef=([torch.zeros((D,) + s, device=self.device)
+                     for s in self._full_shapes]
+                    if self._ef_active else None),
+                pulled=[params] * D, pulled_ver=[0] * D, server_ver=0,
+                tick=0, updates=0, batch_idx=[0] * D,
+                batch_cache=[None] * D, updates_base=0, step_base=0)
+            return st
+        if cfg.sync == "sma":
+            st["replicas"] = [params] * D    # updates are out of place
+            return st
+        leaves = self.layout.view(params)
+        if cfg.zero == 3:
+            st["params"] = [self._shard_array(leaves, b) for b in plan.order]
+        else:
+            # the optimizers update in place: the engine's own copy
+            st["params"] = tree_map(torch.clone, params)
+        if cfg.optimizer == "adamw":
+            if cfg.zero == 0:
+                st["opt"] = init_opt_state("adamw", st["params"],
+                                           cfg.moments)
+            else:
+                # one moment shard per bucket, in issue order, aligned
+                # with the p/g bucket lists of the step
+                mdt = getattr(torch, cfg.moments)
+                st["opt"] = {
+                    k: [torch.zeros((D, cfg.mesh.stage, cfg.mesh.tensor,
+                                     plan.shard_sizes[b]), dtype=mdt,
+                                    device=self.device) for b in plan.order]
+                    for k in ("m", "v")}
+                st["opt"]["t"] = 0
+        else:
+            st["opt"] = None
+        if self._ef_active:
+            S, T = cfg.mesh.stage, cfg.mesh.tensor
+            st["ef"] = [torch.zeros((D, S, T) + s, device=self.device)
+                        for s in plan.local_shapes]
+        else:
+            st["ef"] = None
+        return st
+
+    # ---------------------------------------------------------------- step
+    def _comm_plan(self) -> CommPlan:
+        """The data-axis ``CommPlan`` over one device's block shapes: the
+        plan object (bucket fusion, issue order, codec, wire mode) the
+        pure data-parallel engine executes."""
+        if self._comm is None:
+            cfg = self.cfg
+            self._comm = CommPlan.plan(
+                self.plan.local_shapes, n=cfg.mesh.data,
+                topology=cfg.topology, compressor=cfg.compressor,
+                wire=cfg.wire, bucket_mb=cfg.bucket_mb, order=cfg.order,
+                seed=cfg.seed, reduce_dtype=self._policy.reduce_dtype)
+        return self._comm
+
+    def _measured_step_tx_bytes(self) -> int:
+        """Shape-static measured bytes ONE device puts on the data axis
+        per step, per bucket from the plan: z0 = the topology schedule;
+        z1 = ring-allreduce grads + fp32 param all-gather; z2/z3 = the
+        CommPlan ``ps`` accounting (RS grads + fp32 param all-gather)."""
+        cfg, plan = self.cfg, self.plan
+        d = cfg.mesh.data
+        if d == 1:
+            return 0
+        comm = self._comm_plan()
+        if cfg.zero == 0:
+            return comm.measured_step_tx_bytes("allreduce")
+        if cfg.zero >= 2:
+            return comm.measured_step_tx_bytes("ps")
+        # z1: compressed ring allreduce of grads + exact param all-gather
+        codec = comm.codec if comm.in_schedule else make_codec("none")
+        # bf16 reduce halves the exact grad words; params stay fp32
+        scale = (comm.word_bytes / 4
+                 if codec.exact and comm.word_bytes != 4 else 1.0)
+        total = 0.0
+        for b in plan.order:
+            P = d * (-(-plan.bucket_sizes[b] // d))
+            total += schedule_tx_bytes("ring", d, P, codec) * scale
+            total += (d - 1) * 4 * (P // d)       # params travel exact
+        return int(total)
+
+    def _stage_loss_and_grads(self, leaves, batch):
+        """One data slot's loss and full stacked gradient leaves through
+        the pipeline schedule over its S stage devices, each with its T
+        tensor ranks as dimension 0 of its blocks and activations.  The
+        loss exists once, at the last stage (the reference masks every
+        other stage's copy to 0 and broadcasts it with an identity
+        transpose: the same cotangents)."""
+        cfg, plan, model = self.cfg, self.plan, self.model
+        S, T = cfg.mesh.stage, cfg.mesh.tensor
+        policy = self._policy
+        bf16 = policy.compute_dtype != "float32"
+        req = [x.detach().requires_grad_() for x in leaves]
+        pl = [x.to(policy.cdt) for x in req] if bf16 else req
+        x = model.inputs(batch)
+        if bf16:
+            x = x.to(policy.cdt)
+        bsz = x.shape[0]
+        micro = plan.micro
+        if bsz % micro:
+            raise ValueError(f"batch size {bsz} not divisible into "
+                             f"{micro} micro-batches")
+        mb = bsz // micro
+        if not self._act_cell:
+            self._act_cell.append(mb * int(np.prod(x.shape[1:]))
+                                  * x.element_size())
+        if T > 1:
+            x = x[None].expand((T,) + tuple(x.shape))
+            xm = [x[:, k * mb:(k + 1) * mb] for k in range(micro)]
+        else:
+            xm = [x[k * mb:(k + 1) * mb] for k in range(micro)]
+
+        def stage_tree(s):
+            # [layers, T, *block] per leaf when tensor-sharded: row j is
+            # layer j with its T ranks' blocks on dim 0 of the layer
+            if T > 1:
+                blocks = [torch.stack([self._block(p, i, s, t)
+                                       for t in range(T)], dim=1)
+                          for i, p in enumerate(pl)]
+            else:
+                blocks = [self._block(p, i, s, 0) for i, p in enumerate(pl)]
+            return self._tree(blocks)
+
+        def run_layers(sp, xx):
+            n = self.layout.leaf(sp, 0).shape[0]
+            for j in range(n):
+                xx = model.stage_fn(tree_map(lambda leaf: leaf[j], sp), xx,
+                                    tensor_parallel=T > 1)
+            return xx
+
+        stages = [stage_tree(s) for s in range(S)]
+        if cfg.schedule == "1f1b":
+            outs = onefb_forward(run_layers, stages, xm, interleave=self._v)
+        else:
+            outs = gpipe_forward(run_layers, stages, xm)
+        if T > 1:
+            y = outs.transpose(0, 1).reshape((T, bsz) + tuple(x.shape[2:]))
+            rows = [model.readout(y[r], batch).float() for r in range(T)]
+            loss, total = rows[0], torch.stack(rows).sum()
+        else:
+            y = outs.reshape((bsz,) + tuple(x.shape[1:]))
+            loss = total = model.readout(y, batch).float()
+        total.backward()
+        return loss.detach(), [torch.zeros_like(p) if p.grad is None
+                               else p.grad for p in req]
+
+    def _loss_and_grads(self, params, batch):
+        """(loss, full gradient leaves in layout order) of one data slot
+        at the parameter tree ``params`` (already cast for compute when
+        the model is a bare grad_fn)."""
+        if self.staged:
+            return self._stage_loss_and_grads(
+                list(self.layout.leaves(params)), batch)
+        loss, grads = self.grad_fn(params, batch)
+        # under bf16 compute the gradients of the bf16 copy are widened:
+        # the fp32 master weights are what the optimizer updates
+        return loss, [g.float() for g in
+                      self.layout.leaves(grads, consume=True)]
+
+    def _bsp_body(self, st, per, t):
+        """The BSP step's work on ``st`` (in place).  Returns (the data
+        slots' losses, dgc's sparse elements sent)."""
+        cfg, plan = self.cfg, self.plan
+        comp = cfg.compressor
+        D = cfg.mesh.data
+        comm = self._comm_plan()
+        gain = comp.ef_gain if comp.method == "onebit" else 1.0
+        bf16_reduce = self._policy.reduce_dtype != "float32"
+        if cfg.zero == 3:
+            params = self._tree(self._materialize(st["params"]))
+        else:
+            params = st["params"]
+        compute = params
+        if not self.staged and self._policy.compute_dtype != "float32":
+            # bf16 compute, fp32 masters: one cast serves every data slot
+            compute = self._policy.cast_for_compute(params)
+        losses, grads = [], []
+        for w in range(D):
+            with record_function("forward_backward"):
+                loss, g = self._loss_and_grads(compute, per[w])
+            if bf16_reduce:
+                # round the push to the bf16 wire words the measured
+                # accounting counts (the exchange re-widens to fp32)
+                g = [x.to(self._policy.rdt) for x in g]
+            losses.append(float(loss))
+            grads.append(g)
+            del g
+        del compute
+        local = [self._locals(g) for g in grads]    # [w][(s, t)] -> blocks
+        del grads
+        ef = st["ef"]
+        gen = self._generator(t, cfg.mesh.size)
+        sent = 0
+        if not comm.in_schedule and comp.method != "none":
+            # modeled: each device compresses its own blocks with its EF
+            with record_function("stack_and_compress"):
+                for w in range(D):
+                    for s, tt in self._grid():
+                        e = (None if ef is None else
+                             [x[w, s, tt] for x in ef])
+                        out, e_new, _ = comp.roundtrip(
+                            local[w][(s, tt)], e, self._generator(
+                                t, int(self.mesh.devices[w, tt, s])))
+                        local[w][(s, tt)] = out
+                        if e_new is not None:
+                            for x, y in zip(ef, e_new):
+                                x[w, s, tt].copy_(y)
+                        del out, e_new
+        if cfg.zero == 0:
+            avg = {}
+            with record_function("allreduce"):
+                for st_ in self._grid():
+                    lists = [local[w][st_] for w in range(D)]
+                    if comm.in_schedule:
+                        e = (None if ef is None else
+                             [[x[w, st_[0], st_[1]] for x in ef]
+                              for w in range(D)])
+                        avg[st_], e_new, nz = comm.exchange(lists, e, gen)
+                        if e_new is not None:
+                            for w in range(D):
+                                for x, y in zip(ef, e_new[w]):
+                                    x[w, st_[0], st_[1]].copy_(y)
+                        sent += int(nz.sum())
+                    else:
+                        avg[st_] = comm.reduce_grads(lists)
+                    del lists
+            del local
+            with record_function("sgd_update"):
+                self._apply_z0(st, self._assemble(avg))
+            return losses, sent
+        return losses, self._zero_step(st, params, local, gen, gain)
+
+    def _apply_z0(self, st, avg: List[torch.Tensor]):
+        cfg = self.cfg
+        if cfg.optimizer == "sgd":
+            lr = cfg.lr
+            st["params"] = self.layout.update(st["params"], avg,
+                                              lambda p, g: p - lr * g)
+            return
+        grads = self._tree(avg)
+        step = make_optimizer_step(cfg.optimizer, cfg.lr, cfg.moments)
+        st["params"], st["opt"] = step(st["params"], grads, st["opt"])
+
+    def _zero_step(self, st, params, local, gen, gain: float) -> int:
+        """The z1-z3 bucket update of every (s, t) block (one optimizer
+        step over all their shards).  Returns dgc's sparse elements."""
+        cfg, plan = self.cfg, self.plan
+        D = cfg.mesh.data
+        comm = self._comm_plan()
+        codec = codec_for(cfg.compressor)
+        ef = st["ef"]
+        grid = self._grid()
+        combos = [(b, s, t) for b in plan.order for s, t in grid]
+        if ef is not None and comm.in_schedule:
+            # compensated input c_in = g + gain * e, per device block
+            for w in range(D):
+                for s, t in grid:
+                    local[w][(s, t)] = [
+                        g.float() + gain * x[w, s, t]
+                        for g, x in zip(local[w][(s, t)], ef)]
+        resids: List[torch.Tensor] = []
+        sent = [0]
+
+        def g_buckets():
+            # each [D, n_b] bucket is fused when the update reaches it
+            # and its blocks are dropped from the slots' lists
+            for b, s, t in combos:
+                yield fuse([local[w][(s, t)] for w in range(D)],
+                           plan.buckets[b], plan.local_shapes,
+                           plan.bucket_sizes[b])
+
+        def grad_reduce(padded, _j):
+            if cfg.zero == 1:
+                red, res, nz = compressed_allreduce(padded, "ring", codec,
+                                                    gen)
+                shard = shard_of_flat(red)
+            else:
+                shard, res, nz = compressed_reduce_scatter(padded, codec,
+                                                           gen)
+            resids.append(res)
+            sent[0] += int(nz.sum())
+            return shard
+
+        if cfg.zero == 3:
+            p_buckets = [x[:, s, t] for x in st["params"] for s, t in grid]
+        else:
+            leaves = self.layout.view(params)
+            p_buckets = (self._bucket_flat(leaves, b, s, t)[
+                :plan.bucket_sizes[b]] for b, s, t in combos)
+        opt = st["opt"]
+        if opt is not None:
+            opt = {k: [x[:, s, t] for x in opt[k] for s, t in grid]
+                   for k in ("m", "v")}
+            opt["t"] = st["opt"]["t"]
+        update = make_zero_bucket_update(plan, cfg.zero, cfg.optimizer,
+                                         cfg.lr, moment_dtype=cfg.moments)
+        with record_function("allreduce"):
+            new, opt_new = update(
+                p_buckets, g_buckets(), opt,
+                grad_reduce=grad_reduce if comm.in_schedule else None)
+        with record_function("sgd_update"):
+            if opt_new is not None:
+                # the moments were updated in place (views of the state)
+                st["opt"]["t"] = opt_new["t"]
+            if cfg.zero == 3:
+                for j, x in enumerate(new):
+                    pos, (s, t) = j // len(grid), grid[j % len(grid)]
+                    st["params"][pos][:, s, t].copy_(x)
+            else:
+                blocks = {st_: [None] * len(plan.local_shapes)
+                          for st_ in grid}
+                for (b, s, t), flat in zip(combos, new):
+                    scatter_flat(flat, plan.buckets[b], plan.local_shapes,
+                                 blocks[(s, t)])
+                full = self._assemble(blocks)
+                st["params"] = self.layout.update(
+                    st["params"], full, lambda p, x: x.to(p.dtype))
+            if ef is not None and comm.in_schedule:
+                for (b, s, t), res in zip(combos, resids):
+                    for w in range(D):
+                        out: List[Any] = [None] * len(plan.local_shapes)
+                        scatter_flat(res[w, :plan.bucket_sizes[b]],
+                                     plan.buckets[b], plan.local_shapes,
+                                     out)
+                        for i in plan.buckets[b]:
+                            # telescoping EF: (g+e) - (g+gain*e) + hop
+                            # residual
+                            e = ef[i][w, s, t]
+                            e.mul_(1.0 - gain).add_(out[i].float())
+        return sent[0]
+
+    def _modeled_event_bytes(self) -> int:
+        """The compressor's analytic per-device push accounting over the
+        local block structure, from the plan."""
+        if self._dev_event_bytes is None:
+            self._dev_event_bytes = modeled_event_bytes(
+                self.cfg.compressor, self.plan.local_shapes)
+        return self._dev_event_bytes
+
+    def _step_bsp(self, st, batches, t):
+        cfg = self.cfg
+        if self._measured_tx is None:
+            self._measured_tx = self._measured_step_tx_bytes()
+        D = cfg.mesh.data
+        per = [batches(t, w) for w in range(D)]
+        if self.staged and cfg.mesh.stage > 1:
+            bsz = int(self.model.inputs(per[0]).shape[0])
+            if bsz % self.plan.micro:
+                raise ValueError(
+                    f"batch size {bsz} not divisible into "
+                    f"{self.plan.micro} micro-batches")
+        rec = get_recorder()
+        if rec.enabled:
+            with rec.span("compute", pid="train", tid="loop", cat="train",
+                          clock=("train_step", t), mesh=cfg.mesh.spec(),
+                          zero=cfg.zero, fused=True):
+                losses, sent = self._bsp_body(st, per, t)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        else:
+            losses, sent = self._bsp_body(st, per, t)
+        if rec.enabled:
+            if D > 1 and cfg.zero == 0:
+                # z0 runs the CommPlan schedule on the data axis; z1-3
+                # exchange through the ZeRO shard path instead, which the
+                # per-step byte accounting (not bucket spans) covers
+                self._comm_plan().emit_trace(rec, arch="allreduce",
+                                             clock=("train_step", t))
+            if self.staged and cfg.mesh.stage > 1:
+                emit_pipeline_trace(rec, cfg.mesh.stage, self.plan.micro,
+                                    schedule=cfg.schedule,
+                                    interleave=self._v,
+                                    clock=("train_step", t))
+        if cfg.wire == "measured":
+            # per bucket from the plan, every step: static plane bytes of
+            # the data-axis schedule on every device + dgc's per-step
+            # sparse payload
+            st["wire"] += self._measured_tx * cfg.mesh.size \
+                + SPARSE_ELEM_BYTES * sent
+        else:
+            st["wire"] += self._modeled_event_bytes() * cfg.mesh.size
+        if rec.enabled:
+            rec.counter("wire_bytes", {"cumulative": int(st["wire"])},
+                        pid="train", cat="comm", clock=("train_step", t))
+        ev = dict(step=t, loss=float(np.mean(np.asarray(losses,
+                                                        np.float32))),
+                  max_staleness=0)
+        return st, [ev]
+
+    def step(self, st, batches: Callable[[int, int], Any], t: int):
+        sync = self.cfg.sync
+        if sync == "bsp":
+            st, ev = self._step_bsp(st, batches, t)
+        elif sync == "ssp":
+            st, ev = self._step_async(st, batches, t, self.cfg.staleness)
+        elif sync == "asp":
+            st, ev = self._step_async(st, batches, t, None)
+        else:
+            st, ev = self._step_sma(st, batches, t)
+        self._wire_total = st["wire"]
+        return st, ev
+
+    def finalize(self, st):
+        if self.cfg.sync == "sma":
+            return tree_map(lambda *xs: torch.stack(xs).mean(0),
+                            *st["replicas"])
+        if self.cfg.zero == 3:
+            full = self._tree(self._materialize(st["params"]))
+            return self._permute_stacked(full, inverse=True)
+        return self._permute_stacked(st["params"], inverse=True)
+
+    def wire_bytes(self) -> int:
+        return self._wire_total
+
+    # -------------------------------------- async / sma over the data axis
+    def effective_periods(self) -> Tuple[int, ...]:
+        """Per data-slot speed schedule with straggler slowdowns folded
+        in: the rule of ``ElasticWorkerSet.effective_periods``."""
+        return tuple(max(1, int(round(p * s)))
+                     for p, s in zip(self.periods, self.slowdowns))
+
+    def _slot_loss_and_grads(self, pulled, batch):
+        """One data slot's loss and full gradient leaves at stage=1:
+        tensor-sharded compute inside the slot (its T ranks on dimension 0
+        of the blocks); each rank's cotangent covers its role-dim block,
+        and the blocks' gradients land in their slices of the full leaves
+        (the reference's tensor-axis psum)."""
+        if not self.staged:
+            loss, g = self.grad_fn(pulled, batch)
+            return loss, list(self.layout.leaves(g, consume=True))
+        return self._stage_loss_and_grads(list(self.layout.leaves(pulled)),
+                                          batch)
+
+    def _push_grad(self, st, w: int, pulled, batch, event: int):
+        comp = self.cfg.compressor
+        with record_function("forward_backward"):
+            loss, g = self._slot_loss_and_grads(pulled, batch)
+        if comp.method == "none":
+            return loss, g
+        with record_function("stack_and_compress"):
+            ef = st["ef"]
+            out, ef_new, _ = comp.roundtrip(
+                g, None if ef is None else [x[w] for x in ef],
+                self._generator(event, w))
+            if ef_new is not None:
+                for x, y in zip(ef, ef_new):
+                    x[w].copy_(y)
+        return loss, out
+
+    def _apply(self, params, leaves, w: int):
+        lr = self.cfg.lr
+        with record_function("sgd_update"):
+            return self.layout.update(params, leaves,
+                                      lambda p, g: p - lr * g)
+
+    def _full_event_bytes(self) -> int:
+        """Per-event modeled bytes of one slot's push: the compressor's
+        accounting over the FULL stacked leaves, what the simulator
+        reports for the same spec."""
+        if self._event_wire is None:
+            self._event_wire = modeled_event_bytes(self.cfg.compressor,
+                                                   self._full_shapes)
+        return self._event_wire
+
+    def _step_async(self, st, batches, t, bound: Optional[int]):
+        cfg = self.cfg
+        return async_replay_step(
+            st, batches, t, bound, K=cfg.mesh.data,
+            push_grad=functools.partial(self._push_grad, st),
+            apply_fn=self._apply, event_wire=self._full_event_bytes(),
+            eff_periods=self.effective_periods())
+
+    def _step_sma(self, st, batches, t):
+        cfg = self.cfg
+        D = cfg.mesh.data
+        lr, mu = cfg.lr, cfg.sma_mu
+        reps = st["replicas"]
+        center = tree_map(lambda *xs: functools.reduce(
+            torch.add, xs[1:], xs[0]) / D, *reps)
+        losses = []
+        for w in range(D):
+            with record_function("forward_backward"):
+                loss, g = self._slot_loss_and_grads(reps[w],
+                                                    batches(t, w))
+            g = self._tree(g)
+            with record_function("sgd_update"):
+                reps[w] = tree_map(
+                    lambda r, z, gg: r - lr * gg - mu * (r - z),
+                    reps[w], center, g)
+            losses.append(float(loss))
+            del g
+        st["wire"] += self._full_event_bytes() * D
+        return st, [dict(step=t, loss=float(np.mean(np.asarray(
+            losses, np.float32))), max_staleness=0)]
+
+    # ------------------------------------------------------------- metrics
+    def per_device_state_bytes(self, st) -> Dict[str, int]:
+        """Measured persistent bytes per logical device, from the state
+        tensors each divided by the devices it is shared over (module
+        docstring): ``parallel.zero.state_bytes_per_device`` plus the
+        AdamW step count."""
+        cfg = self.cfg
+        D, T, S = cfg.mesh.data, cfg.mesh.tensor, cfg.mesh.stage
+        stacked_div = (S * T) if self.staged else 1
+        shard_div = D * S * T
+
+        def nbytes(tree, div):
+            tensors = (get_path(tree, p) for p in leaf_paths(tree))
+            return sum(x.numel() * x.element_size() // div
+                       for x in tensors if x is not None)
+
+        out = {"params": 0, "opt": 0, "ef": 0}
+        if cfg.sync == "sma":
+            out["params"] = nbytes(st["replicas"][0], stacked_div)
+            out["total"] = out["params"]
+            return out
+        out["params"] = nbytes(st["params"], shard_div if cfg.zero == 3
+                               else stacked_div)
+        if st["opt"] is not None:
+            div = stacked_div if cfg.zero == 0 else shard_div
+            out["opt"] = (nbytes(st["opt"]["m"], div)
+                          + nbytes(st["opt"]["v"], div) + 4)
+        if st["ef"] is not None:
+            out["ef"] = nbytes(st["ef"], shard_div)
+        out["total"] = out["params"] + out["opt"]
+        return out
+
+    def extra_metrics(self) -> Dict[str, Any]:
+        cfg, plan = self.cfg, self.plan
+        m: Dict[str, Any] = dict(
+            mesh=cfg.mesh.spec(), zero=cfg.zero, optimizer=cfg.optimizer,
+            wire_mode=cfg.wire)
+        if cfg.schedule != "gpipe":
+            m["schedule"] = cfg.schedule
+            m["interleave"] = self._v
+        if cfg.precision != "fp32":
+            m["precision"] = cfg.precision
+        if cfg.moments != "float32":
+            m["moments"] = cfg.moments
+        if plan is not None and cfg.sync == "bsp":
+            m["modeled_data_bytes_per_dev"] = wire_bytes_per_device(
+                plan, cfg.zero, grad_bytes=self._modeled_event_bytes())
+            m["analytic_state_bytes"] = state_bytes_per_device(
+                plan, cfg.zero, cfg.optimizer, cfg.moments)
+            if self._measured_tx is not None:
+                m["measured_step_tx_bytes"] = self._measured_tx
+            if self._act_cell and cfg.mesh.stage > 1:
+                if cfg.schedule == "1f1b":
+                    ticks = onefb_ticks(cfg.mesh.stage, plan.micro, self._v)
+                else:
+                    ticks = gpipe_ticks(cfg.mesh.stage, plan.micro)
+                m["modeled_pipeline_bytes_per_dev"] = \
+                    self._act_cell[0] * ticks
+                if cfg.mesh.tensor > 1:
+                    t = cfg.mesh.tensor
+                    m["modeled_tensor_bytes_per_dev"] = int(
+                        self._act_cell[0] * ticks * 2 * (t - 1) / t)
+        return m
+
+    # --------------------------------------------------- elastic interface
+    def set_slowdown(self, worker: int, factor: float):
+        """Record a straggler event.  Plan worker ids are flat device
+        indices; a device's slowdown is recorded against its data slot
+        (devices are data-major, so slot = id // (t*s)).  The hybrid step
+        has no backup-drop path to feed, so the record only affects the
+        async schedule and reshard bookkeeping."""
+        ts = self.cfg.mesh.tensor * self.cfg.mesh.stage
+        slot = worker // ts
+        if not 0 <= slot < self.cfg.mesh.data or worker < 0:
+            raise ValueError(f"worker {worker} out of range for mesh "
+                             f"{self.cfg.mesh.spec()}")
+        self.slowdowns[slot] = factor
+
+    def crash_plan(self, worker: int) -> Tuple[int, Tuple[int, ...]]:
+        """What losing device ``worker`` means for this mesh: its whole
+        tensor x stage block (the model-parallel replica of one data slot)
+        goes with it, so the run reshards to one fewer data replica."""
+        cfg = self.cfg
+        if not 0 <= worker < cfg.mesh.size:
+            raise ValueError(f"worker {worker} out of range for mesh "
+                             f"{cfg.mesh.spec()}")
+        ts = cfg.mesh.tensor * cfg.mesh.stage
+        if cfg.mesh.data <= 1:
+            raise ValueError(
+                f"mesh {cfg.mesh.spec()} has a single data replica; "
+                "losing a device leaves nothing to reshard to")
+        return cfg.mesh.size - ts, (worker // ts,)
+
+    def reshard(self, st, new_workers: int, step: int = 0,
+                lost: Tuple[int, ...] = ()):
+        """Resize the mesh to ``new_workers`` logical devices by
+        rebuilding the *data* axis (tensor x stage geometry is a property
+        of the model and survives).  ZeRO shards are re-cut over the new
+        data axis; survivor data slots keep their EF residuals."""
+        cfg, plan = self.cfg, self.plan
+        if cfg.sync != "bsp":
+            raise ValueError(
+                f"sync={cfg.sync!r} hybrid cells do not reshard yet "
+                "(async/sma over a mesh is a fixed-geometry run)")
+        ts = cfg.mesh.tensor * cfg.mesh.stage
+        if new_workers < ts or new_workers % ts:
+            raise ValueError(
+                f"resize to {new_workers} devices does not factor over the "
+                f"tensor*stage block of {ts} (mesh {cfg.mesh.spec()}); "
+                "hybrid meshes resize along the data axis only")
+        new_d = new_workers // ts
+        bad = [w for w in lost if w < 0 or w >= cfg.mesh.data]
+        if bad:
+            raise ValueError(f"lost data slots {bad} out of range for "
+                             f"data axis {cfg.mesh.data}")
+        survivors = [w for w in range(cfg.mesh.data) if w not in set(lost)]
+        slots = survivors[:new_d]
+        grown = new_d - len(slots)
+
+        def recut(arrs: List[torch.Tensor]) -> List[torch.Tensor]:
+            out = []
+            for arr, b in zip(arrs, plan.order):
+                n_b = plan.bucket_sizes[b]
+                m_new = -(-n_b // new_d)
+                _, S, T, _ = arr.shape
+                new = arr.new_zeros((new_d, S, T, m_new))
+                flat = arr.new_zeros(new_d * m_new)
+                for si in range(S):
+                    for ti in range(T):
+                        flat[:n_b] = arr[:, si, ti].reshape(-1)[:n_b]
+                        new[:, si, ti] = flat.reshape(new_d, m_new)
+                out.append(new)
+            return out
+
+        if cfg.zero == 3:
+            st["params"] = recut(st["params"])
+        if st["opt"] is not None and cfg.zero >= 1:
+            st["opt"] = {"m": recut(st["opt"]["m"]),
+                         "v": recut(st["opt"]["v"]), "t": st["opt"]["t"]}
+        if st["ef"] is not None:
+            st["ef"] = [torch.cat([x[slots], x.new_zeros((grown,)
+                                                         + x.shape[1:])])
+                        for x in st["ef"]]
+        new_mesh = MeshSpec(new_d, cfg.mesh.tensor, cfg.mesh.stage)
+        self.cfg = cfg = dataclasses.replace(cfg, mesh=new_mesh)
+        self.mesh = make_hybrid_mesh(new_d, cfg.mesh.tensor, cfg.mesh.stage)
+        self.slowdowns = [self.slowdowns[s] for s in slots] + [1.0] * grown
+        # the bucket identity is a function of the local block structure
+        # and survives; only the per-rank shard length changes
+        self.plan = dataclasses.replace(
+            plan, mesh=new_mesh,
+            shard_sizes=[-(-n // new_d) for n in plan.bucket_sizes])
+        self.periods = tuple(default_periods(new_d))
+        self._act_cell = []
+        self._comm, self._dev_event_bytes, self._measured_tx = None, None, \
+            None
+        return st
+
+    def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        cfg = self.cfg
+        if cfg.sync != "bsp":
+            raise ValueError(
+                f"sync={cfg.sync!r} hybrid cells do not snapshot yet; "
+                "use the flat DeviceEngine (trivial mesh) for elastic "
+                "async runs")
+        opt = st["opt"]
+        arrays = {"params": st["params"], "ef": st["ef"],
+                  "opt": None if opt is None else {"m": opt["m"],
+                                                   "v": opt["v"]}}
+        meta = dict(backend="hybrid", mesh=cfg.mesh.spec(), zero=cfg.zero,
+                    optimizer=cfg.optimizer, num_workers=cfg.mesh.size,
+                    wire=int(st["wire"]), slowdowns=list(self.slowdowns),
+                    schedule=cfg.schedule, interleave=self._v,
+                    precision=cfg.precision, moments=cfg.moments,
+                    opt_t=None if opt is None else int(opt["t"]))
+        return arrays, meta
+
+    def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
+        cfg = self.cfg
+        if meta["num_workers"] != cfg.mesh.size:
+            raise ValueError(
+                f"snapshot has {meta['num_workers']} devices, engine has "
+                f"{cfg.mesh.size}; reshard the engine first")
+        if meta["mesh"] != cfg.mesh.spec() or meta["zero"] != cfg.zero \
+                or meta["optimizer"] != cfg.optimizer:
+            raise ValueError(
+                f"snapshot geometry {meta['mesh']}/z{meta['zero']}/"
+                f"{meta['optimizer']} does not match engine "
+                f"{cfg.mesh.spec()}/z{cfg.zero}/{cfg.optimizer}")
+        # schedule/precision change the on-disk layout (virtual-stage row
+        # order, moment dtype)
+        snap = (meta["schedule"], meta["interleave"], meta["precision"],
+                meta["moments"])
+        mine = (cfg.schedule, self._v, cfg.precision, cfg.moments)
+        if snap != mine:
+            raise ValueError(
+                f"snapshot schedule/precision {snap} does not match "
+                f"engine {mine}")
+        self.slowdowns = [float(s) for s in meta["slowdowns"]]
+        opt = arrays["opt"]
+        if opt is not None:
+            opt = dict(opt, t=int(meta["opt_t"]))
+        st = dict(params=arrays["params"], opt=opt, ef=arrays["ef"],
+                  wire=int(meta["wire"]))
+        self._wire_total = st["wire"]
+        return st
+
+    # ------------------------------------------------------------------ run
+    def run(self, params, batches: Callable[[int, int], Any], steps: int):
+        st = self.init(params)
+        hist: List[dict] = []
+        rec = get_recorder()
+        for t in range(steps):
+            # the step spans train_loop emits for the flat engines, so
+            # hybrid traces feed obs.analyze.step_attribution too
+            if rec.enabled:
+                with rec.span("step", pid="train", tid="loop", cat="train",
+                              clock=("train_step", t), step=t):
+                    st, ev = self.step(st, batches, t)
+            else:
+                st, ev = self.step(st, batches, t)
+            hist.extend(ev)
+        return self.finalize(st), hist, st["wire"]

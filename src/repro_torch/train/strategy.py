@@ -21,8 +21,20 @@ when the process has fewer devices than workers).  ``wire="measured"``
 needs the device backend.  ``bsp+backup:k`` drops the k slowest workers
 each round, ``+detect`` ranks them by measured step times, and
 ``Trainer.fit(plan=...)`` runs under an elastic event plan
-(``elastic.recovery.fit_elastic``).  Hybrid mesh suffixes (``@8:d2.t2``)
-parse and raise (ROADMAP queue A item 6).
+(``elastic.recovery.fit_elastic``).
+
+A mesh suffix after the worker count shapes the logical devices into a
+data x tensor x stage mesh with optional ZeRO state sharding, a pipeline
+schedule, a precision and an optimizer (``parallel.mesh_plan``'s
+grammar)::
+
+    Strategy.parse("bsp/ring/onebit@8:d2.t2.s2")   # 3D hybrid mesh
+    Strategy.parse("bsp/ps/none@4:d4.z3.adamw")    # ZeRO-3 sharded AdamW
+
+Hybrid cells run on ``parallel.HybridEngine``; a trivial mesh
+(``dK.t1.s1``, z0, sgd, fp32) is the plain ``DeviceEngine``.  A
+``StagedModel`` given to the simulator or the plain device engine runs as
+its stacked (unpipelined, unsharded) reference.
 
 ``kernel_backend`` is the port's seam (``auto``: the CUDA kernels for
 CUDA tensors, the plain versions for CPU tensors; ``kernel``; ``ref``),
@@ -39,6 +51,9 @@ from repro_torch.core.compression import EF_METHODS, METHODS, Compressor
 from repro_torch.core.sync import SimSyncEngine, SyncConfig
 from repro_torch.core.tree import LeafLayout
 from repro_torch.kernels.backend import KERNEL_BACKENDS
+from repro_torch.parallel.mesh_plan import (OPTIMIZERS, PRECISIONS,
+                                            SCHEDULES, MeshSpec,
+                                            parse_suffix, suffix_spec)
 from repro_torch.train.data_parallel import (ARCHS, DataParallelConfig,
                                              DeviceEngine)
 from repro_torch.train.train_loop import train_loop
@@ -103,6 +118,18 @@ class Strategy:
     sma_mu: float = 0.1              # SMA correction strength
     density: float = _DENSITY_DEFAULT   # dgc density (compression as str)
     seed: int = 0
+    # hybrid mesh dimensions: None mesh = pure data parallelism at
+    # `workers`; a non-trivial mesh, a ZeRO level, a stateful optimizer or
+    # a schedule/precision/moments choice routes the cell to
+    # parallel.HybridEngine
+    mesh: Optional[Union[str, MeshSpec]] = None
+    zero: int = 0                    # ZeRO optimizer-state level 0-3
+    optimizer: str = "sgd"           # sgd | adamw
+    micro_batches: int = 0           # pipeline micro-batches (0 = auto)
+    schedule: str = "gpipe"          # pipeline schedule: gpipe | 1f1b
+    interleave: int = 0              # 1f1b virtual stages/device (0 = auto)
+    precision: str = "fp32"          # fp32 | bf16 | bf16r
+    moments: str = "float32"         # adamw moment storage: float32|bfloat16
     detect: bool = False             # measured straggler detection (bsp)
     wire: str = "modeled"            # modeled | measured
 
@@ -144,9 +171,93 @@ class Strategy:
             raise ValueError(
                 "pass density inside the Compressor instance, not as a "
                 "separate Strategy field")
+        if isinstance(self.mesh, str):
+            object.__setattr__(self, "mesh", MeshSpec.parse(self.mesh))
+        if self.mesh is not None and self.mesh.size != self.workers:
+            raise ValueError(
+                f"mesh {self.mesh.spec()} has {self.mesh.size} devices but "
+                f"workers={self.workers}")
+        if self.mesh is not None and self.mesh.is_trivial:
+            # dK.t1.s1 IS plain data parallelism: normalize so equal
+            # strategies compare equal and the canonical spec is minimal
+            object.__setattr__(self, "mesh", None)
+        if self.zero not in (0, 1, 2, 3):
+            raise ValueError(f"zero={self.zero} (ZeRO levels are 0..3)")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer={self.optimizer!r} not in "
+                             f"{OPTIMIZERS}")
+        if self.micro_batches < 0:
+            raise ValueError("micro_batches must be >= 0")
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"schedule={self.schedule!r} not in "
+                             f"{SCHEDULES}")
+        if self.schedule == "1f1b" and self.mesh_spec.stage < 2:
+            raise ValueError("schedule='1f1b' needs a pipeline (mesh "
+                             "stage >= 2); an unstaged mesh has no "
+                             "schedule to choose")
+        if self.interleave < 0:
+            raise ValueError("interleave must be >= 0")
+        if self.interleave and self.schedule != "1f1b":
+            # interleaving (virtual stages) is what distinguishes the
+            # 1f1b schedule's bubble; under gpipe it would silently noop
+            raise ValueError("interleave (vK) composes with the 1f1b "
+                             "schedule only")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision={self.precision!r} not in "
+                             f"{PRECISIONS}")
+        if self.moments not in ("float32", "bfloat16"):
+            raise ValueError(f"moments={self.moments!r} (want float32 | "
+                             "bfloat16)")
+        if self.moments != "float32" and self.optimizer != "adamw":
+            # only adamw has EMA moment buffers to quantize
+            raise ValueError("moments='bfloat16' (qmom) requires "
+                             "optimizer='adamw'")
+        if self.zero and self.arch != "ps":
+            # ZeRO is the sharded-state (parameter-server) architecture
+            raise ValueError("zero > 0 requires arch='ps' (ZeRO shards "
+                             "state through the reduce-scatter PS path)")
+        if self.is_hybrid:
+            if self.sync != "bsp":
+                # async sync models (and SMA) compose with the data axis
+                # of a mesh, not with a pipeline schedule, sharded state
+                # or a stateful optimizer
+                ok = (self.mesh_spec.stage == 1 and self.zero == 0
+                      and self.optimizer == "sgd"
+                      and self.arch == "allreduce")
+                if not ok:
+                    raise ValueError(
+                        f"sync={self.sync!r} on a hybrid mesh needs "
+                        "stage=1, zero=0, optimizer='sgd', and "
+                        "arch='allreduce' (asynchrony composes with the "
+                        "data axis, not the pipeline schedule or sharded "
+                        "state)")
+            if self.backup:
+                raise ValueError("backup workers do not compose with "
+                                 "hybrid meshes yet")
+            if self.detect:
+                # the hybrid step has no backup-drop path to feed
+                raise ValueError("straggler detection does not compose "
+                                 "with hybrid meshes yet")
         if self.detect and self.sync != "bsp":
             raise ValueError("straggler detection feeds the bsp backup "
                              "drop set; use sync='bsp'")
+
+    # ------------------------------------------------------------ derived
+    @property
+    def mesh_spec(self) -> MeshSpec:
+        """The effective mesh: the declared one, or pure data parallelism
+        over all workers."""
+        return self.mesh if self.mesh is not None else MeshSpec(self.workers)
+
+    @property
+    def is_hybrid(self) -> bool:
+        """True when the cell needs the hybrid engine: a non-trivial
+        (tensor/stage) mesh, ZeRO sharding, a stateful optimizer, or a
+        non-default schedule/precision/moments dimension."""
+        return ((self.mesh is not None and not self.mesh.is_trivial)
+                or self.zero > 0 or self.optimizer != "sgd"
+                or self.schedule != "gpipe" or self.precision != "fp32"
+                or self.moments != "float32")
 
     @property
     def compressor(self) -> Compressor:
@@ -167,29 +278,37 @@ class Strategy:
             sync = f"bsp+backup:{self.backup}"
         if self.detect:
             sync += "+detect"
-        method = (self.compression.method
-                  if isinstance(self.compression, Compressor)
-                  else self.compression)
+        method = self.compressor.method
         if method == "dgc":
-            method += f":{self.density:g}"
+            method += f":{self.compressor.density:g}"
         arch = self.arch
         if arch == "allreduce" and self.topology != "ring":
             arch = self.topology
-        return f"{sync}/{arch}/{method}@{self.workers}"
+        suffix = suffix_spec(self.mesh_spec, self.zero, self.optimizer,
+                             self.micro_batches, self.schedule,
+                             self.interleave, self.precision, self.moments)
+        suffix = f":{suffix}" if suffix else ""
+        return f"{sync}/{arch}/{method}@{self.workers}{suffix}"
 
     @classmethod
     def parse(cls, spec: str, **defaults) -> "Strategy":
-        """Parse ``sync[:staleness]/arch/comp[:density]@workers`` — every
-        segment after ``sync`` optional.  Keyword arguments are defaults
-        for fields the spec string does not name."""
+        """Parse ``sync[:staleness]/arch/comp[:density]@workers[:mesh]``,
+        every segment after ``sync`` optional (e.g. ``"ssp:2/ps"``,
+        ``"bsp/ring/onebit@8:d2.t2.s2"``, ``"bsp/ps/none@4:d4.z3.adamw"``).
+        Keyword arguments are defaults for fields the spec string does not
+        name; named segments always win."""
         fields = dict(defaults)
         s = spec.strip()
         if "@" in s:
             s, w = s.rsplit("@", 1)
             if ":" in w:
-                raise NotImplementedError(
-                    f"{spec!r}: hybrid mesh suffixes are not ported yet "
-                    "(ROADMAP queue A item 6)")
+                # the mesh suffix: d/t/s axes, ZeRO level, optimizer,
+                # micro-batches, schedule, precision as dot tokens
+                w, suffix = w.split(":", 1)
+                suffix_fields, named = parse_suffix(suffix)
+                for key, was_named in named.items():
+                    if was_named:
+                        fields[key] = suffix_fields[key]
             fields["workers"] = int(w)
         parts = s.split("/") if s else [""]
         if not parts[0]:
@@ -240,6 +359,14 @@ class Strategy:
 
     # ------------------------------------------------------------ backends
     def resolve_backend(self) -> str:
+        if self.is_hybrid:
+            # tensor/stage axes and sharded state have no simulation: the
+            # mesh IS the execution plan
+            if self.backend == "sim":
+                raise ValueError(
+                    "hybrid cells (mesh/zero/adamw) are device-only; the "
+                    "simulator has no tensor/stage axes")
+            return "device"
         if self.backend == "sim":
             if self.wire == "measured":
                 # the simulator has no payloads to count: measured wire
@@ -253,8 +380,9 @@ class Strategy:
 
     def build(self, grad_fn: Callable, layout: Optional[LeafLayout] = None,
               device="cuda") -> "Engine":
-        """Construct the engine for this cell on ``device``; ``layout``
-        maps the parameter tree onto the reference's leaves (see
+        """Construct the engine for this cell on ``device``; ``grad_fn``
+        may be a ``parallel.StagedModel``, and ``layout`` maps the
+        parameter tree onto the reference's leaves (see
         ``DeviceEngine``)."""
         return BACKENDS[self.resolve_backend()](self, grad_fn, layout,
                                                 device)
@@ -293,8 +421,9 @@ class Engine:
 
     def metrics(self) -> Dict[str, Any]:
         m = dict(backend=self.backend, spec=self.strategy.spec(),
-                 wire_bytes=self.inner.wire_bytes(),
-                 dropped_updates=self.inner.dropped_updates())
+                 wire_bytes=self.inner.wire_bytes())
+        if hasattr(self.inner, "dropped_updates"):
+            m["dropped_updates"] = self.inner.dropped_updates()
         m.update(self.inner.extra_metrics())
         return m
 
@@ -320,12 +449,23 @@ class Engine:
         return params, events, mets["wire_bytes"]
 
 
+def _as_grad_fn(model_or_grad_fn):
+    """A StagedModel handed to a non-hybrid backend runs as its stacked
+    (unpipelined, unsharded) reference: the trajectory the hybrid engine
+    is validated against."""
+    from repro_torch.parallel.staged import is_staged_model, stacked_grad_fn
+    if is_staged_model(model_or_grad_fn):
+        return stacked_grad_fn(model_or_grad_fn)
+    return model_or_grad_fn
+
+
 class SimBackend(Engine):
     """Wraps the deterministic event simulation (``SimSyncEngine``)."""
 
     backend = "sim"
 
     def _make_inner(self, s: Strategy, grad_fn, layout, device):
+        grad_fn = _as_grad_fn(grad_fn)
         return SimSyncEngine(
             SyncConfig(mode=s.sync, num_workers=s.workers,
                        staleness=s.staleness, lr=s.lr, sma_mu=s.sma_mu,
@@ -335,11 +475,29 @@ class SimBackend(Engine):
 
 
 class DeviceBackend(Engine):
-    """Wraps ``DeviceEngine``."""
+    """Wraps the device engines: ``DeviceEngine`` for pure data
+    parallelism, ``parallel.HybridEngine`` for hybrid cells (a
+    non-trivial mesh, ZeRO level, stateful optimizer, schedule, precision
+    or moments choice).  A trivial ``dK.t1.s1`` mesh is the same
+    ``DeviceEngine`` the mesh-less spec builds."""
 
     backend = "device"
 
     def _make_inner(self, s: Strategy, grad_fn, layout, device):
+        if s.is_hybrid:
+            from repro_torch.parallel.engine import HybridConfig, HybridEngine
+            return HybridEngine(
+                HybridConfig(
+                    mesh=s.mesh_spec, lr=s.lr, compressor=s.compressor,
+                    zero=s.zero, optimizer=s.optimizer,
+                    topology=s.topology, bucket_mb=s.bucket_mb,
+                    order=s.order, micro_batches=s.micro_batches,
+                    sync=s.sync, staleness=s.staleness, periods=s.periods,
+                    sma_mu=s.sma_mu, wire=s.wire, seed=s.seed,
+                    schedule=s.schedule, interleave=s.interleave,
+                    precision=s.precision, moments=s.moments),
+                grad_fn, layout, device)
+        grad_fn = _as_grad_fn(grad_fn)
         return DeviceEngine(
             DataParallelConfig(
                 num_workers=s.workers, lr=s.lr, sync=s.sync, arch=s.arch,

@@ -778,3 +778,99 @@ def test_background_save_survives_inplace_step_on_card(cuda, tmp_path):
     for path in leaf_paths(want):
         a, b = get_path(got_arrays, path), get_path(want, path)
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ----------------------------------------------------- the hybrid engine
+def _tiny_hybrid(dev, rows=8, d=8, f=16):
+    """The hybrid acceptance model (2 stacked blocks) and 4 steps x 4
+    data slots of batches on ``dev``, drawn on the CPU."""
+    from repro_torch.parallel import make_tiny_transformer
+    params, model = make_tiny_transformer(2, d, f, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(1)
+    w_t = torch.randn(d, d, generator=gen)
+    xs = {(t, w): torch.randn(rows, d, generator=gen)
+          for t in range(4) for w in range(4)}
+
+    def batches(t, w):
+        return {"x": xs[t, w].to(dev), "y": torch.tanh(xs[t, w] @ w_t).to(
+            dev)}
+    return params, model, batches
+
+
+@pytest.mark.parametrize("spec", ["bsp/ring/none@8:d2.t2.s2",
+                                  "bsp/ring/none@8:d2.t2.s2.m4.1f1b.v1",
+                                  "bsp/ps/onebit@8:d2.t2.s2.z3.adamw"])
+def test_hybrid_mesh_on_card_equals_cpu(cuda, spec):
+    """A d2.t2.s2 mesh at the tiny size (GPipe, 1F1B, onebit ZeRO-3
+    AdamW): the card's losses and parameters within 1e-5 of the CPU
+    run's, wire bytes equal."""
+    from repro_torch.train import Strategy
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params, model, batches = _tiny_hybrid(dev)
+        p, hist, wire = Strategy.parse(spec, lr=0.05, bucket_mb=1e-4).build(
+            model, device=dev).run(params, batches, 4)
+        runs.append((p, [h["loss"] for h in hist], wire))
+    (pg, lg, wg), (pc, lc, wc) = runs
+    assert wg == wc
+    assert max(abs(a - b) for a, b in zip(lg, lc)) <= 1e-5
+    assert max(_err(pg[k].cpu(), pc[k]) for k in pc) <= 1e-5
+
+
+def test_zero3_equals_zero1_on_card(cuda):
+    """ZeRO-1 and ZeRO-3 AdamW on 4 data slots, on the card: the same
+    losses (both reduces sum the slots in one order) and parameters, and
+    ZeRO-3's per-device parameter bytes a quarter of ZeRO-1's."""
+    from repro_torch.train import Strategy
+    params, model, batches = _tiny_hybrid(cuda, rows=16, d=32, f=64)
+    runs = []
+    for spec in ("bsp/ps/none@4:d4.z1.adamw", "bsp/ps/none@4:d4.z3.adamw"):
+        eng = Strategy.parse(spec, lr=0.01, bucket_mb=1e-3).build(
+            model, device=cuda)
+        st = eng.init(params)
+        for t in range(4):
+            st, (ev,) = eng.step(st, batches, t)
+            runs.append(ev["loss"])
+        runs.append(eng.inner.per_device_state_bytes(st))
+        runs.append(eng.finalize(st))
+    l1, b1, p1, l3, b3, p3 = runs[:4], runs[4], runs[5], runs[6:10], \
+        runs[10], runs[11]
+    assert max(abs(a - b) for a, b in zip(l1, l3)) <= 1e-6
+    assert max(_err(p1[k], p3[k]) for k in p1) <= 1e-6
+    assert b1["params"] == 4 * b3["params"] and b1["opt"] == b3["opt"]
+
+
+def test_hybrid_tinyllama_step_launches_kernels(cuda):
+    """bsp/ps/onebit@4:d4.z3.adamw on TinyLlama at full width and 2
+    layers, one step: the kernel path launches flash_attention once per
+    layer and data slot and onebit_encode_ef once per leaf and data slot
+    (the launch counters chip_smoke.py reads); the plain path launches
+    none, and the losses agree within 1e-4."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.kernels import onebit as K1
+    from repro_torch.train import Strategy, value_and_grad
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2)
+    losses = []
+    for kernels in (True, False):
+        c = cfg if kernels else dataclasses.replace(cfg, attn_backend="ref")
+        model = build_model(c)
+        params = model.init(seed=0, device=cuda)
+        layout = model.leaf_layout(params)
+        batches = make_lm_batches(LMDataConfig(
+            vocab_size=c.vocab_size, seq_len=128, batch_size=2), device=cuda)
+        strat = Strategy.parse("bsp/ps/onebit@4:d4.z3.adamw", lr=1e-4,
+                               kernel_backend="auto" if kernels else "ref")
+        K1.reset_launches()
+        FA.reset_launches()
+        _, hist, _ = strat.build(value_and_grad(lambda p, b: model.loss_fn(
+            p, b, compute_dtype=torch.float32)), layout=layout,
+            device=cuda).run(params, batches, 1)
+        assert FA.LAUNCHES["flash_attention"] == (
+            cfg.num_layers * 4 if kernels else 0)
+        assert K1.LAUNCHES["onebit_encode_ef"] == (
+            len(layout.names) * 4 if kernels else 0)
+        losses.append(hist[0]["loss"])
+        del model, params
+        torch.cuda.empty_cache()
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert abs(losses[0] - losses[1]) <= 1e-4

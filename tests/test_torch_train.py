@@ -324,8 +324,8 @@ def test_strategy_parse_and_cells():
 @pytest.mark.parametrize("spec,kw", [
     # ssp / asp / sma, arch="ps" and the simulator run
     # (tests/test_torch_sync.py), and so do backup workers and straggler
-    # detection on either backend (tests/test_torch_elastic.py); what
-    # stays unported is hybrid meshes
+    # detection on either backend (tests/test_torch_elastic.py), and the
+    # hybrid meshes build the HybridEngine (tests/test_torch_hybrid.py)
     ("bsp+backup:1/allreduce/none@4", {}), ("bsp+backup:1/ps/onebit@4", {}),
     ("bsp+detect/allreduce/none@4", {}),
     ("bsp+detect/ps/none@4", {"backend": "sim"}),
@@ -337,8 +337,12 @@ def test_strategy_parse_and_cells():
     ("bsp/ring/onebit@8:d2.t2.s2", {})])
 def test_unported_cells_raise(spec, kw):
     if ":d" in spec:
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            Strategy.parse(spec, **kw).build(lambda p, b: None, device="cpu")
+        from repro_torch.parallel import HybridEngine, make_tiny_transformer
+        strat = Strategy.parse(spec, **kw)
+        eng = strat.build(make_tiny_transformer(2, device="cpu")[1],
+                          device="cpu")
+        assert isinstance(eng.inner, HybridEngine)
+        assert eng.inner.cfg.mesh == strat.mesh_spec
         return
     strat = Strategy.parse(spec, **kw)
     eng = strat.build(lambda p, b: None, device="cpu")

@@ -1,6 +1,7 @@
 """Where the port's training time goes on the GPU.
 
-Full-width TinyLlama-1.1B in fp32 (seeded weights), a training step of
+Full-width TinyLlama-1.1B (seeded weights; fp32 compute, bf16 for a
+spec whose precision is ``.bf16`` or ``.bf16r``), a training step of
 ``chip_smoke.py`` (batch 2 x seq 256 per worker, lr 0.01, bucket_mb 4;
 by default ``bsp/allreduce/onebit@4`` with ``wire="modeled"``): one
 warm-up step, the wall time of ``STEPS`` unprofiled steps (host clock
@@ -14,6 +15,8 @@ events as its ticks hold (one worker's batch each); tokens/s counts them.
     PYTHONPATH=src python tools/torch_train_profile.py bsp/ring/onebit@4 \
         --wire measured
     PYTHONPATH=src python tools/torch_train_profile.py ssp:3/ps/onebit@4
+    PYTHONPATH=src python tools/torch_train_profile.py \
+        bsp/ps/onebit@4:d4.z3.bf16.adamw
 """
 from __future__ import annotations
 
@@ -56,9 +59,10 @@ def main(argv) -> int:
     model = build_model(cfg)
     params = model.init(seed=0, device=dev)
     strat = Strategy.parse(args.spec, lr=0.01, wire=args.wire)
+    dtype = torch.float32 if strat.precision == "fp32" else torch.bfloat16
     engine = strat.build(
-        value_and_grad(lambda p, b: model.loss_fn(
-            p, b, compute_dtype=torch.float32)),
+        value_and_grad(lambda p, b: model.loss_fn(p, b,
+                                                  compute_dtype=dtype)),
         layout=model.leaf_layout(params), device=dev)
     batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
                                            seq_len=SEQ, batch_size=BATCH),
