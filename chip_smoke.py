@@ -242,7 +242,50 @@ make the kernels' "elastic" launches.
 Counts are zeroed just before phase 18 and read just after it; they make
 the kernels' "hybrid" launches.
 
-Phase 3 also holds topk_compress, terngrad_ternarize, terngrad_compress
+ 19. tp       tensor-parallel decode (serve/tp.py) of full-width
+      decode  TinyLlama-1.1B in bf16 at tp=2, both ranks logical on the one
+             card: phase 5's traffic through ServeEngine at tp=1 and at
+             tp=2; flash_decode launches twice phase 5's per iteration (each
+             rank's launch sees 16 heads on 2 KV heads).  Greedy streams
+             compared and reported.  Teacher-forced on the tp=1 run's
+             stream (its first prefill group, 16 decode steps): tp=2
+             logits within 1e-3 of tp=1's in fp32 with TF32 off (only the
+             order of the row-parallel sums differs), and in bf16 within 2x
+             the bf16 tp=1 run's own distance from fp32 (the tp=2 run
+             rounds each rank's partial product to bf16 before the sum; a
+             different rounding order moves the logits no further than
+             bf16 rounding does).
+ 20. MoE +    deepseek-v2-lite-16b at full width: (a) 2 layers (the dense
+      MLA     layer 0 and one MoE layer), every published width, fp32,
+             capacity_factor = num_experts (no drops in either mode):
+             prefill 8 tokens, then 8 decode steps through the latent cache
+             against the full forward's logits, within 1e-3 (fp32, other
+             summation orders); one value_and_grad of loss_fn: finite
+             gradients, nonzero on the router and on every expert that
+             received a token, zero on the others.  (b) all 27 layers in
+             bf16 at the published capacity 1.0 through ServeEngine on
+             phase 5's traffic: tokens/s, peak memory, and the MLA cache's
+             (512 + 64) x 2 B x 27 bytes per token.  No flash kernel runs
+             on this path: MLA and MoE have no Pallas kernel in the
+             reference.
+ 21. M-RoPE   qwen2-vl-7b at full width in bf16: phase 5's traffic through
+             ServeEngine (flash_attention at group 7, head_dim 128), then a
+             forward with 64 vision embeddings on an 8 x 8 grid and three
+             distinct M-RoPE position rows: the kernel path's logits as
+             close to fp32 as the plain bf16 path's, within a factor 2
+             (phase 6's bound).
+
+Counts are zeroed just before and read just after phase 19's tp=2 run,
+phase 20b's run and phase 21's run with its vision forward; they make the
+kernels' "tp_serve", "deepseek" and "qwen2_vl" launches.  Each phase frees
+its parameters before the next.  family_phases(dev, smi, ...) runs on the
+CPU too, at the configs' .reduced() and a short traffic.
+
+Phase 3 also holds flash_attention and flash_decode at Qwen2-VL-7B's
+attention (28 heads on 4 KV heads, head_dim 128) and flash_decode at one
+tp=2 rank of TinyLlama's (16 heads on 2 KV heads, a rank's contiguous block
+of a rank-major cache), both dtypes, at the serving shapes.  It also holds
+topk_compress, terngrad_ternarize, terngrad_compress
 and qsgd_compress against their plain versions at full-width shapes (the
 compressor's flat layout of the stacked w_down leaf, [991232, 256] as one
 segment; a ring chunk of it at @4, 4 segments of [247808, 256]; and a
@@ -291,6 +334,7 @@ ONEBIT_TOL = 2e-5                  # of the row's largest |c_in|
 GRAD_TOL = 1e-5
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 PROMPT, NEW, MAX_LEN = 512, 64, 576
+QWEN_H, QWEN_KV, QWEN_HD = 28, 4, 128  # Qwen2-VL-7B attention
 FULL = 2048                        # TinyLlama-1.1B's context length
 # the kernels' designs before their rebuild for the H100, at the phase-4
 # shapes (PERF.md's kernel table: this script and, at L=2048,
@@ -370,6 +414,14 @@ HYBRID_TINY, HYBRID_ROWS = (4, 2048, 5632), 16
 HYBRID_TINY_STEPS, HYBRID_TINY_LR = 4, 0.05
 HYBRID_MESHES = (("bsp/ring/none@8:d2.t2.s2", 0.2, 5),
                  ("bsp/ring/none@8:d2.t2.s2.m8.1f1b", 0.0588, 17))
+# phases 19-21: teacher-forced decode steps of the tp check and its fp32
+# bound (TF32 off: only the order of the row-parallel sums differs); the
+# MLA check's (prefill, decode) lengths and its fp32 bound (the full
+# forward and the step-by-step decode sum in other orders); the vision
+# forward's (batch, sequence, patch-grid side)
+FORCED_STEPS, TP_F32_TOL = 16, 1e-3
+MLA_SEQ, MLA_F32_TOL = (8, 8), 1e-3
+VISION = (2, 256, 8)
 # spec, steps, the worker whose batch fetch sleeps, the sleep (s)
 ELASTIC_DETECT = ("bsp+backup:1+detect/allreduce/onebit@4", 6, 1, 0.05)
 SCHED_SPEC, SCHED_STEPS = "ssp:1/allreduce/none@2", 8
@@ -986,6 +1038,284 @@ def hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
     print(f"card {smi}")
 
 
+def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
+                  n_requests=16, slots=8, page=16, forced=FORCED_STEPS,
+                  mla_seq=MLA_SEQ, vision=VISION):
+    """Phases 19-21 (module docstring) on ``dev``: tensor-parallel decode
+    of ``tiny`` at tp=2, ``deepseek`` (MoE + MLA) and ``qwen`` (M-RoPE,
+    biases, the vision stub) through ``ServeEngine`` on phase 5's traffic
+    (``n_requests`` prompts of ``prompt`` tokens, ``new`` new tokens,
+    ``slots`` slots, pages of ``page``).  The CPU rehearses them at the
+    configs' ``.reduced()`` and a short traffic.  Returns each phase's
+    launches of the flash kernels."""
+    import numpy as np
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.cache import cache_bytes as nbytes
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    from repro_torch.serve.tp import TPContext
+    from repro_torch.train import value_and_grad
+
+    cuda = dev.type == "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    launches = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def serve(model, params, prompts, tp=1):
+        """Phase 5's traffic through ServeEngine (bf16, continuous, paged):
+        (metrics, requests, flash launches of the run)."""
+        scfg = ServeConfig(slots=slots, max_len=prompt + new, page_size=page,
+                           policy="continuous", cache_dtype=bf,
+                           compute_dtype=bf, tp=tp)
+        ServeEngine(model, params, scfg, device=dev).run(
+            [Request(rid=i, prompt=[int(t) for t in prompts[i, :16]],
+                     max_new_tokens=2) for i in range(2)])     # warm-up
+        reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
+                        max_new_tokens=new) for i in range(n_requests)]
+        eng = ServeEngine(model, params, scfg, device=dev)
+        sync()
+        FA.reset_launches()
+        m = eng.run(reqs)
+        got = dict(FA.LAUNCHES)
+        assert m["completed"] == n_requests
+        assert m["generated_tokens"] == n_requests * new
+        assert all(0 <= t < model.cfg.vocab_size for r in reqs
+                   for t in r.output)
+        print(f"  {m['completed']} requests, {m['generated_tokens']} tokens "
+              f"in {m['wall_s']:.3f} s wall = "
+              f"{m['generated_tokens'] / m['wall_s']:.1f} tokens/s; "
+              f"{m['prefill_groups']} prefill groups, "
+              f"{m['decode_iterations']} decode iterations; launches {got}")
+        return m, reqs, got, eng
+
+    # ------------------------------------------------------- 19 tp decode
+    phase(f"19 tensor-parallel decode: {tiny.name}, bf16, tp=2 on one "
+          "device (2 logical ranks)")
+    model = build_model(tiny)
+    params = model.init(seed=0, dtype=bf, device=dev)
+    L = tiny.num_layers
+    prompts = np.random.RandomState(1).randint(1, tiny.vocab_size,
+                                               size=(n_requests, prompt))
+    print("  tp=1 (phase 5's run):")
+    m1, reqs1, got1, _ = serve(model, params, prompts)
+    print("  tp=2:")
+    m2, reqs2, got2, _ = serve(model, params, prompts, tp=2)
+    launches["tp_serve"] = got2
+    equal = sum(a == b for r1, r2 in zip(reqs1, reqs2)
+                for a, b in zip(r1.output, r2.output))
+    print(f"  greedy streams tp=2 vs tp=1: {equal}/{n_requests * new} tokens "
+          f"equal, {sum(r1.output == r2.output for r1, r2 in zip(reqs1, reqs2))}"
+          f"/{n_requests} requests equal; flash_decode per decode iteration "
+          f"{got2['flash_decode'] / m2['decode_iterations']:.0f} at tp=2, "
+          f"{got1['flash_decode'] / m1['decode_iterations']:.0f} at tp=1")
+    if cuda:
+        assert got2["flash_attention"] == m2["prefill_groups"] * L > 0
+        assert got2["flash_decode"] == 2 * m2["decode_iterations"] * L > 0
+        assert got1["flash_decode"] == m1["decode_iterations"] * L
+
+    # teacher forcing on phase 5's stream: the first prefill group, then
+    # ``forced`` decode steps fed the tp=1 run's served tokens
+    toks = torch.tensor(prompts[:slots], device=dev)
+    forced_toks = torch.tensor([r.output[:forced] for r in reqs1[:slots]],
+                               device=dev)
+
+    def teacher_forced(p_, dtype, tp):
+        _, st = model.prefill(p_, toks, compute_dtype=dtype)
+        caches = model.cache_from_prefill(st, prompt + new, dtype=dtype)
+        cfg_, kw = tiny, {}
+        if tp > 1:
+            ctx = TPContext(tiny, tp)
+            p_, cfg_ = ctx.shard_params(p_), ctx.cfg_local
+            caches, kw = ctx.shard_cache(caches), dict(tp_axis="model")
+        out = []
+        for s in range(forced):
+            pos = torch.full((slots,), prompt + s, device=dev)
+            lg, caches = T.decode_step(p_, cfg_, caches,
+                                       forced_toks[:, s:s + 1], pos,
+                                       compute_dtype=dtype, **kw)
+            out.append(lg[:, 0, :tiny.vocab_size].float())
+        return torch.stack(out)
+
+    b1, b2 = teacher_forced(params, bf, 1), teacher_forced(params, bf, 2)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    f1, f2 = teacher_forced(p32, f32, 1), teacher_forced(p32, f32, 2)
+    del p32
+    e32 = float((f2 - f1).abs().max())
+    e16, e_ref = float((b2 - b1).abs().max()), float((b1 - f1).abs().max())
+    agree = float((b2.argmax(-1) == b1.argmax(-1)).float().mean())
+    print(f"  teacher-forced on phase 5's stream, {forced} decode steps x "
+          f"{slots} slots: fp32 (TF32 off) max|tp2 - tp1| {e32:.3e} (bound "
+          f"{TP_F32_TOL}); bf16 max|tp2 - tp1| {e16:.4f} (bound 2 x bf16's "
+          f"own distance from fp32, max|tp1 bf16 - tp1 fp32| = "
+          f"{e_ref:.4f}); bf16 argmax agreement tp2/tp1 {agree:.4f}")
+    assert torch.isfinite(b2).all() and torch.isfinite(f2).all()
+    assert e32 <= TP_F32_TOL, "tp=2 fp32 logits drift from tp=1"
+    assert e16 <= 2 * e_ref, "tp=2 bf16 logits drift from tp=1"
+    del model, b1, b2, f1, f2
+    free()
+
+    # ---------------------------------------------------- 20 MoE + MLA
+    phase(f"20a {deepseek.name} at 2 layers (dense layer 0 + one MoE "
+          "layer), all widths, fp32, capacity_factor = num_experts")
+    E, K = deepseek.num_experts, deepseek.experts_per_token
+    cfg2 = dataclasses.replace(deepseek, num_layers=2,
+                               capacity_factor=float(E))
+    model = build_model(cfg2)
+    params = model.init(seed=0, dtype=f32, device=dev)
+    B2, S2, S0 = 2, sum(mla_seq), mla_seq[0]
+    toks = torch.tensor(np.random.RandomState(2).randint(
+        1, cfg2.vocab_size, size=(B2, S2 + 1)), device=dev)
+    full, aux, _ = model.forward(params, toks[:, :S2], compute_dtype=f32)
+    lg, st = model.prefill(params, toks[:, :S0], compute_dtype=f32)
+    caches = model.cache_from_prefill(st, S2, dtype=f32)
+    errs = [float((lg[:, 0] - full[:, S0 - 1]).abs().max())]
+    for t in range(S0, S2):
+        lg, caches = model.decode_step(params, caches, toks[:, t:t + 1],
+                                       torch.full((B2,), t, device=dev),
+                                       compute_dtype=f32)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    print(f"  prefill {S0} tokens then {S2 - S0} decode steps through the "
+          f"latent cache against the full forward's logits (B={B2}): max "
+          f"abs err {max(errs):.3e} (bound {MLA_F32_TOL}; |logits| <= "
+          f"{float(full.abs().max()):.2f}); aux {float(aux):.5f}")
+    assert max(errs) <= MLA_F32_TOL, "decode drifts from the full forward"
+    routed = []
+    real = T.moe_apply
+
+    def record(p, x, cfg_, per_row=False):
+        probs = torch.softmax(x.detach().float().reshape(-1, x.shape[-1])
+                              @ p["router"]["w"].detach(), -1)
+        routed.append(torch.topk(probs, K, -1).indices.flatten())
+        return real(p, x, cfg_, per_row)
+
+    T.moe_apply = record
+    try:
+        loss, grads = value_and_grad(
+            lambda pp, b: model.loss_fn(pp, b, compute_dtype=f32))(
+                params, {"tokens": toks[:, :S2], "labels": toks[:, 1:]})
+    finally:
+        T.moe_apply = real
+    used = torch.zeros(E, dtype=torch.bool, device=dev)
+    used[torch.cat(routed)] = True
+    g = grads["layers"][1]["moe"]
+    touched = torch.stack([g[n].flatten(1).abs().sum(1)
+                           for n in ("w_gate", "w_up", "w_down")]).amin(0) > 0
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (g["router"]["w"], g["w_gate"], g["w_up"], g["w_down"]))
+    print(f"  value_and_grad(loss_fn): loss {float(loss):.5f}; router "
+          f"gradient |g| sum {float(g['router']['w'].abs().sum()):.4e}; "
+          f"{int(used.sum())} of {E} experts received tokens, every one "
+          f"with a nonzero gradient {bool(touched[used].all())}, the "
+          f"others zero {not bool(touched[~used].any())}; all finite "
+          f"{finite}; peak {peak_gib():.2f} GiB")
+    assert finite and float(g["router"]["w"].abs().sum()) > 0
+    assert bool(touched[used].all()) and not bool(touched[~used].any())
+    del params, grads, g, full, caches, st
+    free()
+
+    phase(f"20b {deepseek.name}: all {deepseek.num_layers} layers, bf16, "
+          f"capacity_factor {deepseek.capacity_factor}, through ServeEngine")
+    model = build_model(deepseek)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, dtype=bf, device=dev)
+    sync()
+    print(f"  {deepseek.param_count() / 1e9:.3f} B parameters "
+          f"({deepseek.active_param_count() / 1e9:.3f} B active per token), "
+          f"seeded init in {time.perf_counter() - t0:.2f} s")
+    prompts = np.random.RandomState(1).randint(1, deepseek.vocab_size,
+                                               size=(n_requests, prompt))
+    m, reqs, got, eng = serve(model, params, prompts)
+    launches["deepseek"] = got
+    pool_tokens = eng.kv.allocator.num_pages * page
+    per_token = nbytes(eng.kv.store) / pool_tokens
+    want = (deepseek.kv_lora_rank + deepseek.qk_rope_dim) * 2 * \
+        deepseek.num_layers
+    print(f"  MLA cache {per_token:.0f} B per token (want ("
+          f"{deepseek.kv_lora_rank} + {deepseek.qk_rope_dim}) x 2 B x "
+          f"{deepseek.num_layers} = {want}); pool {nbytes(eng.kv.store) / 2**20:.1f} "
+          f"MiB; peak {peak_gib():.2f} GiB (params {nbytes(params) / 2**30:.2f}"
+          f" GiB); req 0 output[:8] {reqs[0].output[:8]}; card {smi}")
+    assert per_token == want
+    del params, eng, model
+    free()
+
+    # ------------------------------------------------------- 21 Qwen2-VL
+    phase(f"21 {qwen.name}: bf16 through ServeEngine, and forward with "
+          "vision embeddings and three M-RoPE position rows")
+    model = build_model(qwen)
+    ref_model = build_model(dataclasses.replace(qwen, attn_backend="ref"))
+    params = model.init(seed=0, dtype=bf, device=dev)
+    print(f"  {qwen.param_count() / 1e9:.3f} B parameters")
+    prompts = np.random.RandomState(1).randint(1, qwen.vocab_size,
+                                               size=(n_requests, prompt))
+    m, reqs, got, _ = serve(model, params, prompts)
+    Lq = qwen.num_layers
+    if cuda:
+        assert got["flash_attention"] == m["prefill_groups"] * Lq > 0
+        assert got["flash_decode"] == m["decode_iterations"] * Lq > 0
+    # the vision stub: P patch embeddings on a side x side grid at t=0,
+    # then text positions from side on (all three rows equal)
+    Bv, Sv, side = vision
+    P = side * side
+    gen = torch.Generator(device=dev).manual_seed(3)
+    v_emb = 0.02 * torch.randn(Bv, P, qwen.d_model, generator=gen, device=dev)
+    grid = torch.arange(P, device=dev)
+    text = side + torch.arange(Sv - P, device=dev)
+    pos3 = torch.stack([torch.cat([torch.zeros_like(grid), text]),
+                        torch.cat([grid // side, text]),
+                        torch.cat([grid % side, text])])[None].expand(Bv, 3, Sv)
+    vtoks = torch.tensor(np.random.RandomState(4).randint(
+        1, qwen.vocab_size, size=(Bv, Sv)), device=dev)
+
+    def vforward(m_, p_, dtype):
+        lg, _, _ = m_.forward(p_, vtoks, positions=pos3, vision_embeds=v_emb,
+                              compute_dtype=dtype)
+        return lg[..., :qwen.vocab_size].float()
+
+    FA.reset_launches()
+    kern = vforward(model, params, bf)
+    got["flash_attention"] += FA.LAUNCHES["flash_attention"]
+    assert FA.LAUNCHES["flash_attention"] == (Lq if cuda else 0)
+    launches["qwen2_vl"] = got
+    ref16 = vforward(ref_model, params, bf)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    ref32 = vforward(ref_model, p32, f32)
+    del p32
+    e_kern, e_ref = (float((kern - ref32).abs().max()),
+                     float((ref16 - ref32).abs().max()))
+    agree = float((kern.argmax(-1) == ref16.argmax(-1)).float().mean())
+    print(f"  forward B={Bv} S={Sv} with {P} vision embeddings ({side} x "
+          f"{side} grid) and position rows t/h/w distinct: logits against "
+          f"fp32: kernel {e_kern:.4f}, plain bf16 {e_ref:.4f} (kernel must "
+          f"be <= 2 x plain, phase 6's bound); max|kernel - plain bf16| "
+          f"{float((kern - ref16).abs().max()):.4f}, argmax agreement "
+          f"{agree:.4f}; launches {got}; peak {peak_gib():.2f} GiB; card "
+          f"{smi}")
+    assert torch.isfinite(kern).all() and kern.shape == (Bv, Sv,
+                                                         qwen.vocab_size)
+    assert e_kern <= 2 * e_ref, "kernel path drifts from the fp32 model"
+    del kern, ref16, ref32, model, ref_model
+    free()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -1119,6 +1449,32 @@ def main() -> int:
                   f"(tol {tol})")
             assert torch.isfinite(out).all() and e <= tol, \
                 "flash_decode disagrees with its plain version"
+            worst["flash_decode"] = max(worst["flash_decode"], e)
+        # phases 19 and 21: Qwen2-VL-7B's attention (28 query heads on 4
+        # KV heads, group 7, head_dim 128) at the serving shapes, and one
+        # tp=2 rank of TinyLlama's decode (16 on 2 KV heads), its cache a
+        # rank's contiguous block of a rank-major [2, B, L, 2, 64] cache
+        q = randn(B, PROMPT, QWEN_H, QWEN_HD, dtype=dtype)
+        k, v = (randn(B, PROMPT, QWEN_KV, QWEN_HD, dtype=dtype)
+                for _ in range(2))
+        e = max_err(FA.attention(q, k, v), FA.attention_ref(q, k, v))
+        print(f"flash_attention {str(dtype)[6:]:8s} B={B} S={PROMPT} H="
+              f"{QWEN_H} KV={QWEN_KV} hd={QWEN_HD} causal: max_abs_err "
+              f"{e:.3e} (tol {tol})")
+        assert e <= tol, "flash_attention disagrees with its plain version"
+        worst["flash_attention"] = max(worst["flash_attention"], e)
+        pos = torch.tensor([0, 63, 64, 127, 300, 511, 512, 575], device=dev)
+        for h, kv_, hd, ranks in ((QWEN_H, QWEN_KV, QWEN_HD, 1),
+                                  (H // 2, KV // 2, HD, 2)):
+            q = randn(B, 1, h, hd, dtype=dtype)
+            ck, cv = (randn(ranks, B, MAX_LEN, kv_, hd, dtype=dtype)[-1]
+                      for _ in range(2))
+            e = max_err(FA.decode(q, ck, cv, pos),
+                        FA.decode_ref(q, ck, cv, pos))
+            print(f"flash_decode    {str(dtype)[6:]:8s} L={MAX_LEN} H={h} "
+                  f"KV={kv_} hd={hd}{' (rank 1 of 2)' if ranks > 1 else ''}"
+                  f" pos={pos.tolist()}: max_abs_err {e:.3e} (tol {tol})")
+            assert e <= tol, "flash_decode disagrees with its plain version"
             worst["flash_decode"] = max(worst["flash_decode"], e)
         del q, k, v, ck, cv
     torch.cuda.synchronize()
@@ -2174,6 +2530,12 @@ def main() -> int:
     hybrid_launches = read_all()
     print(f"launches of phase 18 {hybrid_launches}")
 
+    # ------------------------------------------ 19-21 tp decode, families
+    family_launches = family_phases(dev, smi, cfg,
+                                    get_config("deepseek-v2-lite-16b"),
+                                    get_config("qwen2-vl-7b"))
+    print(f"launches of phases 19-21 {family_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -2202,7 +2564,10 @@ def main() -> int:
                       "traced_serve": serve_launches[name],
                       "traced_train": traced_launches[name],
                       "elastic": elastic_launches[name],
-                      "hybrid": hybrid_launches[name]}
+                      "hybrid": hybrid_launches[name],
+                      "tp_serve": family_launches["tp_serve"].get(name, 0),
+                      "deepseek": family_launches["deepseek"].get(name, 0),
+                      "qwen2_vl": family_launches["qwen2_vl"].get(name, 0)}
                for name in sources}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
@@ -2222,6 +2587,9 @@ def main() -> int:
     assert by_path["onebit_encode_ef"]["elastic"] > 0
     assert by_path["flash_attention"]["hybrid"] > 0
     assert by_path["onebit_encode_ef"]["hybrid"] > 0
+    for path in ("tp_serve", "qwen2_vl"):
+        assert by_path["flash_attention"][path] > 0
+        assert by_path["flash_decode"][path] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

@@ -60,9 +60,16 @@ class LeafLayout:
     """The reference's leaves over a port tree (module docstring).
 
     ``parts[i]`` lists the paths of leaf i's tensors in the port tree: one
-    path is the tensor itself, several are stacked on a new axis 0."""
+    path is the tensor itself, several are stacked on a new axis 0.
+    ``stacked[i]`` (when given) stacks leaf i even from one part: a scan
+    segment of one group, whose reference leaf has a leading axis of 1."""
     names: Tuple[str, ...]
     parts: Tuple[Tuple[Path, ...], ...]
+    stacked: Tuple[bool, ...] = ()
+
+    def is_stacked(self, i: int) -> bool:
+        return len(self.parts[i]) > 1 or bool(self.stacked
+                                                and self.stacked[i])
 
     @classmethod
     def of_tree(cls, tree) -> "LeafLayout":
@@ -74,16 +81,16 @@ class LeafLayout:
 
     def shapes(self, tree) -> List[Tuple[int, ...]]:
         out = []
-        for paths in self.parts:
+        for i, paths in enumerate(self.parts):
             shape = tuple(get_path(tree, paths[0]).shape)
-            out.append(shape if len(paths) == 1 else (len(paths),) + shape)
+            out.append((len(paths),) + shape if self.is_stacked(i) else shape)
         return out
 
     def leaf(self, tree, i: int) -> torch.Tensor:
         """Leaf ``i`` of ``tree``, its parts stacked (a copy when there
         are several)."""
         ts = [get_path(tree, p) for p in self.parts[i]]
-        return ts[0] if len(ts) == 1 else torch.stack(ts)
+        return torch.stack(ts) if self.is_stacked(i) else ts[0]
 
     def view(self, tree) -> "LeafView":
         """The leaves of ``tree`` as a sequence stacked on each read."""
@@ -93,12 +100,12 @@ class LeafLayout:
         """Yield each leaf, stacking its parts.  ``consume=True`` drops the
         parts from ``tree`` as they are read, so a gradient tree's memory
         goes as its stacked leaves are made."""
-        for paths in self.parts:
+        for i, paths in enumerate(self.parts):
             ts = [get_path(tree, p) for p in paths]
             if consume:
                 for p in paths:
                     set_path(tree, p, None)
-            leaf = ts[0] if len(ts) == 1 else torch.stack(ts)
+            leaf = torch.stack(ts) if self.is_stacked(i) else ts[0]
             del ts
             yield leaf
             del leaf
@@ -108,9 +115,9 @@ class LeafLayout:
         """A new tree whose tensors are ``fn(tensor, its slice of the
         leaf)``; ``tree`` itself is left as it was."""
         out = tree_map(lambda t: t, tree)
-        for paths, leaf in zip(self.parts, leaves):
+        for i, (paths, leaf) in enumerate(zip(self.parts, leaves)):
             for j, p in enumerate(paths):
-                part = leaf if len(paths) == 1 else leaf[j]
+                part = leaf[j] if self.is_stacked(i) else leaf
                 set_path(out, p, fn(get_path(tree, p), part))
         return out
 

@@ -5,6 +5,10 @@ device, driven by an open-loop arrival trace.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --requests 16 --prompt-len 512 --max-new 64 --slots 8 --pages 16
 
+  # DeepSeek-V2-Lite-16B (MoE + MLA) at full width; TinyLlama at --tp 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --tp 2
+
   # reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --dtype f32 --requests 8 --rate 0.5 --pages 4
@@ -58,6 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="KV page size (0 = contiguous per-slot cache)")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool cap (0 = size for all slots full)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel decode degree (logical ranks on "
+                         "the one device)")
     ap.add_argument("--window", type=int, default=0,
                     help="sliding-window override (sub-quadratic decode)")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -93,7 +100,7 @@ def serve(args: argparse.Namespace, model, params, reqs, device
     slo = SLOMonitor(args.slo) if args.slo else None
     eng = ServeEngine(model, params, ServeConfig(
         slots=args.slots, max_len=max_len, page_size=args.pages,
-        num_pages=args.num_pages or None, policy=args.policy,
+        num_pages=args.num_pages or None, policy=args.policy, tp=args.tp,
         window_override=args.window, cache_dtype=dtype, compute_dtype=dtype),
         device=device, slo=slo)
     rec = None
@@ -146,7 +153,8 @@ def main(argv=None):
               f"output={r.output[:8]}{'...' if len(r.output) > 8 else ''}")
     if len(reqs) > 4:
         print(f"... {len(reqs) - 4} more")
-    print(f"policy={metrics['policy']} paged={metrics['paged']}")
+    print(f"policy={metrics['policy']} paged={metrics['paged']} "
+          f"tp={metrics['tp']}")
     print(f"{metrics['completed']} requests, "
           f"{metrics['generated_tokens']} tokens in "
           f"{metrics['clock']:.0f} iterations "

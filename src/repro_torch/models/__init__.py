@@ -1,7 +1,10 @@
-"""Model zoo of the port: the decoder-only dense / GQA LM.
+"""Model zoo of the port: the decoder-only LM (dense GQA, MoE, MLA,
+M-RoPE with a vision stub).
 
 ``build_model(cfg)`` returns the same functional API as the JAX package's
 ``build_model`` for decoder-only configs, with an explicit ``device``.
+The recurrent and encoder-decoder families (ROADMAP queue A item 7b)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,12 +19,14 @@ from repro_torch.configs.base import ModelConfig
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable          # (seed=0, dtype=..., device=...) -> params
+    init: Callable          # (seed=0, dtype=..., device=...,
+                            #  vocab_pad_multiple=1) -> params
     loss_fn: Callable       # (params, batch, compute_dtype=...) -> (loss, metrics)
     leaf_layout: Callable   # params -> LeafLayout (the JAX package's leaves)
-    forward: Callable       # (params, tokens, **kw) -> (logits, caches | None)
+    forward: Callable       # (params, tokens, **kw) -> (logits, aux, caches | None)
     init_cache: Callable    # (batch, max_len, dtype, **kw) -> caches
     decode_step: Callable   # (params, caches, token, pos, **kw) -> (logits, caches)
+                            # (tp_axis=: serve.tp's rank-stacked params and caches)
     prefill: Callable       # (params, tokens, **kw) -> (last logits, states)
     # prefill states -> init_cache decode layout (serving-plane plumbing)
     cache_from_prefill: Callable
@@ -32,8 +37,9 @@ def build_model(cfg: ModelConfig) -> Model:
     T.plan_segments(cfg)                       # rejects unported families
     return Model(
         cfg=cfg,
-        init=lambda seed=0, dtype=torch.float32, device="cpu":
-            T.init_params(cfg, seed, dtype, device),
+        init=lambda seed=0, dtype=torch.float32, device="cpu",
+            vocab_pad_multiple=1:
+            T.init_params(cfg, seed, dtype, device, vocab_pad_multiple),
         loss_fn=lambda params, batch, compute_dtype=torch.bfloat16:
             T.loss_fn(params, cfg, batch, compute_dtype),
         leaf_layout=lambda params: T.leaf_layout(cfg, params),

@@ -1,5 +1,6 @@
-"""GQA / MQA / MHA self-attention, full and sliding-window (the JAX
-package's ``models/attention.py`` without the cross-attention branches).
+"""GQA / MQA / MHA self-attention, full and sliding-window, with optional
+qkv / output biases and Qwen2-VL's M-RoPE (the JAX package's
+``models/attention.py`` without the cross-attention branches).
 
 The plain PyTorch math below is the ``ref`` path; the kernel path routes
 through ``repro_torch.kernels.flash_attention`` (the CUDA kernels) by the
@@ -26,7 +27,8 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.backend import resolve_backend
 from repro_torch.kernels.flash_attention.ref import decode_mask
-from repro_torch.models.common import apply_rope, dense, dense_init
+from repro_torch.models.common import (apply_mrope, apply_rope, dense,
+                                       dense_init)
 
 NEG_INF = -1e9
 
@@ -70,8 +72,19 @@ def _window_mask(s, window, device):
     return ((kj <= qi) & (kj > qi - window))[None, None]
 
 
+def _rotate(q, k, positions, cfg):
+    """RoPE, or M-RoPE when the config has ``mrope_sections`` (then
+    positions are [B, 3, S])."""
+    if cfg.mrope_sections:
+        return (apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
 def attention_forward(p, x, positions, cfg, *, causal=True, window=0):
-    """Prefill / training forward.  x [B, S, d]; positions [B, S].
+    """Prefill / training forward.  x [B, S, d]; positions [B, S] ([B, 3,
+    S] with M-RoPE).
 
     The kernel path feeds the *unrepeated* k/v to the flash kernel (query
     head h reads KV head h // (H/KV)).  Returns (out, {"k", "v"}) with the
@@ -80,8 +93,7 @@ def attention_forward(p, x, positions, cfg, *, causal=True, window=0):
     q = _split_heads(dense(p["wq"], x), H, hd)
     k = _split_heads(dense(p["wk"], x), KV, hd)
     v = _split_heads(dense(p["wv"], x), KV, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(q, k, positions, cfg)
     if resolve_backend(cfg.attn_backend, q) == "kernel":
         out = FA.attention_grad(q, k, v, causal=causal,
                                 window=window if causal else 0)
@@ -108,7 +120,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype, window: int = 0,
 
 def attention_decode(p, x, pos, cache, cfg, *, window=0):
     """One-token decode step.  x [B, 1, d]; pos [B] int (each row at its
-    own position).  ``window > 0`` -> ring-buffer cache of that length.
+    own position; with M-RoPE all three position rows are ``pos``, as the
+    JAX package broadcasts its scalar position).  ``window > 0`` ->
+    ring-buffer cache of that length.
 
     Writes row ``pos`` (``pos % window``) of each batch row into ``cache``
     in place.  Returns (out [B, 1, d], cache)."""
@@ -117,8 +131,9 @@ def attention_decode(p, x, pos, cache, cfg, *, window=0):
     q = _split_heads(dense(p["wq"], x), H, hd)
     k = _split_heads(dense(p["wk"], x), KV, hd)
     v = _split_heads(dense(p["wv"], x), KV, hd)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    posb = (pos[:, None, None].expand(B, 3, 1) if cfg.mrope_sections
+            else pos[:, None])
+    q, k = _rotate(q, k, posb, cfg)
 
     ck, cv = cache["k"], cache["v"]
     rows = torch.arange(B, device=x.device)

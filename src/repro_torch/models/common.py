@@ -1,6 +1,6 @@
 """Shared building blocks over plain dicts of tensors (the JAX package's
-``models/common.py``, dense / RMSNorm / RoPE / SwiGLU / cross-entropy
-part).
+``models/common.py``): dense, RMSNorm / LayerNorm, activations, RoPE and
+Qwen2-VL's M-RoPE, cross-entropy, the SwiGLU / GELU MLP.
 
 Weights keep the JAX layout: a dense weight is ``[in, out]`` and applies
 as ``x @ w``, so parameters carry over from the JAX package unchanged.
@@ -56,6 +56,19 @@ def norm_apply(kind: str, p, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+# ---------------------------------------------------------------- activation
+def activation(name: str, x):
+    """``gelu`` is ``jax.nn.gelu``'s default, the tanh approximation
+    (``F.gelu`` defaults to the exact erf form)."""
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu(x)
+    if name == "relu_sq":
+        return torch.relu(x).square()
+    raise ValueError(name)
+
+
 # ---------------------------------------------------------------------- RoPE
 def _rope_cos_sin(positions, half_dim: int, theta: float):
     """positions [...]; returns cos/sin of shape positions.shape + (half_dim,)."""
@@ -70,6 +83,25 @@ def apply_rope(x, positions, theta: float):
     """x [B, S, H, hd]; positions [B, S] -> rotated x (llama half-split)."""
     cos, sin = _rope_cos_sin(positions, x.shape[-1] // 2, theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections, theta: float):
+    """Qwen2-VL M-RoPE.  x [B, S, H, hd]; positions3 [B, 3, S]; sections
+    half-dims (t, h, w) summing to hd // 2: each frequency band turns by
+    its own position row (temporal / height / width)."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    dev = positions3.device
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=dev) / half))
+    sec_ids = torch.tensor([i for i, n in enumerate(sections)
+                            for _ in range(n)], device=dev)   # [half]
+    pos = positions3.float()[:, sec_ids, :]                    # [B, half, S]
+    angles = pos.transpose(1, 2) * freqs                       # [B, S, half]
+    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -97,14 +129,19 @@ def cross_entropy(logits, labels, mask=None, vocab_size: int | None = None):
 # ------------------------------------------------------------------ mlp
 def mlp_init(gen, d_model: int, d_ff: int, act: str, use_bias: bool,
              dtype=torch.float32, device="cpu"):
-    if act != "swiglu":
-        raise NotImplementedError(f"act={act!r}: the port has SwiGLU only")
-    return {"w_gate": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
-            "w_up": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
+    if act == "swiglu":
+        return {"w_gate": dense_init(gen, d_model, d_ff, use_bias, dtype,
+                                     device),
+                "w_up": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
+                "w_down": dense_init(gen, d_ff, d_model, use_bias, dtype,
+                                     device)}
+    return {"w_up": dense_init(gen, d_model, d_ff, use_bias, dtype, device),
             "w_down": dense_init(gen, d_ff, d_model, use_bias, dtype, device)}
 
 
 def mlp_apply(p, x, act: str):
-    if act != "swiglu":
-        raise NotImplementedError(f"act={act!r}: the port has SwiGLU only")
-    return dense(p["w_down"], F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x))
+    if act == "swiglu":
+        h = F.silu(dense(p["w_gate"], x)) * dense(p["w_up"], x)
+    else:
+        h = activation(act, dense(p["w_up"], x))
+    return dense(p["w_down"], h)

@@ -1,17 +1,23 @@
-"""Decoder-only dense / GQA language model (the JAX package's
-``models/transformer.py``, dense part).
+"""Decoder-only language model of the port (the JAX package's
+``models/transformer.py``): dense GQA / MHA, MoE (with a dense prefix),
+MLA, M-RoPE with a vision stub, qkv biases, RMSNorm or LayerNorm.
 
-Parameters are plain dicts of tensors: ``embed [V, d]``,
-``lm_head [d, V]`` (untied configs), ``final_norm`` and ``layers``, a
-list with one dict per layer.  The JAX package stacks layers into scan
-groups (``plan_segments``); here the stack is a Python loop,
-``from_jax_params`` un-stacks a JAX parameter tree into this layout, and
-``leaf_layout`` maps it back onto the JAX package's leaves (the order the
-data-parallel engine plans, compresses and reduces gradients in).
+Parameters are plain dicts of tensors: ``embed [Vpad, d]``,
+``lm_head [d, Vpad]`` (untied configs), ``final_norm`` and ``layers``, a
+list with one dict per layer (``ln1``, ``ln2``, ``mixer`` and ``mlp`` or
+``moe``).  The JAX package stacks layers into scan groups
+(``plan_segments``); here the stack is a Python loop, ``from_jax_params``
+un-stacks a JAX parameter tree into this layout, and ``leaf_layout`` maps
+it back onto the JAX package's leaves (the order the data-parallel engine
+plans, compresses and reduces gradients in).
+
+The recurrent and encoder-decoder families (RG-LRU with ``local`` ring
+layers, RWKV-6, Whisper) are ROADMAP queue A item 7b: ``plan_segments``
+raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,8 +25,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.common import (cross_entropy, dense, mlp_apply,
                                        mlp_init, norm_apply, norm_init)
+from repro_torch.models.moe import moe_apply, moe_init
 
 KINDS = ("attn",)
 
@@ -28,66 +36,140 @@ KINDS = ("attn",)
 # --------------------------------------------------------------- segment plan
 def plan_segments(cfg: ModelConfig) -> List[Tuple[str, Any]]:
     """The JAX package's layer grouping: [("plain", sig) | ("scan",
-    (sig, ...), n_groups), ...] with sig = (kind, use_moe).  The port runs
-    layers one by one; it reads the plan to un-stack JAX parameters."""
+    (sig, ...), n_groups), ...] with sig = (kind, use_moe): a plain
+    prefix of the ``first_k_dense`` layers of an MoE stack, then one scan
+    segment of the repeating pattern, then plain stragglers.  The port
+    runs layers one by one; it reads the plan to un-stack JAX parameters."""
     bad = sorted(set(cfg.layer_kinds) - set(KINDS))
-    if bad or cfg.attn_type != "gqa":
+    if (bad or cfg.window or cfg.is_encoder_decoder
+            or cfg.attn_type not in ("gqa", "mla")):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA layers only "
-            f"(got kinds {bad or cfg.layer_kinds}, attn_type {cfg.attn_type})")
-    sigs = [(kind, False) for kind in cfg.layer_kinds]
-    pat_len = len(cfg.block_pattern)
-    pattern = tuple(sigs[:pat_len])
-    n_groups = 0
-    while (n_groups + 1) * pat_len <= len(sigs) and all(
-            sigs[n_groups * pat_len + j] == pattern[j] for j in range(pat_len)):
-        n_groups += 1
+            f"{cfg.name}: recurrent, sliding-window and encoder-decoder "
+            f"families are ROADMAP queue A item 7b (got kinds "
+            f"{bad or cfg.layer_kinds}, window {cfg.window}, "
+            f"encoder-decoder {cfg.is_encoder_decoder}, attn_type "
+            f"{cfg.attn_type})")
+    sigs = _layer_sigs(cfg)
     segments: List[Tuple[str, Any]] = []
+    i = 0
+    while i < len(sigs) and cfg.moe and i < cfg.first_k_dense:
+        segments.append(("plain", sigs[i]))
+        i += 1
+    pat_len = len(cfg.block_pattern)
+    remaining = sigs[i:]
+    pattern = tuple(remaining[:pat_len])
+    n_groups = 0
+    while (n_groups + 1) * pat_len <= len(remaining) and all(
+            remaining[n_groups * pat_len + j] == pattern[j]
+            for j in range(pat_len)):
+        n_groups += 1
     if n_groups:
         segments.append(("scan", pattern, n_groups))
-    segments += [("plain", sig) for sig in sigs[n_groups * pat_len:]]
+        i += n_groups * pat_len
+    segments += [("plain", sig) for sig in sigs[i:]]
     return segments
 
 
+def _layer_sigs(cfg: ModelConfig) -> List[Tuple[str, bool]]:
+    """(kind, use_moe) of every layer, in order."""
+    return [(kind, bool(cfg.moe and i >= cfg.first_k_dense
+                        and kind in ("attn", "local")))
+            for i, kind in enumerate(cfg.layer_kinds)]
+
+
 # ------------------------------------------------------------------ layer ops
-def _layer_init(gen, cfg: ModelConfig, dtype, device):
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, device=device),
-            "ln2": norm_init(cfg.norm, cfg.d_model, device=device),
-            "mixer": attn.attn_init(gen, cfg, dtype, device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.use_bias,
-                            dtype, device)}
+def _layer_init(gen, cfg: ModelConfig, sig, dtype, device):
+    _, use_moe = sig
+    p = {"ln1": norm_init(cfg.norm, cfg.d_model, device=device),
+         "ln2": norm_init(cfg.norm, cfg.d_model, device=device)}
+    if cfg.attn_type == "mla":
+        p["mixer"] = mla_mod.mla_init(gen, cfg, dtype, device)
+    else:
+        p["mixer"] = attn.attn_init(gen, cfg, dtype, device)
+    if use_moe:
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.use_bias,
+                            dtype, device)
+    return p
 
 
-def _layer_forward(p, cfg: ModelConfig, x, positions, window):
-    """Full-sequence forward for one layer.  Returns (x, {"k", "v"})."""
+def _layer_forward(p, cfg: ModelConfig, sig, x, positions, window):
+    """Full-sequence forward for one layer.  Returns (x, aux, state)."""
+    _, use_moe = sig
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    out, state = attn.attention_forward(p["mixer"], h, positions, cfg,
-                                        causal=True, window=window)
+    if cfg.attn_type == "mla":
+        out, state = mla_mod.mla_forward(p["mixer"], h, positions, cfg)
+    else:
+        out, state = attn.attention_forward(p["mixer"], h, positions, cfg,
+                                            causal=True, window=window)
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.act), state
+    if use_moe:
+        out, aux = moe_apply(p["moe"], h, cfg)
+    else:
+        out, aux = mlp_apply(p["mlp"], h, cfg.act), None
+    return x + out, aux, state
 
 
-def _layer_decode(p, cfg: ModelConfig, x, pos, cache, window):
-    """One-token decode for one layer.  Returns (x, cache)."""
+def _rank(tree, r: int):
+    """Tensor rank ``r``'s slice of a rank-stacked tree."""
+    return tree_map(lambda t: t[r], tree)
+
+
+def _tp_sum(partials):
+    """The row-parallel partial products of the ranks, summed in rank
+    order (``tensor_reduce``; imported here, as ``parallel`` imports the
+    engines)."""
+    from repro_torch.parallel.staged import tensor_reduce
+    return tensor_reduce(torch.stack(partials))[0]
+
+
+def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window,
+                  tp_axis=None):
+    """One-token decode for one layer.  Returns (x, cache).
+
+    tp_axis: the mixer and MLP leaves and the cache are rank-stacked on
+    dimension 0 (``serve.tp``); each rank decodes its heads and hidden
+    slice against its own cache rows, and the row-parallel partial
+    products (wo, w_down) are summed with ``tensor_reduce`` before each
+    residual add.  Dense GQA layers only (``decode_step`` checks)."""
+    _, use_moe = sig
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    out, cache = attn.attention_decode(p["mixer"], h, pos, cache, cfg,
-                                       window=window)
+    if cfg.attn_type == "mla":
+        out, cache = mla_mod.mla_decode(p["mixer"], h, pos, cache, cfg)
+    elif tp_axis is None:
+        out, cache = attn.attention_decode(p["mixer"], h, pos, cache, cfg,
+                                           window=window)
+    else:
+        out = _tp_sum([
+            attn.attention_decode(_rank(p["mixer"], r), h, pos,
+                                  _rank(cache, r), cfg, window=window)[0]
+            for r in range(cache["k"].shape[0])])
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.act), cache
+    if use_moe:
+        out, _ = moe_apply(p["moe"], h, cfg, per_row=True)
+    elif tp_axis is None:
+        out = mlp_apply(p["mlp"], h, cfg.act)
+    else:
+        out = _tp_sum([mlp_apply(_rank(p["mlp"], r), h, cfg.act)
+                       for r in range(p["mlp"]["w_up"]["w"].shape[0])])
+    return x + out, cache
 
 
 # ----------------------------------------------------------------- model init
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device="cpu"):
+                device="cpu", vocab_pad_multiple: int = 1):
     """Seeded init with the JAX package's distributions: embed
-    ``normal * 0.02``, lm_head ``normal / sqrt(d)``, dense weights
-    ``normal / sqrt(in)``, norm scales ones.  The draws differ from
-    ``jax.random``'s; tests carry weights over with ``from_jax_params``."""
+    ``normal * 0.02``, lm_head ``normal / sqrt(d)``, dense and expert
+    weights ``normal / sqrt(in)``, norm scales ones (fp32), the MoE router
+    in fp32.  The vocab is padded to a multiple of ``vocab_pad_multiple``.
+    The draws differ from ``jax.random``'s; tests carry weights over with
+    ``from_jax_params``."""
     plan_segments(cfg)                                 # rejects other families
     gen = torch.Generator(device=device).manual_seed(seed)
-    V, d = cfg.vocab_size, cfg.d_model
+    V, d = cfg.padded_vocab(vocab_pad_multiple), cfg.d_model
 
     def normal(*shape):
         return torch.randn(*shape, generator=gen, device=device,
@@ -99,14 +181,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = (normal(d, V) / np.sqrt(d)).to(dtype)
-    params["layers"] = [_layer_init(gen, cfg, dtype, device)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_layer_init(gen, cfg, sig, dtype, device)
+                        for sig in _layer_sigs(cfg)]
     return params
 
 
 def from_jax_params(cfg: ModelConfig, tree):
     """The JAX package's parameter tree (leaves as numpy arrays) -> the
-    port's parameters (CPU tensors, same dtype).  Scan segments are
+    port's parameters (CPU tensors, same dtype).  Plain segments (an MoE
+    stack's dense prefix) map to one layer each; scan segments are
     un-stacked along their leading group axis into one dict per layer."""
     to_t = lambda a: torch.from_numpy(np.array(a))     # writable copy
     layers = []
@@ -135,11 +218,12 @@ def leaf_layout(cfg: ModelConfig, params) -> LeafLayout:
     groups.  Leaf names are the JAX key paths joined by ``/``."""
     leaves = []
 
-    def add(prefix, bases):
-        """One leaf per tensor under ``bases[0]``, stacked over ``bases``."""
+    def add(prefix, bases, stacked=False):
+        """One leaf per tensor under ``bases[0]``, stacked over ``bases``
+        (``stacked``: a scan segment's, even of one group)."""
         for path in leaf_paths(get_path(params, bases[0])):
             leaves.append(("/".join(map(str, prefix + path)),
-                           tuple(b + path for b in bases)))
+                           tuple(b + path for b in bases), stacked))
 
     for key in sorted([k for k in params if k != "layers"] + ["segments"]):
         if key != "segments":
@@ -155,9 +239,12 @@ def leaf_layout(cfg: ModelConfig, params) -> LeafLayout:
             P = len(pattern)
             for j in range(P):
                 add(("segments", si, j),
-                    [("layers", layer + j + g * P) for g in range(n_groups)])
+                    [("layers", layer + j + g * P) for g in range(n_groups)],
+                    stacked=True)
             layer += n_groups * P
-    return LeafLayout(tuple(n for n, _ in leaves), tuple(p for _, p in leaves))
+    return LeafLayout(tuple(n for n, _, _ in leaves),
+                      tuple(p for _, p, _ in leaves),
+                      tuple(s for _, _, s in leaves))
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -169,81 +256,131 @@ def _logits(params, cfg: ModelConfig, x):
 
 # ------------------------------------------------------------------- forward
 def forward(params, cfg: ModelConfig, tokens, positions=None,
-            compute_dtype=torch.bfloat16, return_cache: bool = False,
-            window_override: int = 0):
-    """Full-sequence forward.  tokens [B, S] int.  Returns (logits,
-    caches | None); caches hold each layer's full k/v.
+            vision_embeds=None, compute_dtype=torch.bfloat16,
+            return_cache: bool = False, window_override: int = 0):
+    """Full-sequence forward.  Returns (logits, aux, caches | None): aux is
+    the sum of the MoE layers' load-balance losses (0 without MoE), caches
+    each layer's state (``{k, v}`` or MLA's ``{c_kv, k_rope}``).
 
+    tokens [B, S] int.  positions: [B, S] ([B, 3, S] with M-RoPE; the
+    default broadcasts ``arange(S)`` to all three rows).  vision_embeds
+    [B, P, d]: the vision stub, written over the leading P token slots.
     window_override: sliding-window mask for plain attention layers — the
     prefill-side twin of ``decode_step``'s ring-buffer override."""
     B, S = tokens.shape
     x = params["embed"].to(compute_dtype)[tokens]
+    if vision_embeds is not None:
+        P = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(compute_dtype), x[:, P:]], dim=1)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.mrope_sections:
+            positions = positions[:, None].expand(B, 3, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: List[Any] = []
-    for p in params["layers"]:
-        x, st = _layer_forward(p, cfg, x, positions, window_override)
+    for p, sig in zip(params["layers"], _layer_sigs(cfg)):
+        x, aux, st = _layer_forward(p, cfg, sig, x, positions,
+                                    window_override)
+        if aux is not None:
+            aux_total = aux_total + aux
         if return_cache:
             caches.append(st)
-    return _logits(params, cfg, x), (caches if return_cache else None)
+    return (_logits(params, cfg, x), aux_total,
+            caches if return_cache else None)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16):
-    """Next-token CE.  batch: {tokens, labels[, mask, positions]}.  Returns
-    (loss, {"ce", "aux"}); the dense decoder has no auxiliary loss."""
-    logits, _ = forward(params, cfg, batch["tokens"],
-                        positions=batch.get("positions"),
-                        compute_dtype=compute_dtype)
+    """Next-token CE + the MoE aux loss.  batch: {tokens, labels[, mask,
+    positions, vision_embeds]}.  Returns (loss, {"ce", "aux"})."""
+    logits, aux, _ = forward(params, cfg, batch["tokens"],
+                             positions=batch.get("positions"),
+                             vision_embeds=batch.get("vision_embeds"),
+                             compute_dtype=compute_dtype)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
                        vocab_size=cfg.vocab_size)
-    return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens, positions=None,
-            compute_dtype=torch.bfloat16, window_override: int = 0):
-    """Forward over the prompt: last-token logits [B, 1, V] and the
-    per-layer k/v states."""
-    logits, caches = forward(params, cfg, tokens, positions=positions,
-                             compute_dtype=compute_dtype, return_cache=True,
-                             window_override=window_override)
+            vision_embeds=None, compute_dtype=torch.bfloat16,
+            window_override: int = 0):
+    """Forward over the prompt: last-token logits [B, 1, Vpad] and the
+    per-layer states."""
+    logits, _, caches = forward(params, cfg, tokens, positions=positions,
+                                vision_embeds=vision_embeds,
+                                compute_dtype=compute_dtype,
+                                return_cache=True,
+                                window_override=window_override)
     return logits[:, -1:], caches
 
 
 # --------------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, device="cpu"):
-    """One ``{"k", "v"}`` cache per layer (ring buffers of length
-    ``window_override`` when it is set)."""
+    """One cache per layer: ``{"k", "v"}`` (ring buffers of length
+    ``window_override`` when it is set) or MLA's latents ``{"c_kv",
+    "k_rope"}``."""
+    plan_segments(cfg)
+    if cfg.attn_type == "mla":
+        return [mla_mod.mla_init_cache(cfg, batch, max_len, dtype, device)
+                for _ in range(cfg.num_layers)]
     return [attn.init_cache(cfg, batch, max_len, dtype,
                             window=window_override, device=device)
             for _ in range(cfg.num_layers)]
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos,
-                compute_dtype=torch.bfloat16, window_override: int = 0):
+                compute_dtype=torch.bfloat16, window_override: int = 0,
+                tp_axis: Optional[str] = None):
     """One decode step.  token [B, 1] int; pos [B] int, the position of
     each row's token (rows decode at their own positions).  Updates the
-    caches in place; returns (logits [B, 1, V], caches)."""
+    caches in place; returns (logits [B, 1, Vpad], caches).
+
+    tp_axis: tensor-parallel decode over logical ranks on one device.
+    ``params`` then come from ``serve.tp.TPContext.shard_params`` (wq, wk,
+    wv, w_gate, w_up split by column and wo, w_down by row, stacked
+    rank-major on dimension 0; embeddings, norms and lm_head replicated),
+    every cache leaf is rank-major ``[tp, ..., KV/tp, hd]``, and ``cfg``
+    is the rank-local config (``num_heads/tp``, ``num_kv_heads/tp``), as
+    the JAX package's engine passes it inside its ``shard_map``.  The
+    value names the axis; the port's tensor axis is always dimension 0."""
+    if tp_axis is not None and (cfg.moe or cfg.attn_type == "mla"):
+        raise ValueError(
+            f"tensor-parallel decode supports dense GQA layers only "
+            f"(got moe={cfg.moe}, attn_type={cfg.attn_type})")
     x = params["embed"].to(compute_dtype)[token]
-    for i, p in enumerate(params["layers"]):
-        x, caches[i] = _layer_decode(p, cfg, x, pos, caches[i],
-                                     window_override)
+    for i, (p, sig) in enumerate(zip(params["layers"], _layer_sigs(cfg))):
+        x, caches[i] = _layer_decode(p, cfg, sig, x, pos, caches[i],
+                                     window_override, tp_axis)
     return _logits(params, cfg, x), caches
 
 
-def _state_to_cache(st, max_len: int, dtype, window: int = 0):
-    """One layer's prefill k/v [B, S, KV, hd] -> its ``init_cache`` layout:
-    position t at slot t (full) or t % W (ring buffer, last W kept)."""
+def _seq_from_end(cfg: ModelConfig) -> int:
+    """The sequence axis of an attention cache leaf, counted from its end:
+    2 for MLA's latents ``[.., L, r]``, 3 for ``[.., L, KV, hd]``."""
+    return 2 if cfg.attn_type == "mla" else 3
+
+
+def _state_to_cache(cfg: ModelConfig, st, max_len: int, dtype,
+                    window: int = 0):
+    """One layer's prefill state -> its ``init_cache`` layout: position t
+    at slot t (full) or t % W (ring buffer, last W kept; MLA keeps full
+    latents)."""
+    if cfg.attn_type == "mla":
+        window = 0
     L = window if window else max_len
 
     def fill(a):
-        B, S = a.shape[:2]
+        ax = a.dim() - _seq_from_end(cfg)
+        S = a.shape[ax]
         if not window and S > max_len:
             raise ValueError(f"prompt length {S} > max_len {max_len}")
         ts = torch.arange(max(0, S - window) if window else 0, S,
                           device=a.device)
-        out = torch.zeros((B, L) + a.shape[2:], dtype=dtype, device=a.device)
-        out[:, ts % window if window else ts] = a[:, ts].to(dtype)
+        out = torch.zeros(a.shape[:ax] + (L,) + a.shape[ax + 1:],
+                          dtype=dtype, device=a.device)
+        out.index_copy_(ax, ts % window if window else ts,
+                        a.index_select(ax, ts).to(dtype))
         return out
 
     return {name: fill(a) for name, a in st.items()}
@@ -253,5 +390,5 @@ def cache_from_prefill(cfg: ModelConfig, fwd_caches, max_len: int,
                        dtype=torch.bfloat16, window_override: int = 0):
     """Prefill states -> the decode caches ``init_cache`` lays out, so a
     prompt is consumed by one batched forward pass."""
-    return [_state_to_cache(st, max_len, dtype, window_override)
+    return [_state_to_cache(cfg, st, max_len, dtype, window_override)
             for st in fwd_caches]

@@ -69,7 +69,7 @@ class Adafactor:
                 layout.leaf(params, i), layout.leaf(grads, i),
                 state["f"][i], beta, lr)
             for j, path in enumerate(paths):
-                get_path(params, path).copy_(new if len(paths) == 1
-                                             else new[j])
+                get_path(params, path).copy_(new[j] if layout.is_stacked(i)
+                                             else new)
         state["t"] = t
         return params, state

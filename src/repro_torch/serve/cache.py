@@ -1,11 +1,10 @@
 """Paged KV cache (the JAX package's ``serve/cache.py``, for the port's
-per-layer ``{"k", "v"}`` caches; vLLM-style block management, arXiv
-2111.14247).
+per-layer caches; vLLM-style block management, arXiv 2111.14247).
 
-  * attention caches ``[B, L, KV, hd]`` are re-laid-out as fixed-size
-    **page pools** ``[num_pages, page, KV, hd]`` shared by every batch
-    slot, addressed through per-slot **block tables** (logical page ->
-    physical page);
+  * attention caches ``[B, L, KV, hd]`` and MLA latents ``[B, L, r]``
+    are re-laid-out as fixed-size **page pools** ``[num_pages, page,
+    ...]`` shared by every batch slot, addressed through per-slot **block
+    tables** (logical page -> physical page);
   * a **BlockAllocator** hands pages out at admission and takes them back
     on completion, so an over-subscribed pool *stalls admission* instead
     of running out of memory;
@@ -17,6 +16,12 @@ the decode step needs no masking branches.  As in the JAX package, decode
 runs on the contiguous view ``gather`` builds and ``scatter`` writes the
 new row back; a kernel that reads pages through the block table is later
 work.
+
+Tensor-parallel decode (``tp > 1``, ``serve/tp.py``) keeps every cache
+leaf rank-major, ``[tp, ..., KV/tp, hd]``: rank r's rows are one
+contiguous block, so the gather hands each rank's ``flash_decode`` a
+contiguous cache without a copy per rank.  The JAX package shards the
+same KV-head axis over devices.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.tree import get_path, leaf_paths
+from repro_torch.core.tree import get_path, leaf_paths, tree_map
 
 
 def cache_bytes(caches) -> int:
@@ -75,16 +80,31 @@ class BlockAllocator:
 
 
 # ------------------------------------------------------------- KV stores
+def shard_kv(t, tp: int):
+    """A cache leaf ``[..., KV, hd]`` -> rank-major ``[tp, ..., KV/tp,
+    hd]`` (rank r holds KV heads r*KV/tp ... (r+1)*KV/tp - 1); ``tp == 1``
+    returns ``t``."""
+    return t if tp == 1 else torch.stack(t.chunk(tp, dim=t.dim() - 2))
+
+
+def _lead(tp: int):
+    """Index prefix that passes the rank axis of a rank-major leaf."""
+    return (slice(None),) * (tp > 1)
+
+
 class ContiguousKV:
     """One ``init_cache(slots, max_len)`` per layer, every slot owning its
     full-length rows.  Same interface as ``PagedKV``."""
 
+    paged = False
+
     def __init__(self, model, slots: int, max_len: int, dtype=torch.float32,
-                 window_override: int = 0, device="cpu"):
-        self.slots, self.max_len = slots, max_len
-        self.store = model.init_cache(slots, max_len, dtype=dtype,
-                                      window_override=window_override,
-                                      device=device)
+                 window_override: int = 0, device="cpu", tp: int = 1):
+        self.slots, self.max_len, self.tp = slots, max_len, tp
+        self.store = tree_map(
+            lambda t: shard_kv(t, tp),
+            model.init_cache(slots, max_len, dtype=dtype,
+                             window_override=window_override, device=device))
 
     def block_tables_device(self):
         return None                       # contiguous mode has no tables
@@ -105,7 +125,8 @@ class ContiguousKV:
         cache into batch slot ``slot``."""
         for dst, src in zip(self.store, conv_cache):
             for name in dst:
-                dst[name][slot] = src[name][j]
+                dst[name][_lead(self.tp) + (slot,)] = shard_kv(src[name][j],
+                                                               self.tp)
 
     def release(self, slot: int, request) -> None:
         pass                              # rows are overwritten on admit
@@ -115,40 +136,44 @@ class PagedKV:
     """Fixed-size page pools + per-slot block tables over the attention
     caches."""
 
+    paged = True
+
     def __init__(self, model, slots: int, max_len: int, page_size: int,
                  num_pages: Optional[int] = None, dtype=torch.float32,
-                 window_override: int = 0, device="cpu"):
+                 window_override: int = 0, device="cpu", tp: int = 1):
         if page_size <= 0:
             raise ValueError("page_size must be > 0 for PagedKV")
         if window_override or any(k != "attn" for k in model.cfg.layer_kinds):
             raise ValueError("paged cache + ring buffers unsupported "
                              "(ring buffers are already constant-size)")
         self.slots, self.max_len, self.page = slots, max_len, page_size
-        self.device = torch.device(device)
+        self.device, self.tp = torch.device(device), tp
         self.pages_per_seq = math.ceil(max_len / page_size)
         if num_pages is None:
             # default: every slot can hold a full-length request, +1 null
             num_pages = 1 + slots * self.pages_per_seq
         self.allocator = BlockAllocator(num_pages, reserved=1)
         self.block_tables = np.zeros((slots, self.pages_per_seq), np.int64)
-        cfg = model.cfg
-        shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-        self.store = [{name: torch.zeros(shape, dtype=dtype, device=device)
-                       for name in ("k", "v")}
-                      for _ in range(cfg.num_layers)]
+        # one slot's template: [1, L, *rest] -> pool [num_pages, page, *rest]
+        template = model.init_cache(1, page_size, dtype=dtype, device=device)
+        self.store = tree_map(
+            lambda t: shard_kv(t.new_zeros((num_pages,) + t.shape[1:]), tp),
+            template)
 
     def block_tables_device(self):
         return torch.from_numpy(self.block_tables).to(self.device)
 
     def gather(self, store, bt):
-        """Page pools -> the contiguous ``[B, L, KV, hd]`` view decode
-        reads (a copy per layer)."""
+        """Page pools -> the contiguous ``[B, L, ...]`` view decode reads
+        (a copy per layer; rank-major ``[tp, B, L, ...]`` under tp)."""
+        lead = _lead(self.tp)
+
         def g(pool):
-            v = pool[bt]                              # [B, P, page, KV, hd]
-            v = v.reshape((v.shape[0], -1) + v.shape[3:])
-            return v[:, :self.max_len].contiguous()
-        return [{name: g(pool) for name, pool in layer.items()}
-                for layer in store]
+            v = pool[lead + (bt,)]         # [*lead, B, P, page, ...]
+            n = len(lead)
+            v = v.reshape(v.shape[:n + 1] + (-1,) + v.shape[n + 3:])
+            return v.narrow(n + 1, 0, self.max_len).contiguous()
+        return tree_map(g, store)
 
     def scatter(self, store, new_caches, bt, pos, active):
         """Write the row each slot just produced (at ``pos`` [B]) back to
@@ -157,9 +182,11 @@ class PagedKV:
                            torch.zeros_like(pos))
         off = pos % self.page
         rows = torch.arange(pos.shape[0], device=pos.device)
+        lead = _lead(self.tp)
         for pools, new in zip(store, new_caches):
             for name, pool in pools.items():
-                pool[phys, off] = new[name][rows, pos].to(pool.dtype)
+                pool[lead + (phys, off)] = \
+                    new[name][lead + (rows, pos)].to(pool.dtype)
         return store
 
     def try_reserve(self, request) -> bool:
@@ -182,7 +209,8 @@ class PagedKV:
         phys, off = phys.to(self.device), off.to(self.device)
         for pools, src in zip(self.store, conv_cache):
             for name, pool in pools.items():
-                pool[phys, off] = src[name][j, :prompt_len].to(pool.dtype)
+                rows = shard_kv(src[name][j, :prompt_len], self.tp)
+                pool[_lead(self.tp) + (phys, off)] = rows.to(pool.dtype)
 
     def set_block_table(self, slot: int, pages: Sequence[int]) -> None:
         row = np.zeros(self.pages_per_seq, np.int64)
@@ -198,11 +226,13 @@ class PagedKV:
 
 def make_kv_store(model, slots: int, max_len: int, page_size: int = 0,
                   num_pages: Optional[int] = None, dtype=torch.float32,
-                  window_override: int = 0, device="cpu"):
-    """page_size == 0 -> contiguous; > 0 -> paged pools."""
+                  window_override: int = 0, device="cpu", tp: int = 1):
+    """page_size == 0 -> contiguous; > 0 -> paged pools.  ``tp > 1`` lays
+    every leaf out rank-major for tensor-parallel decode."""
     if page_size:
         return PagedKV(model, slots, max_len, page_size, num_pages,
                        dtype=dtype, window_override=window_override,
-                       device=device)
+                       device=device, tp=tp)
     return ContiguousKV(model, slots, max_len, dtype=dtype,
-                        window_override=window_override, device=device)
+                        window_override=window_override, device=device,
+                        tp=tp)

@@ -15,6 +15,13 @@ One ``ServeEngine`` iteration is
      vmaps ``decode_step`` over slots; here ``pos`` is a [B] tensor) ->
      sample -> scatter the new KV row back to its page.
 
+Tensor-parallel decode (``ServeConfig.tp > 1``) runs the same step over
+``tp`` logical ranks (``serve/tp.py``): the engine keeps a rank-stacked
+copy of the sharded weights, the cache is rank-major on the KV-head axis,
+and ``decode_step(tp_axis=...)`` sums the row-parallel products with
+``tensor_reduce``.  Prefill runs on the whole weights, as in the JAX
+package.
+
 The engine clock is **virtual iteration time** — each prefill group and
 each decode iteration costs 1.0 — so latencies are deterministic and
 machine-independent; ``run`` also reports wall seconds.
@@ -38,6 +45,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models import transformer as T
 from repro_torch.obs.trace import get_recorder
 from repro_torch.serve.batcher import Batcher
 from repro_torch.serve.cache import make_kv_store
@@ -68,6 +76,7 @@ class ServeConfig:
     cache_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     window_override: int = 0
+    tp: int = 1                          # tensor-parallel decode degree
 
 
 class ServeEngine:
@@ -88,10 +97,17 @@ class ServeEngine:
         self._slo_firing = False
         self.cfg = model.cfg
         self.vocab = self.cfg.vocab_size
+
+        self._tp = None
+        if scfg.tp > 1:
+            from repro_torch.serve.tp import TPContext
+            self._tp = TPContext(self.cfg, scfg.tp)
+            self._tp_params = self._tp.shard_params(params)
+
         self.kv = make_kv_store(
             model, scfg.slots, scfg.max_len, scfg.page_size, scfg.num_pages,
             dtype=scfg.cache_dtype, window_override=scfg.window_override,
-            device=self.device)
+            device=self.device, tp=scfg.tp)
         self.batcher = Batcher(self.kv, scfg.slots, scfg.policy)
 
         self.requests: List[Request] = []
@@ -215,10 +231,16 @@ class ServeEngine:
         pos_d = self._to_device(pos)
         bt = self.kv.block_tables_device()
         contig = self.kv.gather(self.kv.store, bt)
-        logits, new = self.model.decode_step(
-            self.params, contig, self._to_device(self._last_tok)[:, None],
-            pos_d, compute_dtype=self.scfg.compute_dtype,
-            window_override=self.scfg.window_override)
+        tokens = self._to_device(self._last_tok)[:, None]
+        kw = dict(compute_dtype=self.scfg.compute_dtype,
+                  window_override=self.scfg.window_override)
+        if self._tp is None:
+            logits, new = self.model.decode_step(self.params, contig, tokens,
+                                                 pos_d, **kw)
+        else:
+            logits, new = T.decode_step(self._tp_params, self._tp.cfg_local,
+                                        contig, tokens, pos_d,
+                                        tp_axis="model", **kw)
         nxt = sample_tokens(logits[:, 0], self.vocab, self._seeds, tok_idx,
                             self._temp, self._topk)
         self.kv.store = self.kv.scatter(self.kv.store, new, bt, pos_d,
@@ -322,6 +344,7 @@ class ServeEngine:
             policy=self.scfg.policy,
             paged=bool(self.scfg.page_size),
             page_size=self.scfg.page_size,
+            tp=self.scfg.tp,
             clock=self.clock,
             decode_iterations=self.decode_iterations,
             prefill_groups=self.prefill_groups,

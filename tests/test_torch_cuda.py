@@ -874,3 +874,100 @@ def test_hybrid_tinyllama_step_launches_kernels(cuda):
         torch.cuda.empty_cache()
     assert all(torch.isfinite(torch.tensor(losses)))
     assert abs(losses[0] - losses[1]) <= 1e-4
+
+
+# ------------------------------------ tp decode and the model families
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd", [(28, 4, 128), (16, 2, 64)])
+def test_flash_kernels_at_family_shapes(cuda, dtype, H, KV, hd):
+    """Qwen2-VL-7B's attention (group 7, head_dim 128) and one tp=2 rank
+    of TinyLlama's (16 heads on 2 KV heads, its cache a contiguous block
+    of a rank-major [2, B, L, KV, hd] tensor) against the plain
+    versions."""
+    gen = torch.Generator(device=cuda).manual_seed(H + hd)
+    B, S, L = 2, 200, 300
+    q = _randn(gen, dtype, B, S, H, hd)
+    k, v = _randn(gen, dtype, B, S, KV, hd), _randn(gen, dtype, B, S, KV, hd)
+    assert _err(FA.attention(q, k, v), FA.attention_ref(q, k, v)) <= \
+        TOLS[dtype]
+    qd = _randn(gen, dtype, B, 1, H, hd)
+    ck, cv = (_randn(gen, dtype, 2, B, L, KV, hd)[1] for _ in range(2))
+    pos = torch.tensor([17, L - 1], device=cuda)
+    assert _err(FA.decode(qd, ck, cv, pos), FA.decode_ref(qd, ck, cv, pos)) \
+        <= TOLS[dtype]
+
+
+def test_tp2_decode_on_card_matches_tp1(cuda):
+    """Reduced TinyLlama in fp32: the tp=2 step (two logical ranks, each
+    launching flash_decode on its heads) gives tp=1's logits within 1e-5
+    and the same greedy stream through the engine."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    from repro_torch.serve.tp import TPContext
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (3, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+    outs = []
+    for tp in (1, 2):
+        _, st = model.prefill(params, toks[:, :8], compute_dtype=torch.float32)
+        caches = model.cache_from_prefill(st, 16, dtype=torch.float32)
+        p_, cfg_, kw = params, cfg, {}
+        if tp > 1:
+            ctx = TPContext(cfg, tp)
+            p_, cfg_ = ctx.shard_params(params), ctx.cfg_local
+            caches, kw = ctx.shard_cache(caches), dict(tp_axis="model")
+        FA.reset_launches()
+        seq = []
+        for t in range(8, 12):
+            lg, caches = T.decode_step(p_, cfg_, caches, toks[:, t:t + 1],
+                                       torch.full((3,), t, device=cuda),
+                                       compute_dtype=torch.float32, **kw)
+            seq.append(lg)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_decode"] == 4 * tp * cfg.num_layers
+        outs.append(torch.cat(seq, 1))
+    assert _err(outs[0], outs[1]) <= 1e-5
+    streams = []
+    for tp in (1, 2):
+        reqs = [Request(rid=i, prompt=toks[i, :5].tolist(), max_new_tokens=6)
+                for i in range(3)]
+        ServeEngine(model, params, ServeConfig(slots=2, max_len=16,
+                                               page_size=4, tp=tp),
+                    device=cuda).run(reqs)
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "stablelm-1.6b",
+                                  "deepseek-v2-lite-16b"])
+def test_family_on_card_matches_cpu(cuda, arch):
+    """Reduced configs in fp32: the card's forward (the flash kernel for
+    GQA; MLA and MoE are plain) equals the CPU's within 1e-4, and the
+    engine's greedy streams on the card (paged) equal the CPU's."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0)
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = torch.randint(1, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    FA.reset_launches()
+    out, _, _ = model.forward(params, toks.to(cuda),
+                              compute_dtype=torch.float32)
+    ref, _, _ = model.forward(cpu_params, toks, compute_dtype=torch.float32)
+    assert _err(out.cpu(), ref) <= 1e-4
+    assert FA.LAUNCHES["flash_attention"] == (
+        0 if cfg.attn_type == "mla" else cfg.num_layers)
+    streams = []
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        reqs = [Request(rid=i, prompt=toks[i, :5].tolist(), max_new_tokens=6)
+                for i in range(2)]
+        ServeEngine(model, p, ServeConfig(slots=2, max_len=16, page_size=4),
+                    device=dev).run(reqs)
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]

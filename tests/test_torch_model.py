@@ -76,8 +76,8 @@ def test_forward_logits_match_jax():
     tokens = np.random.RandomState(0).randint(1, 512, size=(2, 12))
     ref, _, _ = JT.forward(m["jparams"], m["jcfg"], jnp.asarray(tokens),
                            compute_dtype=jnp.float32)
-    out, _ = T.forward(m["params"], m["cfg"], torch.from_numpy(tokens),
-                       compute_dtype=torch.float32)
+    out, _, _ = T.forward(m["params"], m["cfg"], torch.from_numpy(tokens),
+                          compute_dtype=torch.float32)
     assert _max_err(ref, out) <= TOL
 
 

@@ -1,16 +1,20 @@
 """Where the port's serving time goes on the GPU.
 
-Full-width TinyLlama-1.1B in bf16 (seeded weights), 8 slots, paged cache
-(page 16), 8 requests with 512-token prompts: times one batched prefill
-group and single decode iterations (host clock around work that ends in
-a synchronize), then traces a window of decode iterations and the
+A full-width model (TinyLlama-1.1B unless ``--arch`` names another) in
+bf16 (seeded weights), 8 slots, paged cache (page 16), 8 requests with
+512-token prompts, decoding at ``--tp`` logical ranks: times one batched
+prefill group and single decode iterations (host clock around work that
+ends in a synchronize), then traces a window of decode iterations and the
 prefill with ``torch.profiler`` to get the device's busy share and the
 kernels that take its time.
 
     PYTHONPATH=src python tools/torch_serve_profile.py
+    PYTHONPATH=src python tools/torch_serve_profile.py --tp 2
+    PYTHONPATH=src python tools/torch_serve_profile.py --arch deepseek-v2-lite-16b
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -49,17 +53,22 @@ def report(prof, wall_s: float, what: str, top: int = 12) -> None:
         print(f"  {_device_us(e) * 1e-3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--tp", type=int, default=1)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(args.arch)
     model = build_model(cfg)
     params = model.init(seed=0, dtype=bf, device=dev)
     scfg = ServeConfig(slots=SLOTS, max_len=MAX_LEN, page_size=16,
-                       cache_dtype=bf, compute_dtype=bf)
+                       cache_dtype=bf, compute_dtype=bf, tp=args.tp)
+    print(f"{cfg.name}, bf16, tp={args.tp}")
     prompts = np.random.RandomState(1).randint(1, cfg.vocab_size,
                                                size=(SLOTS, PROMPT))
 
