@@ -281,6 +281,52 @@ kernels' "tp_serve", "deepseek" and "qwen2_vl" launches.  Each phase frees
 its parameters before the next.  family_phases(dev, smi, ...) runs on the
 CPU too, at the configs' .reduced() and a short traffic.
 
+ 22. RG-LRU   recurrentgemma-9b at full width (38 layers, 12 groups of
+      + local (rglru, rglru, local) and 2 rglru stragglers; MQA at head_dim
+             256, window 2048) in bf16 with seeded weights: phase 5's
+             traffic plus one request of a 2300-token prompt and 64 new
+             tokens through ServeEngine (paged, 8 slots), so the ring
+             wraps in cache_from_prefill and again in decode: tokens/s,
+             peak, state bytes per slot (the same at any length), and
+             flash_attention / flash_decode launched once per local layer
+             per prefill group / decode iteration.  At 3 layers (rglru,
+             rglru, local), full widths, fp32: prefill 2100 tokens,
+             cache_from_prefill, 200 decode steps against the full
+             forward's logits within 1e-3, and value_and_grad over 2300
+             tokens: every leaf's gradient finite and nonzero.
+ 23. RWKV-6   rwkv6-7b at full width (32 layers) in bf16: 8 requests of a
+             512-token prompt and 32 new tokens through ServeEngine:
+             tokens/s, peak, state bytes per slot (fp32 S, 32 x 64 heads x
+             64^2 x 4 B, plus the bf16 shifts).  No flash kernel runs on
+             this path: RWKV has no Pallas kernel in the reference.  At 2
+             layers in fp32: prefill 48, decode to 64 against the forward,
+             within 1e-3.
+ 24. Whisper  whisper-large-v3 (32 + 32 layers) in bf16: 4 utterances of
+             seeded frame stubs [4, 1500, 1280]: encode (flash_attention,
+             non-causal), build_cross_cache, 64 greedy decode_steps from
+             <|startoftranscript|> (flash_decode on the self-attention
+             cache, plain cross-attention); the encoder output of the
+             kernel path and of the plain bf16 path against fp32 (kernel
+             <= 2 x plain, phase 6's bound).  Then one step of
+             launch/train.py --arch whisper-large-v3 --layers 2 (full
+             width, fp32, batch 2): a finite loss and a nonzero gradient.
+
+Counts are zeroed just before and read just after phase 22's serve, phase
+23's serve and phase 24's encode and decode; they make the kernels'
+"recurrentgemma", "rwkv6" and "whisper" launches.
+recurrent_phases(dev, smi, ...) runs on the CPU too, at the configs'
+.reduced() and a short traffic.
+
+Phases 3 and 4 also hold and time the flash kernels at the new shapes of
+phases 22 and 24: the bf16 prefill at B 1, S 2560, 16 heads on one KV
+head, head_dim 256, window 2048 (and without the window); the fp32
+forward at the same heads and S 512 (scores also ~16x larger); the decode
+of 8 slots on a 2048-row ring at positions 100-3000 (and a full cache);
+Whisper's encoder attention, non-causal at B 4, S 1500, 20 heads, hd 64
+(a tail tile).  The library time of a windowed prefill or a decode is
+SDPA with a boolean mask.  The kernels line gives these shapes' times
+under "at_shapes".
+
 Phase 3 also holds flash_attention and flash_decode at Qwen2-VL-7B's
 attention (28 heads on 4 KV heads, head_dim 128) and flash_decode at one
 tp=2 rank of TinyLlama's (16 heads on 2 KV heads, a rank's contiguous block
@@ -335,6 +381,13 @@ GRAD_TOL = 1e-5
 B, H, KV, HD = 8, 32, 4, 64        # TinyLlama-1.1B attention at 8 slots
 PROMPT, NEW, MAX_LEN = 512, 64, 576
 QWEN_H, QWEN_KV, QWEN_HD = 28, 4, 128  # Qwen2-VL-7B attention
+# RecurrentGemma-9B's local attention (MQA, head_dim 256, window 2048): the
+# prefill length past the window (bf16; fp32 at the shorter one) and the
+# ring decode's positions per slot; Whisper-large-v3's encoder attention
+RG_H, RG_HD, RG_WINDOW = 16, 256, 2048
+RG_PREFILL, RG_PREFILL_F32 = 2560, 512
+RG_RING_POS = [100, 500, 2047, 2048, 2049, 2300, 2900, 3000]
+WHISPER_B, WHISPER_F, WHISPER_H = 4, 1500, 20
 FULL = 2048                        # TinyLlama-1.1B's context length
 # the kernels' designs before their rebuild for the H100, at the phase-4
 # shapes (PERF.md's kernel table: this script and, at L=2048,
@@ -422,6 +475,17 @@ HYBRID_MESHES = (("bsp/ring/none@8:d2.t2.s2", 0.2, 5),
 FORCED_STEPS, TP_F32_TOL = 16, 1e-3
 MLA_SEQ, MLA_F32_TOL = (8, 8), 1e-3
 VISION = (2, 256, 8)
+# phases 22-24: RecurrentGemma's long prompt (past its 2048-token window)
+# and its fp32 decode check (prefill, total length: the ring wraps in
+# cache_from_prefill and again in decode); RWKV's traffic (requests,
+# prompt, new tokens) and decode check; Whisper's utterances, greedy
+# steps and start token (<|startoftranscript|>), the launcher step
+RG_LONG, RG_CHECK, RWKV_CHECK = 2300, (2100, 2300), (48, 64)
+RWKV_SERVE = (8, 512, 32)
+RECURRENT_F32_TOL = 1e-3
+WHISPER_UTTERANCES, WHISPER_STEPS, WHISPER_START = 4, 64, 50258
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-large-v3", "--layers", "2",
+                      "--steps", "1", "--batch-size", "2"]
 # spec, steps, the worker whose batch fetch sleeps, the sleep (s)
 ELASTIC_DETECT = ("bsp+backup:1+detect/allreduce/onebit@4", 6, 1, 0.05)
 SCHED_SPEC, SCHED_STEPS = "ssp:1/allreduce/none@2", 8
@@ -1316,6 +1380,272 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
     return launches
 
 
+def recurrent_phases(dev, smi, rg, rwkv, whisper, prompt=PROMPT, new=NEW,
+                     n_requests=16, slots=8, page=16, long_prompt=RG_LONG,
+                     rg_check=RG_CHECK, rwkv_serve=RWKV_SERVE,
+                     rwkv_check=RWKV_CHECK, utterances=WHISPER_UTTERANCES,
+                     whisper_steps=WHISPER_STEPS, start=WHISPER_START,
+                     train_argv=WHISPER_TRAIN_ARGV):
+    """Phases 22-24 (module docstring) on ``dev``: ``rg`` (RG-LRU +
+    local attention) through ``ServeEngine`` on phase 5's traffic and one
+    request of ``long_prompt`` tokens, then its (prefill, total) decode
+    check at 3 layers in fp32 and the gradients; ``rwkv`` through the
+    engine (``rwkv_serve`` = requests, prompt, new tokens) and its decode
+    check at 2 layers; ``whisper``'s encoder, cross cache and greedy
+    ``decode_step`` over ``utterances`` seeded frame stubs from token
+    ``start``, the encoder's
+    kernel path against the plain one, and one launcher step
+    (``train_argv``).  The CPU rehearses them at the configs'
+    ``.reduced()`` and short traffic.  Returns each phase's launches of
+    the flash kernels."""
+    import numpy as np
+
+    from repro_torch.core.tree import get_path, leaf_paths, tree_map
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import build_model
+    from repro_torch.models import whisper as W
+    from repro_torch.serve.cache import cache_bytes as nbytes
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    from repro_torch.train import value_and_grad
+
+    cuda = dev.type == "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    launches = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def serve(model, params, reqs, max_len, page_size):
+        """The requests through ServeEngine (bf16, continuous): (metrics,
+        engine, flash launches of the run), after a 2-request warm-up."""
+        scfg = ServeConfig(slots=slots, max_len=max_len, page_size=page_size,
+                           policy="continuous", cache_dtype=bf,
+                           compute_dtype=bf)
+        ServeEngine(model, params, scfg, device=dev).run(
+            [Request(rid=i, prompt=r.prompt[:16], max_new_tokens=2)
+             for i, r in enumerate(reqs[:2])])
+        eng = ServeEngine(model, params, scfg, device=dev)
+        sync()
+        FA.reset_launches()
+        m = eng.run(reqs)
+        got = dict(FA.LAUNCHES)
+        assert m["completed"] == len(reqs)
+        assert m["generated_tokens"] == sum(r.max_new_tokens for r in reqs)
+        assert all(0 <= t < model.cfg.vocab_size for r in reqs
+                   for t in r.output)
+        per_slot = nbytes(eng.kv.store) / slots
+        print(f"  {m['completed']} requests, {m['generated_tokens']} tokens "
+              f"in {m['wall_s']:.3f} s wall = "
+              f"{m['generated_tokens'] / m['wall_s']:.1f} tokens/s; "
+              f"{m['prefill_groups']} prefill groups, "
+              f"{m['decode_iterations']} decode iterations; state "
+              f"{per_slot / 1e6:.3f} MB per slot ({per_slot:.0f} B, the "
+              f"same at any length); peak {peak_gib():.2f} GiB; launches "
+              f"{got}; card {smi}")
+        return m, eng, got
+
+    def decode_check(cfg, seq, name):
+        """``cfg`` in fp32: prefill seq[0] tokens, cache_from_prefill,
+        then decode to seq[1] against the full forward's logits."""
+        model = build_model(cfg)
+        params = model.init(seed=0, dtype=f32, device=dev)
+        P, Sq = seq
+        toks = torch.tensor(np.random.RandomState(5).randint(
+            1, cfg.vocab_size, size=(1, Sq + 1)), device=dev)
+        FA.reset_launches()
+        full, _, _ = model.forward(params, toks[:, :Sq], compute_dtype=f32)
+        lg, st = model.prefill(params, toks[:, :P], compute_dtype=f32)
+        caches = model.cache_from_prefill(st, Sq, dtype=f32)
+        errs = [float((lg[:, 0] - full[:, P - 1]).abs().max())]
+        for t in range(P, Sq):
+            lg, caches = model.decode_step(params, caches, toks[:, t:t + 1],
+                                           torch.full((1,), t, device=dev),
+                                           compute_dtype=f32)
+            errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+        print(f"  {name}: {cfg.num_layers} layers {cfg.layer_kinds}, fp32: "
+              f"prefill {P} tokens, cache_from_prefill, {Sq - P} decode "
+              f"steps against the full forward of {Sq}: max abs err "
+              f"{max(errs):.3e} (bound {RECURRENT_F32_TOL}; |logits| <= "
+              f"{float(full.abs().max()):.2f}); launches {dict(FA.LAUNCHES)}")
+        assert all(math.isfinite(e) for e in errs)
+        assert max(errs) <= RECURRENT_F32_TOL, \
+            "decode drifts from the full forward"
+        del full, caches, st
+        return model, params, toks
+
+    # ------------------------------------------------- 22 RecurrentGemma
+    phase(f"22 {rg.name}: {rg.num_layers} layers {rg.block_pattern}, "
+          f"bf16, through ServeEngine, with a {long_prompt}-token prompt "
+          f"past the {rg.window}-token window")
+    model = build_model(rg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, dtype=bf, device=dev)
+    sync()
+    print(f"  {rg.param_count() / 1e9:.3f} B parameters "
+          f"({nbytes(params) / 1e9:.2f} GB bf16), seeded init in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(1)
+    prompts = rng.randint(1, rg.vocab_size, size=(n_requests, prompt))
+    reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
+                    max_new_tokens=new) for i in range(n_requests)]
+    reqs.append(Request(rid=n_requests, prompt=[int(t) for t in rng.randint(
+        1, rg.vocab_size, size=long_prompt)], max_new_tokens=new))
+    m, eng, got = serve(model, params, reqs, long_prompt + new, page)
+    launches["recurrentgemma"] = got
+    local = rg.layer_kinds.count("local")
+    long_out = reqs[-1].output
+    print(f"  the {long_prompt}-token request: {len(long_out)} tokens "
+          f"(positions {long_prompt}-{long_prompt + new - 1} on a "
+          f"{rg.window}-row ring), output[:8] {long_out[:8]}; "
+          f"{local} local layers; flash_decode per decode iteration "
+          f"{got['flash_decode'] / m['decode_iterations']:.0f}")
+    assert len(long_out) == new and long_prompt > rg.window
+    if cuda:
+        assert got["flash_attention"] == m["prefill_groups"] * local > 0
+        assert got["flash_decode"] == m["decode_iterations"] * local > 0
+    del params, eng, model
+    free()
+    model, params, toks = decode_check(
+        dataclasses.replace(rg, num_layers=3), rg_check, rg.name)
+    loss, grads = value_and_grad(
+        lambda pp, b: model.loss_fn(pp, b, compute_dtype=f32))(
+            params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    paths = leaf_paths(grads)
+    zero = [p for p in paths if not bool(get_path(grads, p).abs().sum() > 0)]
+    finite = all(bool(torch.isfinite(get_path(grads, p)).all())
+                 for p in paths)
+    print(f"  value_and_grad(loss_fn) over {toks.shape[1] - 1} tokens: loss "
+          f"{float(loss):.5f}; {len(paths)} leaves, all finite {finite}, "
+          f"zero {zero}; peak {peak_gib():.2f} GiB")
+    assert finite and not zero and math.isfinite(float(loss))
+    del model, params, grads
+    free()
+
+    # --------------------------------------------------------- 23 RWKV-6
+    n_rwkv, rwkv_prompt, rwkv_new = rwkv_serve
+    phase(f"23 {rwkv.name}: {rwkv.num_layers} layers, bf16, through "
+          "ServeEngine (attention-free: no flash kernel on this path)")
+    model = build_model(rwkv)
+    params = model.init(seed=0, dtype=bf, device=dev)
+    print(f"  {rwkv.param_count() / 1e9:.3f} B parameters "
+          f"({nbytes(params) / 1e9:.2f} GB bf16)")
+    prompts = np.random.RandomState(1).randint(1, rwkv.vocab_size,
+                                               size=(n_rwkv, rwkv_prompt))
+    reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
+                    max_new_tokens=rwkv_new) for i in range(n_rwkv)]
+    m, eng, got = serve(model, params, reqs, rwkv_prompt + rwkv_new, page)
+    launches["rwkv6"] = got
+    H = rwkv.d_model // rwkv.rwkv_head_size
+    s_bytes = rwkv.num_layers * H * rwkv.rwkv_head_size ** 2 * 4
+    per_slot = nbytes(eng.kv.store) / slots
+    print(f"  state per slot: S {s_bytes} B fp32 ({rwkv.num_layers} x {H} "
+          f"heads x {rwkv.rwkv_head_size}^2 x 4 B) + shifts "
+          f"{per_slot - s_bytes:.0f} B = {per_slot:.0f} B")
+    assert per_slot == s_bytes + rwkv.num_layers * 2 * rwkv.d_model * 2
+    assert got["flash_attention"] == got["flash_decode"] == 0
+    del params, eng, model
+    free()
+    decode_check(dataclasses.replace(rwkv, num_layers=2), rwkv_check,
+                 rwkv.name)
+    free()
+
+    # ------------------------------------------------------- 24 Whisper
+    phase(f"24 {whisper.name}: {whisper.encoder_layers} + "
+          f"{whisper.num_layers} layers, bf16: encode, build_cross_cache, "
+          f"{whisper_steps} greedy decode_steps")
+    model = build_model(whisper)
+    ref_model = build_model(dataclasses.replace(whisper, attn_backend="ref"))
+    params = model.init(seed=0, dtype=bf, device=dev)
+    print(f"  {whisper.param_count() / 1e9:.3f} B parameters "
+          f"({nbytes(params) / 1e9:.2f} GB bf16)")
+    Fr = whisper.max_source_positions
+    gen = torch.Generator(device=dev).manual_seed(11)
+    frames = torch.randn(utterances, Fr, whisper.d_model, generator=gen,
+                         device=dev)
+    FA.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    enc = W.encode(params, whisper, frames, compute_dtype=bf)
+    cache = model.init_cache(utterances, whisper_steps, dtype=bf,
+                             enc_frames=Fr, device=dev)
+    cache["cross"] = W.build_cross_cache(params, whisper, enc, dtype=bf)
+    sync()
+    t_enc = time.perf_counter() - t0
+    tok = torch.full((utterances, 1), start, device=dev)
+    out = []
+    t0 = time.perf_counter()
+    for t in range(whisper_steps):
+        lg, cache = model.decode_step(
+            params, cache, tok, torch.full((utterances,), t, device=dev),
+            compute_dtype=bf)
+        tok = lg[..., :whisper.vocab_size].argmax(-1)
+        out.append(tok)
+    sync()
+    t_dec = time.perf_counter() - t0
+    out = torch.cat(out, 1)
+    got = launches["whisper"] = dict(FA.LAUNCHES)
+    print(f"  encode + cross cache {t_enc:.3f} s; {whisper_steps} decode "
+          f"steps x {utterances} utterances in {t_dec:.3f} s = "
+          f"{utterances * whisper_steps / t_dec:.1f} tokens/s; utterance 0 "
+          f"tokens[:8] {out[0, :8].tolist()}; cache "
+          f"{nbytes(cache) / 1e6:.1f} MB; peak {peak_gib():.2f} GiB; "
+          f"launches {got}")
+    assert out.shape == (utterances, whisper_steps)
+    assert bool(((out >= 0) & (out < whisper.vocab_size)).all())
+    if cuda:
+        assert got["flash_attention"] == whisper.encoder_layers > 0
+        assert got["flash_decode"] == whisper_steps * whisper.num_layers > 0
+    ref16 = W.encode(params, ref_model.cfg, frames, compute_dtype=bf)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params, cache
+    ref32 = W.encode(p32, ref_model.cfg, frames, compute_dtype=f32)
+    del p32
+    e_kern = float((enc.float() - ref32).abs().max())
+    e_ref = float((ref16.float() - ref32).abs().max())
+    print(f"  encoder output [{utterances}, {Fr}, {whisper.d_model}] "
+          f"against fp32: kernel {e_kern:.4f}, plain bf16 {e_ref:.4f} "
+          f"(kernel must be <= 2 x plain); max|kernel - plain bf16| "
+          f"{float((enc.float() - ref16.float()).abs().max()):.4f}; card "
+          f"{smi}")
+    assert torch.isfinite(enc).all()
+    assert e_kern <= 2 * e_ref, "the encoder's kernel path drifts from fp32"
+    del enc, ref16, ref32, model, ref_model
+    free()
+    args = launcher.parse_args(train_argv + ["--device", dev.type])
+    run = launcher.build(args)
+    FA.reset_launches()
+    _, hist = launcher.train(run)
+    wmodel = build_model(launcher.config(args))
+    wparams = run.state["params"]
+    loss, grads = value_and_grad(
+        lambda pp, b: wmodel.loss_fn(pp, b, compute_dtype=f32))(
+            wparams, run.batch_fn(0))
+    paths = leaf_paths(grads)
+    norms = [float(get_path(grads, p).norm()) for p in paths]
+    zero = ["/".join(map(str, p)) for p, n in zip(paths, norms) if n == 0]
+    print(f"  launch/train.py {' '.join(train_argv)}: losses "
+          f"{[h['loss'] for h in hist]}; value_and_grad at step 0: loss "
+          f"{float(loss):.5f}, {len(paths)} leaves, gradient norm "
+          f"{math.sqrt(sum(n * n for n in norms)):.4e}, zero leaves {zero}; "
+          f"launches {dict(FA.LAUNCHES)}; peak {peak_gib():.2f} GiB")
+    assert all(math.isfinite(h["loss"]) for h in hist)
+    assert all(math.isfinite(n) for n in norms) and sum(norms) > 0
+    del run, wparams, grads
+    free()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
@@ -1476,6 +1806,47 @@ def main() -> int:
                   f" pos={pos.tolist()}: max_abs_err {e:.3e} (tol {tol})")
             assert e <= tol, "flash_decode disagrees with its plain version"
             worst["flash_decode"] = max(worst["flash_decode"], e)
+        # phases 22 and 24: RecurrentGemma-9B's local attention (16 query
+        # heads on one KV head, head_dim 256, window 2048) in prefill past
+        # the window (bf16; fp32 at S 512, scores also ~16x larger) and
+        # the ring decode with slots at positions 100-3000; Whisper's
+        # encoder (20 heads, hd 64, non-causal at S 1500, a tail tile)
+        S_ = RG_PREFILL if dtype == torch.bfloat16 else RG_PREFILL_F32
+        q = randn(1, S_, RG_H, RG_HD, dtype=dtype)
+        k, v = (randn(1, S_, 1, RG_HD, dtype=dtype) for _ in range(2))
+        for scale in ((1.0,) if dtype == torch.bfloat16 else (1.0, 4.0)):
+            qs, ks = q * scale, k * scale
+            for window in (RG_WINDOW, 0):
+                e = max_err(FA.attention(qs, ks, v, window=window),
+                            FA.attention_ref(qs, ks, v, window=window))
+                print(f"flash_attention {str(dtype)[6:]:8s} B=1 S={S_} H="
+                      f"{RG_H} KV=1 hd={RG_HD} window={window} q, k x"
+                      f"{scale}: max_abs_err {e:.3e} (tol {tol})")
+                assert e <= tol, \
+                    "flash_attention disagrees with its plain version"
+                worst["flash_attention"] = max(worst["flash_attention"], e)
+        q = randn(B, 1, RG_H, RG_HD, dtype=dtype)
+        ck, cv = (randn(B, RG_WINDOW, 1, RG_HD, dtype=dtype) for _ in range(2))
+        for window, pos in ((RG_WINDOW, RG_RING_POS),
+                            (0, [0, 63, 64, 700, 1023, 1500, 2047, 2100])):
+            pos = torch.tensor(pos, device=dev)
+            out = FA.decode(q, ck, cv, pos, window=window)
+            e = max_err(out, FA.decode_ref(q, ck, cv, pos, window=window))
+            print(f"flash_decode    {str(dtype)[6:]:8s} L={RG_WINDOW} H={RG_H}"
+                  f" KV=1 hd={RG_HD} window={window} pos={pos.tolist()}: "
+                  f"max_abs_err {e:.3e} (tol {tol})")
+            assert torch.isfinite(out).all() and e <= tol, \
+                "flash_decode disagrees with its plain version"
+            worst["flash_decode"] = max(worst["flash_decode"], e)
+        q, k, v = (randn(WHISPER_B, WHISPER_F, WHISPER_H, HD, dtype=dtype)
+                   for _ in range(3))
+        e = max_err(FA.attention(q, k, v, causal=False),
+                    FA.attention_ref(q, k, v, causal=False))
+        print(f"flash_attention {str(dtype)[6:]:8s} B={WHISPER_B} S="
+              f"{WHISPER_F} H={WHISPER_H} hd={HD} non-causal: max_abs_err "
+              f"{e:.3e} (tol {tol})")
+        assert e <= tol, "flash_attention disagrees with its plain version"
+        worst["flash_attention"] = max(worst["flash_attention"], e)
         del q, k, v, ck, cv
     torch.cuda.synchronize()
 
@@ -1694,6 +2065,68 @@ def main() -> int:
             4 * (q.numel() + k.numel() + v.numel() + q.numel()),
             3 * 4 * TRAIN_B * H * HD * TRAIN_S * (TRAIN_S + 1) // 2,
             TF32_FLOPS)                                     # 3xTF32
+
+    # the slice's new shapes: RecurrentGemma-9B's local attention at head
+    # dim 256 (bf16 prefill past the 2048 window, the fp32 forward, the
+    # ring decode) and Whisper's non-causal encoder attention
+    S_ = RG_PREFILL
+    q, k, v = (randn(1, S_, RG_H, RG_HD, dtype=bf),
+               randn(1, S_, 1, RG_HD, dtype=bf), randn(1, S_, 1, RG_HD,
+                                                       dtype=bf))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(S_, device=dev)
+    wmask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - RG_WINDOW)
+    measure("flash_attention_hd256",
+            f"bf16, causal, window {RG_WINDOW}, B=1 S={S_} H={RG_H} KV=1 "
+            f"hd={RG_HD}",
+            lambda: FA.attention(q, k, v, window=RG_WINDOW),
+            lambda: FA.attention_ref(q, k, v, window=RG_WINDOW),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=wmask, enable_gqa=True),
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * RG_H * RG_HD * int(wmask.sum()))           # visible pairs
+    S_ = RG_PREFILL_F32
+    q, k, v = (randn(1, S_, RG_H, RG_HD, dtype=f32),
+               randn(1, S_, 1, RG_HD, dtype=f32), randn(1, S_, 1, RG_HD,
+                                                        dtype=f32))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    measure("flash_attention_train_hd256",
+            f"fp32, causal, B=1 S={S_} H={RG_H} KV=1 hd={RG_HD}",
+            lambda: FA.attention(q, k, v, window=RG_WINDOW),
+            lambda: FA.attention_ref(q, k, v, window=RG_WINDOW),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            4 * (2 * q.numel() + k.numel() + v.numel()),
+            3 * 4 * RG_H * RG_HD * S_ * (S_ + 1) // 2, TF32_FLOPS)
+    qd = randn(B, 1, RG_H, RG_HD, dtype=bf)
+    ck, cv = (randn(B, RG_WINDOW, 1, RG_HD, dtype=bf) for _ in range(2))
+    pos = torch.tensor(RG_RING_POS, device=dev, dtype=torch.int32)
+    mask = decode_mask(pos, RG_WINDOW, RG_WINDOW)
+    keys = int(mask.sum())                               # written ring rows
+    ckt, cvt, qdt = (t.transpose(1, 2).contiguous() for t in (ck, cv, qd))
+    measure("flash_decode_hd256",
+            f"bf16, B={B} ring L={RG_WINDOW} H={RG_H} KV=1 hd={RG_HD}, pos "
+            f"{RG_RING_POS[0]}-{RG_RING_POS[-1]}",
+            lambda: FA.decode(qd, ck, cv, pos, window=RG_WINDOW),
+            lambda: FA.decode_ref(qd, ck, cv, pos, window=RG_WINDOW),
+            lambda: F.scaled_dot_product_attention(
+                qdt, ckt, cvt, attn_mask=mask[:, None, None, :],
+                enable_gqa=True),
+            2 * (2 * qd.numel() + 2 * keys * RG_HD) + 4 * B,
+            4 * RG_H * RG_HD * keys)
+    q, k, v = (randn(WHISPER_B, WHISPER_F, WHISPER_H, HD, dtype=bf)
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    measure("flash_attention_whisper",
+            f"bf16, non-causal, B={WHISPER_B} S={WHISPER_F} H={WHISPER_H} "
+            f"hd={HD}",
+            lambda: FA.attention(q, k, v, causal=False),
+            lambda: FA.attention_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            2 * 4 * q.numel(),
+            4 * WHISPER_B * WHISPER_H * HD * WHISPER_F * WHISPER_F)
+    del q, k, v, qt, kt, vt, qd, ck, cv, ckt, cvt, qdt, wmask, mask
+    torch.cuda.empty_cache()
 
     def onebit_bytes(R, C):
         return ONEBIT_BYTES_PER_ELEM * R * C + 8 * R
@@ -2536,6 +2969,13 @@ def main() -> int:
                                     get_config("qwen2-vl-7b"))
     print(f"launches of phases 19-21 {family_launches}")
 
+    # ------------------------- 22-24 the recurrent and encoder-decoder families
+    recurrent_launches = recurrent_phases(dev, smi,
+                                          get_config("recurrentgemma-9b"),
+                                          get_config("rwkv6-7b"),
+                                          get_config("whisper-large-v3"))
+    print(f"launches of phases 22-24 {recurrent_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -2567,8 +3007,15 @@ def main() -> int:
                       "hybrid": hybrid_launches[name],
                       "tp_serve": family_launches["tp_serve"].get(name, 0),
                       "deepseek": family_launches["deepseek"].get(name, 0),
-                      "qwen2_vl": family_launches["qwen2_vl"].get(name, 0)}
+                      "qwen2_vl": family_launches["qwen2_vl"].get(name, 0),
+                      **{path: got.get(name, 0)
+                         for path, got in recurrent_launches.items()}}
                for name in sources}
+    # the flash kernels at the slice's new shapes (phase 4's lines)
+    shapes = {"flash_attention": ("flash_attention_hd256",
+                                  "flash_attention_train_hd256",
+                                  "flash_attention_whisper"),
+              "flash_decode": ("flash_decode_hd256",)}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=sum(by_path[n].values()),
@@ -2577,7 +3024,10 @@ def main() -> int:
                     plain_ms=timing[n]["plain_ms"],
                     bound_ms=timing[n]["bound_ms"],
                     bound_by=timing[n]["bound_by"],
-                    library_ms=timing[n]["library_ms"])
+                    library_ms=timing[n]["library_ms"],
+                    **({"at_shapes": {key: timing[key]
+                                      for key in shapes[n]}}
+                       if n in shapes else {}))
                for n in sources]
     assert all(math.isfinite(x["ms"]) for x in kernels)
     assert by_path["flash_attention"]["trainer"] > 0
@@ -2587,7 +3037,7 @@ def main() -> int:
     assert by_path["onebit_encode_ef"]["elastic"] > 0
     assert by_path["flash_attention"]["hybrid"] > 0
     assert by_path["onebit_encode_ef"]["hybrid"] > 0
-    for path in ("tp_serve", "qwen2_vl"):
+    for path in ("tp_serve", "qwen2_vl", "recurrentgemma", "whisper"):
         assert by_path["flash_attention"][path] > 0
         assert by_path["flash_decode"][path] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "

@@ -23,7 +23,8 @@
 //   - persistent blocks, as many as fit on the card (two per SM at hd <= 64):
 //     block k serves items k, k + grid, ...; all their K/V tiles pass
 //     through one ring, and Q is double-buffered, so the next item's loads
-//     run while this one finishes;
+//     run while this one finishes (at hd=256, one block per SM, a single Q
+//     buffer and a two-stage ring: shared memory holds no more);
 //   - S = Q K^T by wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate),
 //     Q and K from shared memory, both K-major as they lie in memory;
 //   - the online softmax on the fp32 accumulator fragments in registers:
@@ -34,7 +35,7 @@
 //     accumulator layout of S is the A-fragment layout) and V read MN-major
 //     from shared memory (the transpose bit); O stays fp32 in registers and
 //     is scaled by 1/max(l, 1e-30) into bf16 at the end.  hd=128 runs two
-//     n64 products per step, hd=32 one n32 product;
+//     n64 products per step, hd=256 four, hd=32 one n32 product;
 //   - K/V tiles of 64 keys go through a three-stage ring in shared memory,
 //     loaded by TMA (cp.async.bulk.tensor on a 3-d tensor map over
 //     [B, S, heads*hd], 128-byte swizzle, 64-byte for hd=32) with mbarrier
@@ -117,11 +118,14 @@ constexpr int kRows = 64;                       // query rows per warpgroup
 constexpr int kBlockQ = kWarpgroups * kRows;    // 128 query rows per block
 constexpr int kThreads = 128 * kWarpgroups;     // 256
 constexpr int kBK = 64;                         // keys per K/V tile
-constexpr int kStages = 3;                      // K/V ring depth
 
 // Shared-memory layout of a head dimension: rows of `row` bytes (128, or
 // 64 for hd = 32) in `blocks` column blocks, swizzled as TMA writes them
-// and wgmma reads them (128- or 64-byte swizzle).
+// and wgmma reads them (128- or 64-byte swizzle).  Up to hd = 128, Q is
+// double-buffered and the K/V ring has three stages; at hd = 256 that
+// would be 320 KB against the 227 KB a block may hold, so Q has one
+// buffer (the next item's Q loads once this item's last product read it)
+// and the ring two stages: 192 KB.
 template <int HD>
 struct Layout {
   static constexpr int row = HD >= 64 ? 128 : 64;
@@ -132,9 +136,12 @@ struct Layout {
   static constexpr int kv_block = kBK * row;
   static constexpr int q_bytes = blocks * q_block;
   static constexpr int kv_tile = blocks * kv_block;   // one K or V tile
-  static constexpr int bars = 2 * q_bytes + kStages * 2 * kv_tile;
-  static constexpr int smem = bars + 8 * (2 * kStages + 4) + 1024;  // + align
+  static constexpr int q_bufs = HD > 128 ? 1 : 2;
+  static constexpr int stages = HD > 128 ? 2 : 3;     // K/V ring depth
+  static constexpr int bars = q_bufs * q_bytes + stages * 2 * kv_tile;
+  static constexpr int smem = bars + 8 * (2 * stages + 4) + 1024;  // + align
   static constexpr uint64_t swizzle = row == 128 ? 1 : 2;  // descriptor code
+  static_assert(smem <= 227 * 1024, "shared memory of one block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -319,13 +326,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   using Lt = Layout<HD>;
   constexpr int NB = Lt::blocks;
   constexpr int N = Lt::n;                      // columns of one O fragment
+  constexpr int QB = Lt::q_bufs, kStages = Lt::stages;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;   // Q tiles [2]
-  const uint32_t skv = sq + 2 * Lt::q_bytes;    // stage s: K, then V
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;   // Q tiles [QB]
+  const uint32_t skv = sq + QB * Lt::q_bytes;   // stage s: K, then V
   const uint32_t full = sq + Lt::bars;          // [kStages] tile landed
   const uint32_t empty = full + 8 * kStages;    // [kStages] tile consumed
-  const uint32_t qfull = empty + 8 * kStages;   // [2] Q landed
-  const uint32_t qempty = qfull + 16;           // [2] Q consumed
+  const uint32_t qfull = empty + 8 * kStages;   // [QB] Q landed
+  const uint32_t qempty = qfull + 16;           // [QB] Q consumed
 
   const int total = H * B * ((S + kBlockQ - 1) / kBlockQ);
   const int tid = threadIdx.x, wg = tid / 128;
@@ -359,11 +367,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto issue_q = [&](int seq, int w) {          // the block's seq-th item
     const Item it = item(w, S, H, B, causal, window);
-    const uint32_t bar = qfull + 8 * (seq & 1);
+    const uint32_t bar = qfull + 8 * (seq % QB);
     mbar_expect_tx(bar, Lt::q_bytes);
 #pragma unroll
     for (int n = 0; n < NB; ++n)
-      tma_load(sq + (seq & 1) * Lt::q_bytes + n * Lt::q_block, &qmap, bar,
+      tma_load(sq + (seq % QB) * Lt::q_bytes + n * Lt::q_block, &qmap, bar,
                it.h * HD + n * Lt::cols, it.q0, it.b);
   };
   if (tid == 0) {
@@ -384,7 +392,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   int g = 0;                                    // stream index of the tile
   for (int w = blockIdx.x, seq = 0; w < total; w += gridDim.x, ++seq) {
     const Item it = item(w, S, H, B, causal, window);
-    if (tid == 0 && w + gridDim.x < total) {    // the next item's Q
+    if (QB == 2 && tid == 0 && w + gridDim.x < total) {   // the next item's Q
       if (seq >= 1) mbar_wait(qempty + 8 * ((seq + 1) & 1), ((seq - 1) >> 1) & 1);
       issue_q(seq + 1, w + gridDim.x);
     }
@@ -393,14 +401,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     const int wg_first = it.q0 + wg * kRows, wg_last = wg_first + kRows - 1;
     const int row = wg_first + warp * 16 + lane / 4;
     const int col = 2 * (lane % 4);             // + 8j (+1) within a tile
-    const uint32_t qa = sq + (seq & 1) * Lt::q_bytes + wg * kRows * Lt::row;
+    const uint32_t qa = sq + (seq % QB) * Lt::q_bytes + wg * kRows * Lt::row;
     float acc[NB][N / 2];
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int i = 0; i < N / 2; ++i) acc[n][i] = 0.f;
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-    mbar_wait(qfull + 8 * (seq & 1), (seq >> 1) & 1);
+    mbar_wait(qfull + 8 * (seq % QB), (seq / QB) & 1);
 
     for (int i = 0; i < it.n_tiles; ++i, ++g) {
       if (tid == 0) issue_next();
@@ -494,7 +502,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       mbar_arrive(empty + 8 * s);                // this thread is done with s
     }
-    mbar_arrive(qempty + 8 * (seq & 1));         // the last product read Q
+    mbar_arrive(qempty + 8 * (seq % QB));        // the last product read Q
+    if (QB == 1 && tid == 0 && w + gridDim.x < total) {   // the next item's Q
+      mbar_wait(qempty, seq & 1);
+      issue_q(seq + 1, w + gridDim.x);
+    }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -538,22 +550,30 @@ constexpr int kBK = 32;                         // keys per K/V tile
 //                them; K lo beside them;
 //   V^T hi, lo   [hd rows][32 keys], the keys of each 8 in the order P's
 //                A fragments take them (0, 2, 4, 6, 1, 3, 5, 7).
-// hd=64: 104 KB, two blocks per SM; hd=128: 208 KB, one.
+// hd=64: 104 KB, two blocks per SM; hd=128: 208 KB, one.  hd=256 (`big`)
+// would need 416 KB: there Q has one buffer, the ring one stage, and V^T
+// hi and lo take the places of K and K lo once S = Q K^T is done (224 KB),
+// so the next tile loads only after this one's P V; each column block of
+// P V then runs alone, so O and one block's P V share the registers.
 template <int HD>
 struct Layout {
+  static constexpr bool big = HD > 128;
   static constexpr int bk = kBK;
   static constexpr int blocks = HD / 32;        // column blocks of Q, K, V
   static constexpr int q_block = kBlockQ * 128; // bytes of one column block
   static constexpr int kv_block = kBK * 128;
   static constexpr int q_bytes = blocks * q_block;
   static constexpr int kv_tile = blocks * kv_block;   // one K or V tile
-  static constexpr int q_lo = 2 * q_bytes;
-  static constexpr int ring = 3 * q_bytes;
-  static constexpr int k_lo = ring + kStages * 2 * kv_tile;
-  static constexpr int vt_hi = k_lo + kv_tile;  // HD rows of 32 keys
-  static constexpr int vt_lo = vt_hi + kv_tile;
-  static constexpr int bars = vt_lo + kv_tile;
-  static constexpr int smem = bars + 8 * (2 * kStages + 4) + 1024;  // + align
+  static constexpr int q_bufs = big ? 1 : 2;
+  static constexpr int stages = big ? 1 : kStages;    // K/V ring depth
+  static constexpr int q_lo = q_bufs * q_bytes;
+  static constexpr int ring = q_lo + q_bytes;
+  static constexpr int k_lo = ring + stages * 2 * kv_tile;
+  static constexpr int vt_hi = big ? ring : k_lo + kv_tile;  // HD rows of 32 keys
+  static constexpr int vt_lo = big ? k_lo : vt_hi + kv_tile;
+  static constexpr int bars = big ? k_lo + kv_tile : vt_lo + kv_tile;
+  static constexpr int smem = bars + 8 * (2 * stages + 4) + 1024;  // + align
+  static_assert(smem <= 227 * 1024, "shared memory of one block");
 };
 
 // x rounded to TF32, nearest with ties away from zero: what
@@ -671,13 +691,15 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int NO = HD > 64 ? 64 : HD;         // columns of one P V product
   constexpr int NP = HD / NO;                   // P V products per 8 keys
   constexpr int KS = kBK / 8;                   // 8-key steps of a tile
+  constexpr bool BIG = Lt::big;
+  constexpr int QB = Lt::q_bufs, NSTAGE = Lt::stages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t sq = (base + 1023) & ~1023u;   // everything below from here
-  const uint32_t full = sq + Lt::bars;          // [kStages] tile landed
-  const uint32_t empty = full + 8 * kStages;    // [kStages] tile consumed
-  const uint32_t qfull = empty + 8 * kStages;   // [2] Q landed
-  const uint32_t qempty = qfull + 16;           // [2] Q consumed
+  const uint32_t full = sq + Lt::bars;          // [NSTAGE] tile landed
+  const uint32_t empty = full + 8 * NSTAGE;     // [NSTAGE] tile consumed
+  const uint32_t qfull = empty + 8 * NSTAGE;    // [QB] Q landed
+  const uint32_t qempty = qfull + 16;           // [QB] Q consumed
   float* const sf = reinterpret_cast<float*>(smem_raw + (sq - base));
 
   const int total = H * B * ((S + kBlockQ - 1) / kBlockQ);
@@ -685,14 +707,14 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   const int group = H / KV;
 
   // Thread 0 keeps the ring one tile ahead of the tile being multiplied,
-  // as in the bf16 kernel: stream tile g goes to stage g % kStages once
-  // every thread has released tile g - kStages.
+  // as in the bf16 kernel: stream tile g goes to stage g % NSTAGE once
+  // every thread has released tile g - NSTAGE.
   int pw = blockIdx.x, pi = 0, pg = 0;
   Item pit = item<kBlockQ, kBK>(pw, S, H, B, causal, window);
   auto issue_next = [&]() {
     if (pw >= total) return;
-    const int s = pg % kStages;
-    if (pg >= kStages) mbar_wait(empty + 8 * s, (pg / kStages - 1) & 1);
+    const int s = pg % NSTAGE;
+    if (pg >= NSTAGE) mbar_wait(empty + 8 * s, (pg / NSTAGE - 1) & 1);
     const uint32_t ks = sq + Lt::ring + s * 2 * Lt::kv_tile, vs = ks + Lt::kv_tile;
     const int k0 = (pit.t_first + pi) * kBK, col0 = (pit.h / group) * HD;
     mbar_expect_tx(full + 8 * s, 2 * Lt::kv_tile);
@@ -710,15 +732,15 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   auto issue_q = [&](int seq, int w) {          // the block's seq-th item
     const Item it = item<kBlockQ, kBK>(w, S, H, B, causal, window);
-    const uint32_t bar = qfull + 8 * (seq & 1);
+    const uint32_t bar = qfull + 8 * (seq % QB);
     mbar_expect_tx(bar, Lt::q_bytes);
 #pragma unroll
     for (int n = 0; n < NB; ++n)
-      tma_load(sq + (seq & 1) * Lt::q_bytes + n * Lt::q_block, &qmap, bar,
+      tma_load(sq + (seq % QB) * Lt::q_bytes + n * Lt::q_block, &qmap, bar,
                it.h * HD + 32 * n, it.q0, it.b);
   };
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kThreads);
     }
@@ -728,21 +750,21 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (blockIdx.x < total) issue_q(0, blockIdx.x);
-    for (int i = 0; i < kStages - 1; ++i) issue_next();
+    for (int i = 0; i < NSTAGE - 1; ++i) issue_next();
   }
   __syncthreads();                              // barriers initialised
 
   int g = 0;                                    // stream index of the tile
   for (int w = blockIdx.x, seq = 0; w < total; w += gridDim.x, ++seq) {
     const Item it = item<kBlockQ, kBK>(w, S, H, B, causal, window);
-    if (tid == 0 && w + gridDim.x < total) {    // the next item's Q
+    if (QB == 2 && tid == 0 && w + gridDim.x < total) {   // the next item's Q
       if (seq >= 1) mbar_wait(qempty + 8 * ((seq + 1) & 1), ((seq - 1) >> 1) & 1);
       issue_q(seq + 1, w + gridDim.x);
     }
     const int wg_first = it.q0, wg_last = wg_first + kBlockQ - 1;
     const int row = wg_first + warp * 16 + lane / 4;   // and row + 8
     const int col = 2 * (lane % 4);                    // + 8j (+1)
-    const uint32_t qh = sq + (seq & 1) * Lt::q_bytes, ql = sq + Lt::q_lo;
+    const uint32_t qh = sq + (seq % QB) * Lt::q_bytes, ql = sq + Lt::q_lo;
     float acc[NP][NO / 2];
 #pragma unroll
     for (int n = 0; n < NP; ++n)
@@ -751,15 +773,15 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
     // Q split once per item.  The last item's products are complete: this
     // thread waited for them, and they ran only once every warp issued them
-    mbar_wait(qfull + 8 * (seq & 1), (seq >> 1) & 1);
+    mbar_wait(qfull + 8 * (seq % QB), (seq / QB) & 1);
     split_tile(sf + (qh - sq) / 4, sf + Lt::q_lo / 4, Lt::q_bytes / 16);
     fence_async_smem();
     __syncthreads();
 
     for (int i = 0; i < it.n_tiles; ++i, ++g) {
       if (tid == 0) issue_next();
-      const int s = g % kStages;
-      mbar_wait(full + 8 * s, (g / kStages) & 1);
+      const int s = g % NSTAGE;
+      mbar_wait(full + 8 * s, (g / NSTAGE) & 1);
       const int k0 = (it.t_first + i) * kBK;
       const uint32_t kh = sq + Lt::ring + s * 2 * Lt::kv_tile;
       // tiles wholly above the diagonal or before the window
@@ -770,9 +792,10 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         continue;
       }
       // K split in place and its low parts to K lo; V split into V^T, its
-      // keys permuted.  The last tile's products are complete, as for Q
+      // keys permuted (at hd=256 once S is done: V^T lands on K).  The
+      // last tile's products are complete, as for Q
       split_tile(sf + (kh - sq) / 4, sf + Lt::k_lo / 4, Lt::kv_tile / 16);
-      {
+      const auto split_v = [&]() {
         const float4* vr = reinterpret_cast<const float4*>(sf + (kh - sq) / 4 + Lt::kv_tile / 4);
         float* vth = sf + Lt::vt_hi / 4;
         float* vtl = sf + Lt::vt_lo / 4;
@@ -791,7 +814,8 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
             vtl[at] = xl[e];
           }
         }
-      }
+      };
+      if (!BIG) split_v();
       fence_async_smem();
       __syncthreads();
 
@@ -815,7 +839,14 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(ss);
 #pragma unroll
       for (int c = 0; c < NS; ++c) fence_regs(sb[c]);
-      mbar_arrive(empty + 8 * s);                // K and V are out of the ring
+      if (BIG) {                                 // every warp's S is done
+        __syncthreads();
+        split_v();
+        fence_async_smem();
+        __syncthreads();
+      } else {
+        mbar_arrive(empty + 8 * s);              // K and V are out of the ring
+      }
       float sc[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -866,29 +897,39 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], ls[r]);
 
-      // O = alpha O + P V: the tile's P V from 0, in 3xTF32
-      float pv[NP][NO / 2];
-      wgmma_fence();
+      // O = alpha O + P V: the tile's P V from 0, in 3xTF32 (at hd=256
+      // one column block at a time)
+      constexpr int NPV = BIG ? 1 : NP;          // blocks of P V in flight
 #pragma unroll
-      for (int j = 0; j < KS; ++j)
+      for (int n0 = 0; n0 < NP; n0 += NPV) {
+        float pv[NPV][NO / 2];
+        wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < NP; ++n) {
-          const uint32_t voff = n * NO * 128 + j * 32;
-          wgmma_rs(pv[n], pl[j], desc(sq + Lt::vt_hi + voff), j > 0);
-          wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_lo + voff), 1);
-          wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_hi + voff), 1);
+        for (int j = 0; j < KS; ++j)
+#pragma unroll
+          for (int n = 0; n < NPV; ++n) {
+            const uint32_t voff = (n0 + n) * NO * 128 + j * 32;
+            wgmma_rs(pv[n], pl[j], desc(sq + Lt::vt_hi + voff), j > 0);
+            wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_lo + voff), 1);
+            wgmma_rs(pv[n], ph[j], desc(sq + Lt::vt_hi + voff), 1);
+          }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int n = 0; n < NPV; ++n) {
+          fence_regs(pv[n]);
+#pragma unroll
+          for (int i = 0; i < NO / 2; ++i)
+            acc[n0 + n][i] = fmaf(acc[n0 + n][i], alpha[(i >> 1) & 1], pv[n][i]);
         }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int n = 0; n < NP; ++n) {
-        fence_regs(pv[n]);
-#pragma unroll
-        for (int i = 0; i < NO / 2; ++i)
-          acc[n][i] = fmaf(acc[n][i], alpha[(i >> 1) & 1], pv[n][i]);
       }
+      if (BIG) mbar_arrive(empty + 8 * s);       // V^T (over K) is read
     }
-    mbar_arrive(qempty + 8 * (seq & 1));         // the last product read Q
+    mbar_arrive(qempty + 8 * (seq % QB));        // the last product read Q
+    if (QB == 1 && tid == 0 && w + gridDim.x < total) {   // the next item's Q
+      mbar_wait(qempty, seq & 1);
+      issue_q(seq + 1, w + gridDim.x);
+    }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1044,6 +1085,7 @@ int dispatch_f32(int head_dim, const void* q, const void* k, const void* v,
     case 32: return tc::launch_f32<32>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 64: return tc::launch_f32<64>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 128: return tc::launch_f32<128>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 256: return tc::launch_f32<256>(q, k, v, o, B, S, H, KV, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1055,6 +1097,7 @@ int dispatch_bf16(int head_dim, const void* q, const void* k, const void* v,
     case 32: return tc::launch<32>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 64: return tc::launch<64>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 128: return tc::launch<128>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 256: return tc::launch<256>(q, k, v, o, B, S, H, KV, causal, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -299,6 +299,7 @@ int dispatch(int head_dim, const void* q, const void* ck, const void* cv,
     case 32: return launch<T, 32>(q, ck, cv, pos, o, part, B, L, H, KV, window, chunk, stream);
     case 64: return launch<T, 64>(q, ck, cv, pos, o, part, B, L, H, KV, window, chunk, stream);
     case 128: return launch<T, 128>(q, ck, cv, pos, o, part, B, L, H, KV, window, chunk, stream);
+    case 256: return launch<T, 256>(q, ck, cv, pos, o, part, B, L, H, KV, window, chunk, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,18 +18,22 @@ LAUNCHES = {"flash_attention": 0, "flash_decode": 0}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def decode_chunk(B: int, L: int, KV: int, sms: int | None = None) -> int:
+def decode_chunk(B: int, L: int, KV: int, sms: int | None = None,
+                 row_bytes: int = 0) -> int:
     """Cache rows per block of the split-K decode: a multiple of 16 in
     [16, 128], small enough that the (chunk, KV head, batch row) grid runs
     about two blocks on each of ``sms`` SMs (by default the current CUDA
     device's).  At the serving shape (B=8, L=576, KV=4) on an H100's 132
-    SMs: 64 rows, 9 x 4 x 8 = 288 blocks."""
+    SMs: 64 rows, 9 x 4 x 8 = 288 blocks.  Cache rows of more than 512
+    bytes (``row_bytes``: fp32 at head_dim 256) take at most 64, so a
+    block's K and V chunks fit in shared memory."""
     if sms is None:
         sms = torch.cuda.get_device_properties(
             torch.cuda.current_device()).multi_processor_count
     splits = -(-2 * sms // (B * KV))
     chunk = -(-L // splits)
-    return max(16, min(128, -(-chunk // 16) * 16))
+    return max(16, min(128 if row_bytes <= 512 else 64,
+                       -(-chunk // 16) * 16))
 
 
 def reset_launches() -> None:
@@ -61,7 +65,7 @@ def flash_decode(q, ck, cv, pos, *, window: int = 0):
     one launch counted; their fp32 partials go to a scratch tensor."""
     B, _, H, hd = q.shape
     L, KV = ck.shape[1], ck.shape[2]
-    chunk = decode_chunk(B, L, KV)
+    chunk = decode_chunk(B, L, KV, row_bytes=hd * q.element_size())
     part = torch.empty(B * H * -(-L // chunk) * (hd + 2), dtype=torch.float32,
                        device=q.device)
     o = torch.empty_like(q)

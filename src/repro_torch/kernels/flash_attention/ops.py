@@ -16,7 +16,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     DTYPE_CODES, LAUNCHES, flash_attention, flash_decode, reset_launches)
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def _check(q, kv, what: str) -> None:

@@ -9,6 +9,11 @@ device, driven by an open-loop arrival trace.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --tp 2
 
+  # the recurrent families: RecurrentGemma-9B (RG-LRU + local attention),
+  # RWKV6-7B (attention-free); Whisper is not served here
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+
   # reduced config on the CPU (plain PyTorch path)
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --dtype f32 --requests 8 --rate 0.5 --pages 4
@@ -127,6 +132,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("use examples/whisper_decode.py for enc-dec serving")
     model = build_model(cfg)
     params = model.init(seed=args.seed, dtype=dtype, device=device)
 

@@ -10,6 +10,13 @@ worker, on the synthetic LM stream.
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
       --device cpu
 
+  # Whisper's encoder-decoder (seeded frame embeddings beside the tokens),
+  # reduced on the CPU or at full width and 2 + 2 layers on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --smoke --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-large-v3 --layers 2 --steps 1 --batch-size 2
+
   # traced, with the step-time attribution report (obs/)
   PYTHONPATH=src python -m repro_torch.launch.train --steps 3 \\
       --trace t.json --report
@@ -26,6 +33,8 @@ import dataclasses
 import json
 import time
 from typing import Any, Callable, Dict, List
+
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.compression import METHODS, Compressor
@@ -46,6 +55,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (default: full width)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (an "
+                         "encoder-decoder's encoder too); 0 = the "
+                         "config's")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -73,6 +86,39 @@ class TrainRun:
     log_every: int
 
 
+FRAME_SEED = 7
+
+
+def encoder_decoder_batches(cfg, batches, batch_size: int, device):
+    """The reference launcher's encoder-decoder batch: the LM stream's
+    tokens and labels beside ``frames [B, max_source_positions, d]``, the
+    conv front end's stub output, drawn for step t from a
+    ``torch.Generator`` seeded ``FRAME_SEED + t`` (the reference folds t
+    into ``PRNGKey(7)``)."""
+    def batch_fn(t):
+        b = batches(t, 0)
+        gen = torch.Generator(device=device).manual_seed(FRAME_SEED + t)
+        return {"frames": torch.randn(
+                    batch_size, cfg.max_source_positions, cfg.d_model,
+                    generator=gen, device=device),
+                "tokens": b["tokens"], "labels": b["labels"]}
+    return batch_fn
+
+
+def config(args: argparse.Namespace):
+    """The flags' model config: ``--smoke`` reduces it, ``--layers`` cuts
+    its depth."""
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    if args.layers:
+        cut = dict(num_layers=args.layers)
+        if cfg.is_encoder_decoder:
+            cut["encoder_layers"] = args.layers
+        cfg = dataclasses.replace(cfg, **cut)
+    return cfg
+
+
 def build(args: argparse.Namespace, params=None, attn_backend: str = "auto",
           kernel_backend: str = "auto") -> TrainRun:
     """The run the flags describe.  ``params`` (a tree for the flags'
@@ -80,9 +126,7 @@ def build(args: argparse.Namespace, params=None, attn_backend: str = "auto",
     ``attn_backend`` and ``kernel_backend`` (``"ref"``: the plain path)
     go to the model config and the compressor."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
+    cfg = config(args)
     model = build_model(dataclasses.replace(cfg, attn_backend=attn_backend))
     if params is None:
         params = model.init(seed=0, device=device)
@@ -99,9 +143,14 @@ def build(args: argparse.Namespace, params=None, attn_backend: str = "auto",
                            precision=PrecisionPolicy(
                                compute_dtype=args.compute_dtype),
                            compressor=comp, layout=layout)
+    if cfg.is_encoder_decoder:
+        batch_fn = encoder_decoder_batches(cfg, batches, args.batch_size,
+                                           device)
+    else:
+        batch_fn = lambda t: batches(t, 0)
     return TrainRun(step=step,
                     state=TrainState.create(params, opt, comp, layout),
-                    batch_fn=lambda t: batches(t, 0), steps=args.steps,
+                    batch_fn=batch_fn, steps=args.steps,
                     log_every=max(1, args.steps // 10))
 
 

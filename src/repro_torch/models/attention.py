@@ -1,6 +1,6 @@
-"""GQA / MQA / MHA self-attention, full and sliding-window, with optional
-qkv / output biases and Qwen2-VL's M-RoPE (the JAX package's
-``models/attention.py`` without the cross-attention branches).
+"""GQA / MQA / MHA attention, full, sliding-window and cross, with
+optional qkv / output biases and Qwen2-VL's M-RoPE (the JAX package's
+``models/attention.py``).
 
 The plain PyTorch math below is the ``ref`` path; the kernel path routes
 through ``repro_torch.kernels.flash_attention`` (the CUDA kernels) by the
@@ -8,6 +8,9 @@ backend seam: ``kernels.backend.resolve_backend`` turns the config's
 ``attn_backend`` (``"auto"`` by default) into ``kernel`` for CUDA tensors
 and ``ref`` for CPU tensors.  The full-sequence kernel path goes through
 ``attention_grad``, so training gets gradients through it.
+Cross-attention (``kv_x`` / ``cross_kv``, Whisper's decoder) always takes
+the plain path, as in the reference: its keys come from another sequence
+length, and the reference reaches no ``pallas_call`` there.
 
 Cache layouts
 -------------
@@ -33,7 +36,9 @@ from repro_torch.models.common import (apply_mrope, apply_rope, dense,
 NEG_INF = -1e9
 
 
-def attn_init(gen, cfg, dtype=torch.float32, device="cpu"):
+def attn_init(gen, cfg, dtype=torch.float32, device="cpu", cross=False):
+    """Self- or cross-attention weights (``cross`` makes the same leaves,
+    as in the reference)."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "wq": dense_init(gen, d, H * hd, cfg.use_bias, dtype, device),
@@ -82,25 +87,30 @@ def _rotate(q, k, positions, cfg):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def attention_forward(p, x, positions, cfg, *, causal=True, window=0):
-    """Prefill / training forward.  x [B, S, d]; positions [B, S] ([B, 3,
-    S] with M-RoPE).
+def attention_forward(p, x, positions, cfg, *, causal=True, window=0,
+                      kv_x=None, use_rope=True):
+    """Training / prefill / encoder forward.  x [B, S, d]; positions [B,
+    S] ([B, 3, S] with M-RoPE).  ``kv_x`` [B, Sk, d]: cross-attention,
+    keys and values from ``kv_x``, no rope, every key visible, plain path.
 
     The kernel path feeds the *unrepeated* k/v to the flash kernel (query
     head h reads KV head h // (H/KV)).  Returns (out, {"k", "v"}) with the
     full k/v for prefill reuse."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = _split_heads(dense(p["wq"], x), H, hd)
-    k = _split_heads(dense(p["wk"], x), KV, hd)
-    v = _split_heads(dense(p["wv"], x), KV, hd)
-    q, k = _rotate(q, k, positions, cfg)
-    if resolve_backend(cfg.attn_backend, q) == "kernel":
+    k = _split_heads(dense(p["wk"], src), KV, hd)
+    v = _split_heads(dense(p["wv"], src), KV, hd)
+    if use_rope and kv_x is None:
+        q, k = _rotate(q, k, positions, cfg)
+    if kv_x is None and resolve_backend(cfg.attn_backend, q) == "kernel":
         out = FA.attention_grad(q, k, v, causal=causal,
                                 window=window if causal else 0)
     else:
         S = q.shape[1]
-        if not causal:
-            mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        if kv_x is not None or not causal:
+            mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
+                              device=x.device)
         elif window:
             mask = _window_mask(S, window, x.device)
         else:
@@ -118,22 +128,33 @@ def init_cache(cfg, batch: int, max_len: int, dtype, window: int = 0,
             "v": torch.zeros((batch, L, KV, hd), dtype=dtype, device=device)}
 
 
-def attention_decode(p, x, pos, cache, cfg, *, window=0):
+def attention_decode(p, x, pos, cache, cfg, *, window=0, cross_kv=None,
+                     use_rope=True):
     """One-token decode step.  x [B, 1, d]; pos [B] int (each row at its
     own position; with M-RoPE all three position rows are ``pos``, as the
     JAX package broadcasts its scalar position).  ``window > 0`` ->
-    ring-buffer cache of that length.
+    ring-buffer cache of that length.  ``cross_kv`` {"k", "v"} [B, Sk,
+    KV, hd]: cross-attention over precomputed encoder keys and values
+    (plain path; ``cache`` unused and returned as it is).
 
     Writes row ``pos`` (``pos % window``) of each batch row into ``cache``
     in place.  Returns (out [B, 1, d], cache)."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B = x.shape[0]
     q = _split_heads(dense(p["wq"], x), H, hd)
+    if cross_kv is not None:
+        kr = _repeat_kv(cross_kv["k"], H // KV)
+        vr = _repeat_kv(cross_kv["v"], H // KV)
+        mask = torch.ones((1, 1, 1, kr.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, kr, vr, mask)
+        return dense(p["wo"], out.reshape(B, 1, H * hd)), cache
     k = _split_heads(dense(p["wk"], x), KV, hd)
     v = _split_heads(dense(p["wv"], x), KV, hd)
-    posb = (pos[:, None, None].expand(B, 3, 1) if cfg.mrope_sections
-            else pos[:, None])
-    q, k = _rotate(q, k, posb, cfg)
+    if use_rope:
+        posb = (pos[:, None, None].expand(B, 3, 1) if cfg.mrope_sections
+                else pos[:, None])
+        q, k = _rotate(q, k, posb, cfg)
 
     ck, cv = cache["k"], cache["v"]
     rows = torch.arange(B, device=x.device)

@@ -9,8 +9,17 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def to_tensor(a):
+    """A leaf of a parameter tree from the JAX package (numpy, or tensors
+    a checkpoint load made) as a writable CPU tensor of its dtype."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    return torch.from_numpy(np.array(a))
 
 
 # --------------------------------------------------------------------- dense

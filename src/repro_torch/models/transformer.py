@@ -1,19 +1,25 @@
 """Decoder-only language model of the port (the JAX package's
 ``models/transformer.py``): dense GQA / MHA, MoE (with a dense prefix),
-MLA, M-RoPE with a vision stub, qkv biases, RMSNorm or LayerNorm.
+MLA, M-RoPE with a vision stub, qkv biases, RMSNorm or LayerNorm, and the
+recurrent kinds: Griffin's RG-LRU beside ``local`` sliding-window layers
+(RecurrentGemma) and RWKV-6.  Whisper's encoder-decoder is
+``models/whisper.py``.
 
 Parameters are plain dicts of tensors: ``embed [Vpad, d]``,
 ``lm_head [d, Vpad]`` (untied configs), ``final_norm`` and ``layers``, a
 list with one dict per layer (``ln1``, ``ln2``, ``mixer`` and ``mlp`` or
-``moe``).  The JAX package stacks layers into scan groups
-(``plan_segments``); here the stack is a Python loop, ``from_jax_params``
-un-stacks a JAX parameter tree into this layout, and ``leaf_layout`` maps
-it back onto the JAX package's leaves (the order the data-parallel engine
-plans, compresses and reduces gradients in).
+``moe``; an rwkv layer's channel mix lives in its ``mixer``).  The JAX
+package stacks layers into scan groups (``plan_segments``: a repeating
+pattern such as (rglru, rglru, local), then plain stragglers); here the
+stack is a Python loop, ``from_jax_params`` un-stacks a JAX parameter
+tree into this layout, and ``leaf_layout`` maps it back onto the JAX
+package's leaves (the order the data-parallel engine plans, compresses
+and reduces gradients in).
 
-The recurrent and encoder-decoder families (RG-LRU with ``local`` ring
-layers, RWKV-6, Whisper) are ROADMAP queue A item 7b: ``plan_segments``
-raises ``NotImplementedError`` for them.
+Caches, one per layer: attention ``{"k", "v"}`` (a ring buffer of
+``cfg.window`` rows for ``local`` layers), MLA's latents, RG-LRU's
+``{"h", "conv"}`` and RWKV's ``{"S", "shift_tm", "shift_cm"}``: a
+recurrent layer's state *is* its decode cache.
 """
 from __future__ import annotations
 
@@ -26,11 +32,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (cross_entropy, dense, mlp_apply,
-                                       mlp_init, norm_apply, norm_init)
+                                       mlp_init, norm_apply, norm_init,
+                                       to_tensor)
 from repro_torch.models.moe import moe_apply, moe_init
 
-KINDS = ("attn",)
+KINDS = ("attn", "local", "rglru", "rwkv")
 
 
 # --------------------------------------------------------------- segment plan
@@ -41,14 +50,8 @@ def plan_segments(cfg: ModelConfig) -> List[Tuple[str, Any]]:
     segment of the repeating pattern, then plain stragglers.  The port
     runs layers one by one; it reads the plan to un-stack JAX parameters."""
     bad = sorted(set(cfg.layer_kinds) - set(KINDS))
-    if (bad or cfg.window or cfg.is_encoder_decoder
-            or cfg.attn_type not in ("gqa", "mla")):
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent, sliding-window and encoder-decoder "
-            f"families are ROADMAP queue A item 7b (got kinds "
-            f"{bad or cfg.layer_kinds}, window {cfg.window}, "
-            f"encoder-decoder {cfg.is_encoder_decoder}, attn_type "
-            f"{cfg.attn_type})")
+    if bad:
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
     sigs = _layer_sigs(cfg)
     segments: List[Tuple[str, Any]] = []
     i = 0
@@ -79,10 +82,15 @@ def _layer_sigs(cfg: ModelConfig) -> List[Tuple[str, bool]]:
 
 # ------------------------------------------------------------------ layer ops
 def _layer_init(gen, cfg: ModelConfig, sig, dtype, device):
-    _, use_moe = sig
+    kind, use_moe = sig
     p = {"ln1": norm_init(cfg.norm, cfg.d_model, device=device),
          "ln2": norm_init(cfg.norm, cfg.d_model, device=device)}
-    if cfg.attn_type == "mla":
+    if kind == "rglru":
+        p["mixer"] = rglru_mod.rglru_init(gen, cfg, dtype, device)
+    elif kind == "rwkv":
+        p["mixer"] = rwkv_mod.rwkv_init(gen, cfg, dtype, device)
+        return p                         # the channel mix lives in mixer
+    elif cfg.attn_type == "mla":
         p["mixer"] = mla_mod.mla_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = attn.attn_init(gen, cfg, dtype, device)
@@ -94,15 +102,32 @@ def _layer_init(gen, cfg: ModelConfig, sig, dtype, device):
     return p
 
 
-def _layer_forward(p, cfg: ModelConfig, sig, x, positions, window):
+def _window(cfg: ModelConfig, kind: str, window_override: int) -> int:
+    """A ``local`` layer's ring / mask width is the config's window; plain
+    attention layers take the serving override."""
+    return cfg.window if kind == "local" else window_override
+
+
+def _layer_forward(p, cfg: ModelConfig, sig, x, positions, window_override):
     """Full-sequence forward for one layer.  Returns (x, aux, state)."""
-    _, use_moe = sig
+    kind, use_moe = sig
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    if cfg.attn_type == "mla":
+    if kind == "rglru":
+        out, (h_last, conv_buf) = rglru_mod.rglru_forward(p["mixer"], h)
+        state = {"h": h_last, "conv": conv_buf}
+    elif kind == "rwkv":
+        out, tm = rwkv_mod.time_mix_forward(p["mixer"], h, cfg)
+        x = x + out
+        h2 = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
+        out2, shift_cm = rwkv_mod.channel_mix_forward(p["mixer"], h2, cfg)
+        return x + out2, None, {"S": tm["S"], "shift_tm": tm["shift"],
+                                "shift_cm": shift_cm}
+    elif cfg.attn_type == "mla":
         out, state = mla_mod.mla_forward(p["mixer"], h, positions, cfg)
     else:
-        out, state = attn.attention_forward(p["mixer"], h, positions, cfg,
-                                            causal=True, window=window)
+        out, state = attn.attention_forward(
+            p["mixer"], h, positions, cfg, causal=True,
+            window=_window(cfg, kind, window_override))
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
     if use_moe:
@@ -125,18 +150,25 @@ def _tp_sum(partials):
     return tensor_reduce(torch.stack(partials))[0]
 
 
-def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window,
+def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window_override,
                   tp_axis=None):
-    """One-token decode for one layer.  Returns (x, cache).
+    """One-token decode for one layer.  Returns (x, cache): attention
+    caches are written in place, a recurrent layer returns its new state.
 
     tp_axis: the mixer and MLP leaves and the cache are rank-stacked on
     dimension 0 (``serve.tp``); each rank decodes its heads and hidden
     slice against its own cache rows, and the row-parallel partial
     products (wo, w_down) are summed with ``tensor_reduce`` before each
     residual add.  Dense GQA layers only (``decode_step`` checks)."""
-    _, use_moe = sig
+    kind, use_moe = sig
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_block_decode(p["mixer"], p["mixer"], p["ln1"],
+                                          p["ln2"], cfg, x, cache)
+    window = _window(cfg, kind, window_override)
     h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
-    if cfg.attn_type == "mla":
+    if kind == "rglru":
+        out, cache = rglru_mod.rglru_decode(p["mixer"], h, cache)
+    elif cfg.attn_type == "mla":
         out, cache = mla_mod.mla_decode(p["mixer"], h, pos, cache, cfg)
     elif tp_axis is None:
         out, cache = attn.attention_decode(p["mixer"], h, pos, cache, cfg,
@@ -164,10 +196,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Seeded init with the JAX package's distributions: embed
     ``normal * 0.02``, lm_head ``normal / sqrt(d)``, dense and expert
     weights ``normal / sqrt(in)``, norm scales ones (fp32), the MoE router
-    in fp32.  The vocab is padded to a multiple of ``vocab_pad_multiple``.
+    in fp32, RG-LRU's ``lam`` and RWKV's lerp, decay and bonus leaves in
+    fp32.  The vocab is padded to a multiple of ``vocab_pad_multiple``.
     The draws differ from ``jax.random``'s; tests carry weights over with
     ``from_jax_params``."""
-    plan_segments(cfg)                                 # rejects other families
+    plan_segments(cfg)                                 # rejects unknown kinds
     gen = torch.Generator(device=device).manual_seed(seed)
     V, d = cfg.padded_vocab(vocab_pad_multiple), cfg.d_model
 
@@ -187,26 +220,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 
 def from_jax_params(cfg: ModelConfig, tree):
-    """The JAX package's parameter tree (leaves as numpy arrays) -> the
-    port's parameters (CPU tensors, same dtype).  Plain segments (an MoE
-    stack's dense prefix) map to one layer each; scan segments are
-    un-stacked along their leading group axis into one dict per layer."""
-    to_t = lambda a: torch.from_numpy(np.array(a))     # writable copy
+    """The JAX package's parameter tree (leaves as numpy arrays, or the
+    tensors a checkpoint load made) -> the port's parameters (CPU tensors,
+    same dtype).  Plain segments (an MoE stack's dense prefix, a pattern's
+    stragglers) map to one layer each; scan segments are un-stacked along
+    their leading group axis into one dict per layer."""
     layers = []
     for seg, p_seg in zip(plan_segments(cfg), tree["segments"]):
         if seg[0] == "plain":
-            layers.append(tree_map(to_t, p_seg))
+            layers.append(tree_map(to_tensor, p_seg))
             continue
         _, pattern, n_groups = seg
         for g in range(n_groups):
             for j in range(len(pattern)):
-                layers.append(tree_map(lambda a, _g=g: to_t(np.array(a)[_g]),
+                layers.append(tree_map(lambda a, _g=g: to_tensor(a[_g]),
                                        p_seg[j]))
-    params = {"embed": to_t(tree["embed"]),
-              "final_norm": tree_map(to_t, tree["final_norm"]),
+    params = {"embed": to_tensor(tree["embed"]),
+              "final_norm": tree_map(to_tensor, tree["final_norm"]),
               "layers": layers}
     if "lm_head" in tree:
-        params["lm_head"] = to_t(tree["lm_head"])
+        params["lm_head"] = to_tensor(tree["lm_head"])
     return params
 
 
@@ -260,13 +293,15 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
             return_cache: bool = False, window_override: int = 0):
     """Full-sequence forward.  Returns (logits, aux, caches | None): aux is
     the sum of the MoE layers' load-balance losses (0 without MoE), caches
-    each layer's state (``{k, v}`` or MLA's ``{c_kv, k_rope}``).
+    each layer's state (``{k, v}``, MLA's ``{c_kv, k_rope}`` or a
+    recurrent layer's final state).
 
     tokens [B, S] int.  positions: [B, S] ([B, 3, S] with M-RoPE; the
     default broadcasts ``arange(S)`` to all three rows).  vision_embeds
     [B, P, d]: the vision stub, written over the leading P token slots.
     window_override: sliding-window mask for plain attention layers — the
-    prefill-side twin of ``decode_step``'s ring-buffer override."""
+    prefill-side twin of ``decode_step``'s ring-buffer override (``local``
+    layers always mask to ``cfg.window``)."""
     B, S = tokens.shape
     x = params["embed"].to(compute_dtype)[tokens]
     if vision_embeds is not None:
@@ -315,18 +350,38 @@ def prefill(params, cfg: ModelConfig, tokens, positions=None,
 
 
 # --------------------------------------------------------------------- decode
+def _layer_cache(cfg: ModelConfig, sig, batch, max_len, dtype,
+                 window_override=0, device="cpu"):
+    kind, _ = sig
+    if kind == "rglru":
+        return rglru_mod.rglru_init_state(cfg, batch, dtype, device)
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_init_state(cfg, batch, dtype, device)
+    if cfg.attn_type == "mla":
+        return mla_mod.mla_init_cache(cfg, batch, max_len, dtype, device)
+    return attn.init_cache(cfg, batch, max_len, dtype,
+                           window=_window(cfg, kind, window_override),
+                           device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, device="cpu"):
-    """One cache per layer: ``{"k", "v"}`` (ring buffers of length
-    ``window_override`` when it is set) or MLA's latents ``{"c_kv",
-    "k_rope"}``."""
-    plan_segments(cfg)
-    if cfg.attn_type == "mla":
-        return [mla_mod.mla_init_cache(cfg, batch, max_len, dtype, device)
-                for _ in range(cfg.num_layers)]
-    return [attn.init_cache(cfg, batch, max_len, dtype,
-                            window=window_override, device=device)
-            for _ in range(cfg.num_layers)]
+    """One cache per layer: ``{"k", "v"}`` (ring buffers of ``cfg.window``
+    rows for ``local`` layers, of ``window_override`` for the others when
+    it is set), MLA's latents ``{"c_kv", "k_rope"}``, RG-LRU's ``{"h",
+    "conv"}`` or RWKV's ``{"S" (fp32), "shift_tm", "shift_cm"}``."""
+    return [_layer_cache(cfg, sig, batch, max_len, dtype, window_override,
+                         device) for sig in _layer_sigs(cfg)]
+
+
+def paged_layers(cfg: ModelConfig, window_override: int = 0) -> List[bool]:
+    """Per layer, whether its cache has a sequence axis that pages (full
+    attention, MLA's latents); ring buffers and recurrent states stay
+    per slot (the JAX package's ``serve.cache._seq_from_end`` != 0)."""
+    return [kind in ("attn", "local") and (
+                cfg.attn_type == "mla"
+                or not _window(cfg, kind, window_override))
+            for kind, _ in _layer_sigs(cfg)]
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos,
@@ -334,7 +389,8 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos,
                 tp_axis: Optional[str] = None):
     """One decode step.  token [B, 1] int; pos [B] int, the position of
     each row's token (rows decode at their own positions).  Updates the
-    caches in place; returns (logits [B, 1, Vpad], caches).
+    attention caches in place and puts each recurrent layer's new state
+    in its place in ``caches``; returns (logits [B, 1, Vpad], caches).
 
     tp_axis: tensor-parallel decode over logical ranks on one device.
     ``params`` then come from ``serve.tp.TPContext.shard_params`` (wq, wk,
@@ -344,10 +400,13 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos,
     is the rank-local config (``num_heads/tp``, ``num_kv_heads/tp``), as
     the JAX package's engine passes it inside its ``shard_map``.  The
     value names the axis; the port's tensor axis is always dimension 0."""
-    if tp_axis is not None and (cfg.moe or cfg.attn_type == "mla"):
+    if tp_axis is not None and (
+            cfg.moe or cfg.attn_type == "mla"
+            or any(k not in ("attn", "local") for k in cfg.layer_kinds)):
         raise ValueError(
             f"tensor-parallel decode supports dense GQA layers only "
-            f"(got moe={cfg.moe}, attn_type={cfg.attn_type})")
+            f"(got moe={cfg.moe}, attn_type={cfg.attn_type}, kinds "
+            f"{sorted(set(cfg.layer_kinds))})")
     x = params["embed"].to(compute_dtype)[token]
     for i, (p, sig) in enumerate(zip(params["layers"], _layer_sigs(cfg))):
         x, caches[i] = _layer_decode(p, cfg, sig, x, pos, caches[i],
@@ -361,13 +420,19 @@ def _seq_from_end(cfg: ModelConfig) -> int:
     return 2 if cfg.attn_type == "mla" else 3
 
 
-def _state_to_cache(cfg: ModelConfig, st, max_len: int, dtype,
-                    window: int = 0):
+def _state_to_cache(cfg: ModelConfig, sig, st, max_len: int, dtype,
+                    window_override: int = 0):
     """One layer's prefill state -> its ``init_cache`` layout: position t
     at slot t (full) or t % W (ring buffer, last W kept; MLA keeps full
-    latents)."""
-    if cfg.attn_type == "mla":
-        window = 0
+    latents).  A recurrent layer's final state *is* its decode cache, its
+    leaves cast to the ``init_cache`` template's dtypes (RWKV's ``S``
+    stays fp32 whatever ``dtype``)."""
+    kind, _ = sig
+    if kind in ("rglru", "rwkv"):
+        tmpl = _layer_cache(cfg, sig, 1, max_len, dtype, window_override)
+        return {name: a.to(tmpl[name].dtype) for name, a in st.items()}
+    window = 0 if cfg.attn_type == "mla" else _window(cfg, kind,
+                                                      window_override)
     L = window if window else max_len
 
     def fill(a):
@@ -390,5 +455,5 @@ def cache_from_prefill(cfg: ModelConfig, fwd_caches, max_len: int,
                        dtype=torch.bfloat16, window_override: int = 0):
     """Prefill states -> the decode caches ``init_cache`` lays out, so a
     prompt is consumed by one batched forward pass."""
-    return [_state_to_cache(cfg, st, max_len, dtype, window_override)
-            for st in fwd_caches]
+    return [_state_to_cache(cfg, sig, st, max_len, dtype, window_override)
+            for sig, st in zip(_layer_sigs(cfg), fwd_caches)]

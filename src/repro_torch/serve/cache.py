@@ -1,14 +1,18 @@
 """Paged KV cache (the JAX package's ``serve/cache.py``, for the port's
 per-layer caches; vLLM-style block management, arXiv 2111.14247).
 
-  * attention caches ``[B, L, KV, hd]`` and MLA latents ``[B, L, r]``
-    are re-laid-out as fixed-size **page pools** ``[num_pages, page,
+  * full attention caches ``[B, L, KV, hd]`` and MLA latents ``[B, L,
+    r]`` are re-laid-out as fixed-size **page pools** ``[num_pages, page,
     ...]`` shared by every batch slot, addressed through per-slot **block
     tables** (logical page -> physical page);
   * a **BlockAllocator** hands pages out at admission and takes them back
     on completion, so an over-subscribed pool *stalls admission* instead
     of running out of memory;
-  * ring buffers and whole caches in contiguous mode stay per-slot.
+  * ring buffers (``local`` layers), recurrent states (RG-LRU's ``h`` and
+    ``conv``, RWKV's ``S`` and shifts) and whole caches in contiguous
+    mode stay per-slot leaves ``[slots, ...]``; admission overwrites
+    every leaf of the slot, so nothing of a released request leaks into
+    the next.
 
 Physical page 0 is the null/scratch page: fresh block tables point at it
 and *inactive* batch slots scatter their garbage decode rows into it, so
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import get_path, leaf_paths, tree_map
+from repro_torch.models.transformer import paged_layers
 
 
 def cache_bytes(caches) -> int:
@@ -143,9 +148,10 @@ class PagedKV:
                  window_override: int = 0, device="cpu", tp: int = 1):
         if page_size <= 0:
             raise ValueError("page_size must be > 0 for PagedKV")
-        if window_override or any(k != "attn" for k in model.cfg.layer_kinds):
-            raise ValueError("paged cache + ring buffers unsupported "
+        if window_override:
+            raise ValueError("paged cache + window_override unsupported "
                              "(ring buffers are already constant-size)")
+        self.pooled = paged_layers(model.cfg)
         self.slots, self.max_len, self.page = slots, max_len, page_size
         self.device, self.tp = torch.device(device), tp
         self.pages_per_seq = math.ceil(max_len / page_size)
@@ -154,18 +160,23 @@ class PagedKV:
             num_pages = 1 + slots * self.pages_per_seq
         self.allocator = BlockAllocator(num_pages, reserved=1)
         self.block_tables = np.zeros((slots, self.pages_per_seq), np.int64)
-        # one slot's template: [1, L, *rest] -> pool [num_pages, page, *rest]
-        template = model.init_cache(1, page_size, dtype=dtype, device=device)
-        self.store = tree_map(
-            lambda t: shard_kv(t.new_zeros((num_pages,) + t.shape[1:]), tp),
-            template)
+        # paged layers: [slots, page, *rest] -> pool [num_pages, page,
+        # *rest]; the other layers keep their per-slot leaves
+        template = model.init_cache(slots, page_size, dtype=dtype,
+                                    device=device)
+        self.store = [
+            tree_map(lambda t: shard_kv(
+                t.new_zeros((num_pages,) + t.shape[1:]) if pooled else t,
+                tp), layer)
+            for layer, pooled in zip(template, self.pooled)]
 
     def block_tables_device(self):
         return torch.from_numpy(self.block_tables).to(self.device)
 
     def gather(self, store, bt):
         """Page pools -> the contiguous ``[B, L, ...]`` view decode reads
-        (a copy per layer; rank-major ``[tp, B, L, ...]`` under tp)."""
+        (a copy per paged layer; rank-major ``[tp, B, L, ...]`` under
+        tp); per-slot leaves pass as they are."""
         lead = _lead(self.tp)
 
         def g(pool):
@@ -173,17 +184,22 @@ class PagedKV:
             n = len(lead)
             v = v.reshape(v.shape[:n + 1] + (-1,) + v.shape[n + 3:])
             return v.narrow(n + 1, 0, self.max_len).contiguous()
-        return tree_map(g, store)
+        return [tree_map(g, layer) if pooled else layer
+                for layer, pooled in zip(store, self.pooled)]
 
     def scatter(self, store, new_caches, bt, pos, active):
         """Write the row each slot just produced (at ``pos`` [B]) back to
-        its page in place; inactive slots are routed to null page 0."""
+        its page in place (inactive slots are routed to null page 0); a
+        per-slot layer's new leaves replace its old ones."""
         phys = torch.where(active, bt.gather(1, (pos // self.page)[:, None])[:, 0],
                            torch.zeros_like(pos))
         off = pos % self.page
         rows = torch.arange(pos.shape[0], device=pos.device)
         lead = _lead(self.tp)
-        for pools, new in zip(store, new_caches):
+        for i, (pools, new) in enumerate(zip(store, new_caches)):
+            if not self.pooled[i]:
+                store[i] = new
+                continue
             for name, pool in pools.items():
                 pool[lead + (phys, off)] = \
                     new[name][lead + (rows, pos)].to(pool.dtype)
@@ -202,15 +218,21 @@ class PagedKV:
 
     def write_prefill(self, slot: int, conv_cache, j: int, prompt_len: int):
         """Scatter request ``j``'s prompt rows of a converted prefill cache
-        into its reserved pages."""
+        into its reserved pages; per-slot leaves take request ``j``'s
+        row whole."""
         ts = np.arange(prompt_len)
         phys = torch.from_numpy(self.block_tables[slot][ts // self.page])
         off = torch.from_numpy(ts % self.page)
         phys, off = phys.to(self.device), off.to(self.device)
-        for pools, src in zip(self.store, conv_cache):
+        lead = _lead(self.tp)
+        for pooled, pools, src in zip(self.pooled, self.store, conv_cache):
             for name, pool in pools.items():
-                rows = shard_kv(src[name][j, :prompt_len], self.tp)
-                pool[_lead(self.tp) + (phys, off)] = rows.to(pool.dtype)
+                if pooled:
+                    rows = shard_kv(src[name][j, :prompt_len], self.tp)
+                    pool[lead + (phys, off)] = rows.to(pool.dtype)
+                else:
+                    pool[lead + (slot,)] = shard_kv(src[name][j],
+                                                    self.tp).to(pool.dtype)
 
     def set_block_table(self, slot: int, pages: Sequence[int]) -> None:
         row = np.zeros(self.pages_per_seq, np.int64)

@@ -13,7 +13,10 @@ One ``ServeEngine`` iteration is
   3. **decode** — every slot advances one token in one batched step:
      gather pages -> decode with a position *per slot* (the JAX package
      vmaps ``decode_step`` over slots; here ``pos`` is a [B] tensor) ->
-     sample -> scatter the new KV row back to its page.
+     sample -> scatter the new KV row back to its page.  Ring buffers
+     (``local`` layers, at ``pos % window``) and recurrent states
+     (RG-LRU, RWKV) stay per slot; admission overwrites every leaf of
+     the slot, so a released request leaves nothing to the next.
 
 Tensor-parallel decode (``ServeConfig.tp > 1``) runs the same step over
 ``tp`` logical ranks (``serve/tp.py``): the engine keeps a rank-stacked

@@ -8,7 +8,9 @@ package's, on the CPU.
 * Exact, across packages: the same numpy tree of fp32, int32 and bf16
   leaves saved by each gives equal manifests (per-leaf hashes included);
   a checkpoint written by either package loads in the other with equal
-  arrays; a bf16 leaf written by ``repro`` loads here with the same bits.
+  arrays; a bf16 leaf written by ``repro`` loads here with the same bits;
+  reduced RecurrentGemma (bf16 beside fp32 leaves) and Whisper carry over
+  both ways bit for bit.
 * Greedy tokens, bitwise: ``generate`` on reduced TinyLlama with the JAX
   init's weights equals ``repro.serve.generate``; the quickstart (5 Adam +
   onebit steps, save, register, reload, 12 tokens from ``[[1, 2, 3,
@@ -419,3 +421,50 @@ def test_jax_model_checkpoint_decodes_the_same_tokens(tmp_path):
                                    jnp.asarray(prompt, jnp.int32), 8))
     got = generate(s["model"], params, prompt, 8, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-large-v3"])
+def test_family_checkpoints_load_across_packages(tmp_path, arch):
+    """Reduced RecurrentGemma (4 layers: bf16 weights beside fp32 ``lam``
+    and norms) and Whisper in bf16: a JAX-written checkpoint loads in the
+    port with the same bits and carries over with ``from_jax_params``; the
+    port's parameters, laid out by ``leaf_layout`` in the JAX structure,
+    save to a checkpoint the JAX package loads with the same bits."""
+    from repro_torch.models import whisper as W
+    layers = dict(num_layers=4) if arch == "recurrentgemma-9b" else {}
+    jcfg = jax_get_config(arch).reduced(**layers)
+    cfg = get_config(arch).reduced(**layers)
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0),
+                                         dtype=jnp.bfloat16)
+    model = build_model(cfg)
+    carry = W.from_jax_params if cfg.is_encoder_decoder else from_jax_params
+    jleaves = jax.tree.leaves(jparams)
+    assert {str(x.dtype) for x in jleaves} == {"bfloat16", "float32"}
+
+    def bits(x):
+        a = np.asarray(x)
+        return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+    jax_save_checkpoint(str(tmp_path / "j"), jparams, step=1,
+                        shard_bytes=100_000)
+    like = jax.tree.map(lambda x: torch.zeros(
+        x.shape, dtype=torch.bfloat16 if x.dtype == jnp.bfloat16
+        else torch.float32), jparams)
+    restored, step = load_checkpoint(str(tmp_path / "j"), like)
+    params = carry(cfg, restored)
+    layout = model.leaf_layout(params)
+    assert step == 1 and len(layout.names) == len(jleaves)
+    for i, x in enumerate(jleaves):
+        got = layout.leaf(params, i)
+        assert str(got.dtype)[6:] == str(x.dtype), layout.names[i]
+        np.testing.assert_array_equal(
+            got.view(torch.int16 if got.element_size() == 2
+                     else torch.int32).numpy(), bits(x))
+    tree = jax.tree_util.tree_unflatten(
+        jax.tree.structure(jparams),
+        [layout.leaf(params, i) for i in range(len(jleaves))])
+    save_checkpoint(str(tmp_path / "p"), tree, step=2, shard_bytes=100_000)
+    back, step = jax_load_checkpoint(str(tmp_path / "p"), jparams)
+    assert step == 2
+    for a, b in zip(jax.tree.leaves(back), jleaves):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()

@@ -43,7 +43,7 @@ def _err(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("S,H,KV", [(100, 8, 2), (64, 4, 4), (300, 32, 4)])
 def test_flash_attention_matches_plain(cuda, dtype, hd, S, H, KV):
     gen = torch.Generator(device=cuda).manual_seed(S + hd)
@@ -61,7 +61,7 @@ def test_flash_attention_matches_plain(cuda, dtype, hd, S, H, KV):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("H,KV", [(8, 8), (32, 4), (32, 1)])
 def test_flash_decode_matches_plain(cuda, dtype, hd, H, KV):
     gen = torch.Generator(device=cuda).manual_seed(H * KV + hd)
@@ -971,3 +971,116 @@ def test_family_on_card_matches_cpu(cuda, arch):
                     device=dev).run(reqs)
         streams.append([r.output for r in reqs])
     assert streams[0] == streams[1]
+
+
+# ---------------------------------- the recurrent and encoder-decoder families
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_griffin_and_whisper_shapes(cuda, dtype):
+    """RecurrentGemma-9B's local attention (16 query heads on one KV head,
+    head_dim 256, window 2048): prefill past the window (S 2560 in bf16,
+    700 in fp32) and the ring decode with slots at positions 100-3000;
+    Whisper's encoder (20 heads, hd 64, non-causal at S 1500, not a tile
+    multiple) against the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    S = 2560 if dtype == torch.bfloat16 else 700
+    q = _randn(gen, dtype, 1, S, 16, 256)
+    k, v = _randn(gen, dtype, 1, S, 1, 256), _randn(gen, dtype, 1, S, 1, 256)
+    for window in (2048, 128, 0):
+        out = FA.attention(q, k, v, window=window)
+        assert _err(out, FA.attention_ref(q, k, v, window=window)) <= \
+            TOLS[dtype], window
+    qd = _randn(gen, dtype, 8, 1, 16, 256)
+    ck, cv = (_randn(gen, dtype, 8, 2048, 1, 256) for _ in range(2))
+    pos = torch.tensor([100, 900, 2046, 2047, 2048, 2049, 2500, 3000],
+                       device=cuda)
+    out = FA.decode(qd, ck, cv, pos, window=2048)
+    assert torch.isfinite(out).all()
+    assert _err(out, FA.decode_ref(qd, ck, cv, pos, window=2048)) <= \
+        TOLS[dtype]
+    q, k, v = (_randn(gen, dtype, 4, 1500, 20, 64) for _ in range(3))
+    assert _err(FA.attention(q, k, v, causal=False),
+                FA.attention_ref(q, k, v, causal=False)) <= TOLS[dtype]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_recurrent_family_on_card_matches_cpu(cuda, arch):
+    """RecurrentGemma (rglru, rglru, local at head_dim 256, window 16) and
+    RWKV-6, reduced, fp32: the card's forward equals the CPU's within
+    1e-4 (the local layer through flash_attention), and the engine's
+    greedy streams on the card (prompts past the window, paged) equal the
+    CPU's, the local layer's decode through flash_decode."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    cfg = get_config(arch).reduced(num_layers=3)
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, head_dim=256, window=16)
+    local = cfg.layer_kinds.count("local")
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0)
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = torch.randint(1, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(4))
+    FA.reset_launches()
+    out, _, _ = model.forward(params, toks.to(cuda),
+                              compute_dtype=torch.float32)
+    ref, _, _ = model.forward(cpu_params, toks, compute_dtype=torch.float32)
+    assert _err(out.cpu(), ref) <= 1e-4
+    assert FA.LAUNCHES["flash_attention"] == local
+    streams = []
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        reqs = [Request(rid=i, prompt=toks[i, :20].tolist(),
+                        max_new_tokens=6) for i in range(2)]
+        FA.reset_launches()
+        m = ServeEngine(model, p, ServeConfig(slots=2, max_len=32,
+                                              page_size=4),
+                        device=dev).run(reqs)
+        if dev == cuda:
+            assert FA.LAUNCHES["flash_decode"] == \
+                m["decode_iterations"] * local
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]
+
+
+def test_whisper_on_card_matches_cpu(cuda):
+    """Reduced Whisper in fp32: encoder (non-causal flash_attention),
+    teacher-forced decoder and greedy decode_step (flash_decode on the
+    self-attention cache, plain cross-attention) on the card equal the
+    CPU's."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import whisper as W
+    cfg = get_config("whisper-large-v3").reduced()
+    model = build_model(cfg)
+    cpu_params = model.init(seed=0)
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    gen = torch.Generator().manual_seed(5)
+    frames = torch.randn(2, cfg.max_source_positions, cfg.d_model,
+                         generator=gen)
+    toks = torch.randint(1, cfg.vocab_size, (2, 8), generator=gen)
+    outs = []
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        FA.reset_launches()
+        enc = W.encode(p, cfg, frames.to(dev), compute_dtype=torch.float32)
+        logits = W.decode_train(p, cfg, toks.to(dev), enc,
+                                compute_dtype=torch.float32)
+        cache = model.init_cache(2, 8, dtype=torch.float32,
+                                 enc_frames=cfg.max_source_positions,
+                                 device=dev)
+        cache["cross"] = W.build_cross_cache(p, cfg, enc,
+                                             dtype=torch.float32)
+        tok, seq = toks[:, :1].to(dev), []
+        for t in range(8):
+            lg, cache = model.decode_step(p, cache, tok,
+                                          torch.full((2,), t, device=dev),
+                                          compute_dtype=torch.float32)
+            tok = lg[..., :cfg.vocab_size].argmax(-1)
+            seq.append(tok[:, 0].tolist())
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert FA.LAUNCHES["flash_attention"] == \
+                cfg.encoder_layers + cfg.num_layers
+            assert FA.LAUNCHES["flash_decode"] == 8 * cfg.num_layers
+        outs.append((enc.cpu(), logits.cpu(), seq))
+    assert _err(outs[0][0], outs[1][0]) <= 1e-4
+    assert _err(outs[0][1], outs[1][1]) <= 1e-4
+    assert outs[0][2] == outs[1][2]

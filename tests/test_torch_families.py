@@ -53,7 +53,6 @@ torch.set_num_threads(2)
 TOL, GRAD_TOL, DECODE_TOL = 1e-4, 2e-5, 2e-4
 FAMILIES = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "qwen2-vl-7b",
             "stablelm-1.6b", "command-r-35b", "llama3.2-3b"]
-LATER = ["recurrentgemma-9b", "rwkv6-7b", "whisper-large-v3"]
 B, S = 2, 12
 _CACHE = {}
 
@@ -123,12 +122,6 @@ def test_config_registry_and_shapes_match_jax():
         configs.get_shape("nope")
     assert get_config("deepseek-v2-lite-16b").param_count() == 16_210_309_120
     assert get_config("qwen2-vl-7b").param_count() == 7_615_483_904
-
-
-@pytest.mark.parametrize("arch", LATER)
-def test_later_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="queue A item 7b"):
-        build_model(get_config(arch).reduced())
 
 
 # ------------------------------------------------- forward, loss, grads

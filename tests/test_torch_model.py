@@ -111,7 +111,10 @@ def test_prefill_then_decode_matches_jax(window):
 
 
 def test_build_model_rejects_unported_families():
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+    """Every layer kind of the JAX package builds (RG-LRU too); a kind no
+    package has is refused."""
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               block_pattern=("rglru",))
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
+    assert build_model(cfg).cfg.layer_kinds == ("rglru", "rglru")
+    with pytest.raises(ValueError, match="unknown layer kinds"):
+        build_model(dataclasses.replace(cfg, block_pattern=("mamba",)))
