@@ -351,6 +351,47 @@ terngrad_compress and qsgd_compress count 13 B per element: their
 reduction (std, l2 norm) must read g before their output can be
 written, and g (1.0 GB) cannot stay in the 50 MB L2 in between.
 
+Phase 25 is the dry-run (repro_torch.launch.dryrun) at production
+lengths:
+ 25a. meta   build_dryrun on the meta device for all 39 (arch x shape)
+             pairs on the 16 x 16 and the 2 x 16 x 16 mesh: each pair's
+             per-device parameter and cache bytes (run_pair's cache policy,
+             attn_hints_seq); the card's allocation is unchanged across it.
+ 25b. probe  probe_pair on the card at 1 and 2 full-width layer groups:
+             TinyLlama-1.1B x all four shapes, Qwen2-VL-7B x prefill_32k,
+             DeepSeek-V2-Lite-16B x long_500k (the 524288-row MLA latent
+             cache), RecurrentGemma-9B x long_500k, Whisper-large-v3 x
+             decode_32k: the meta FLOPs and bytes extrapolated to the full
+             depth, the card's median ms at each depth at run_pair's batch
+             and their extrapolation, the peak GiB beside the meta count
+             it was planned by, and the roofline terms (H100 constants).
+ 25c. full   run_pair at full depth on the card for TinyLlama-1.1B x all
+             four shapes, RecurrentGemma-9B x long_500k and
+             DeepSeek-V2-Lite-16B x long_500k: the measured ms beside the
+             probe's extrapolation.  The batch is the per-data-shard batch
+             (global / 16) unless the meta count of a card run exceeds
+             0.8 of the card, then cut (the record's "reduced").
+ 25d. kernels the flash kernels at the new lengths against their plain
+             versions on a slice of the work the plain version can hold:
+             the bf16 prefill at B 1, S 32768 (TinyLlama's 32 heads on 4,
+             hd 64, causal), its last 256 query rows against plain
+             attention of those rows over all keys; flash_decode over 8
+             slots at L 32768 (positions at split-K chunk edges); the ring
+             decode at positions up to 524287 (window 4096, hd 64; window
+             2048, RecurrentGemma's 16 heads on 1, hd 256); each timed
+             beside its bound and SDPA (the prefill's plain time is of
+             the 256-row slice).  Outputs there are small (std about
+             sqrt(e / keys)), so each query row or slot is held relative
+             to its own scale: its largest |kernel - plain| within
+             REL_TOL of its largest |plain|.  The same plain version with
+             DROP_KEYS keys masked out (one K/V tile of the prefill) must
+             miss that bound in every row, which shows a grid, offset or
+             split-K fault that loses a tile would fail.
+A pair that records status "error" fails the phase.  Counts are zeroed
+just before 25b and read just after 25c; they make the kernels'
+"dryrun" launches.  dryrun_phases(dev, smi, ...) runs 25a-c on the CPU
+too, with small configs and shapes given by cfg_for and shape_for.
+
 The last lines are the script's wall, the kernels JSON, the nvidia-smi
 line and the result.
 """
@@ -389,6 +430,22 @@ RG_PREFILL, RG_PREFILL_F32 = 2560, 512
 RG_RING_POS = [100, 500, 2047, 2048, 2049, 2300, 2900, 3000]
 WHISPER_B, WHISPER_F, WHISPER_H = 4, 1500, 20
 FULL = 2048                        # TinyLlama-1.1B's context length
+# phase 25: the dry-run's probes and full-depth runs on the card, and the
+# kernels at its lengths (prefill rows checked; ring positions)
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_PROBES = ([("tinyllama-1.1b", s) for s in DRY_SHAPES]
+              + [("qwen2-vl-7b", "prefill_32k"),
+                 ("deepseek-v2-lite-16b", "long_500k"),
+                 ("recurrentgemma-9b", "long_500k"),
+                 ("whisper-large-v3", "decode_32k")])
+DRY_RUNS = ([("tinyllama-1.1b", s) for s in DRY_SHAPES]
+            + [("recurrentgemma-9b", "long_500k"),
+               ("deepseek-v2-lite-16b", "long_500k")])
+LONG_S, LONG_ROWS, LONG_L, LONG_POS = 32768, 256, 32768, 524287
+SWA_WINDOW = 4096
+# 25d: per row, bf16 rounding is <= 2^-8 of the row's largest |value|;
+# the phase checks that one dropped 64-key tile moves every row by more
+REL_TOL, DROP_KEYS = 1e-2, 64
 # the kernels' designs before their rebuild for the H100, at the phase-4
 # shapes (PERF.md's kernel table: this script and, at L=2048,
 # tools/torch_flash_bench.py on the older tree; H100 80GB HBM3, 700 W)
@@ -528,6 +585,14 @@ def timed_ms(fn, reps=20, host_bound=False):
 
 def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def row_rel_err(a, b, dim):
+    """Per slice of ``dim`` (a query row, a decode slot): the largest
+    |a - b| over the slice's largest |b|."""
+    a = a.float().movedim(dim, 0).flatten(1)
+    b = b.float().movedim(dim, 0).flatten(1)
+    return (a - b).abs().amax(1) / b.abs().amax(1)
 
 
 def kernel_name(mangled):
@@ -1378,6 +1443,218 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
     del kern, ref16, ref32, model, ref_model
     free()
     return launches
+
+
+def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
+                  cfg_for=None, shape_for=None):
+    """Phases 25a-c (module docstring) on ``dev``.  ``cfg_for(arch)`` and
+    ``shape_for(shape)`` replace the probes' and runs' configs and shapes
+    (a small rehearsal on the CPU; 25a always builds the real pairs on
+    meta).  Returns the flash kernels' launches of 25b-c."""
+    from repro_torch.configs import ARCHS, SKIPS
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.roofline import analyze_record
+
+    cuda = dev.type == "cuda"
+    cfg_for = cfg_for or (lambda arch: None)
+    shape_for = shape_for or (lambda s: None)
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    try:
+        # ------------------------------------------------ 25a every pair
+        phase("25a dry-run on meta: 39 pairs x 2 meshes, per-device bytes")
+        before = torch.cuda.memory_allocated(dev) if cuda else 0
+        t0 = time.perf_counter()
+        n = 0
+        for multi_pod in (False, True):
+            for arch in ARCHS:
+                for s in D.SHAPES:
+                    if (arch, s) in SKIPS:
+                        continue
+                    _, _, _, info = D.build_dryrun(
+                        arch, s, multi_pod, cache_policy="attn_hints_seq",
+                        batch=1)
+                    cache = info.get("cache_bytes_per_device")
+                    print(f"  {arch:22s} {s:12s} {info['mesh']:8s} params "
+                          f"{info['param_bytes_per_device'] / 2**20:10.2f} "
+                          f"MiB/device"
+                          + ("" if cache is None else
+                             f", cache {cache / 2**20:10.2f} MiB/device"))
+                    n += 1
+        after = torch.cuda.memory_allocated(dev) if cuda else 0
+        print(f"{n} pair builds in {time.perf_counter() - t0:.1f} s; card "
+              f"allocation {before} B before, {after} B after")
+        assert n == 78 and after == before
+
+        # ---------------------------------------------------- 25b probes
+        phase(f"25b probes at 1 and 2 layer groups on {dev}, full width")
+        FA.reset_launches()
+        probed = {}
+        for arch, s in probes:
+            rec = D.probe_pair(arch, s, False, out_dir, force=True,
+                               device=dev, cfg=cfg_for(arch),
+                               shape=shape_for(s))
+            assert rec["status"] == "ok", (arch, s, rec.get("error"),
+                                           rec.get("trace"))
+            card = rec["card"]
+            assert card["status"] == "ok", (arch, s, card)
+            probed[(arch, s)] = rec
+            row = analyze_record(rec, 256)
+            n1, n2 = card["n1"], card["n2"]
+            peak = (f"; peak {n2['max_memory_allocated'] / 2**30:.2f} GiB "
+                    f"at 2 groups, {card['meta_peak_n2'] / 2**30:.2f} GiB "
+                    "counted on meta" if cuda else "")
+            print(f"  {arch} x {s}: meta {rec['cost']['flops']:.4g} FLOP, "
+                  f"{rec['cost']['bytes_accessed']:.4g} B (x{rec['extrap_mult']:.4g}"
+                  f" groups); card batch {card['batch']} {card['reduced']}: "
+                  f"{n1['ms']:.2f} ms (1 group), {n2['ms']:.2f} ms (2), "
+                  f"full depth ~{card['ms']:.2f} ms{peak}; roofline over "
+                  f"256 devices: compute {row['compute_s']:.6f} s, memory "
+                  f"{row['memory_s']:.6f} s, collectives null, "
+                  f"{row['dominant']}, useful {row['useful_ratio']}; {smi}")
+
+        # ------------------------------------------------ 25c full depth
+        phase(f"25c full-depth runs on {dev}")
+        for arch, s in runs:
+            rec = D.run_pair(arch, s, False, out_dir, force=True, device=dev,
+                             cfg=cfg_for(arch), shape=shape_for(s))
+            assert rec["status"] == "ok", (arch, s, rec.get("error"),
+                                           rec.get("trace"),
+                                           rec.get("bytes_counted"))
+            run = rec["card"]
+            probe = probed.get((arch, s), {}).get("card")
+            versus = ("" if probe is None else
+                      f"; the probe's extrapolation {probe['ms']:.2f} ms at "
+                      f"batch {probe['batch']} "
+                      f"(measured / extrapolated "
+                      f"{run['ms'] / probe['ms']:.3f})")
+            peak = (f", peak {run['max_memory_allocated'] / 2**30:.2f} GiB "
+                    f"({rec['meta_peak'] / 2**30:.2f} GiB counted on meta)"
+                    if cuda else "")
+            print(f"  {arch} x {s}: batch {rec['batch']} {rec['reduced']}, "
+                  f"{run['ms']:.2f} ms per step (median of "
+                  f"{[round(t, 2) for t in run['ms_all']]}){peak}{versus}; "
+                  f"{smi}")
+        launches = dict(FA.LAUNCHES)
+        print(f"launches of phases 25b-c {launches}")
+        if cuda:
+            assert launches["flash_attention"] > 0
+            assert launches["flash_decode"] > 0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def long_kernel_checks(dev, measure, worst):
+    """Phase 25d (module docstring): the flash kernels at the dry-run's
+    lengths against their plain versions, and timed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        decode_chunk
+    from repro_torch.kernels.flash_attention.ref import decode_mask
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    phase("25d the flash kernels at the dry-run's lengths")
+    S, R = LONG_S, LONG_ROWS
+    q = randn(1, S, H, HD, dtype=bf)
+    k, v = randn(1, S, KV, HD, dtype=bf), randn(1, S, KV, HD, dtype=bf)
+
+    def plain_rows(drop=False):
+        """Plain causal attention of the last R query rows over all S
+        keys, in fp32; ``drop`` masks out DROP_KEYS keys from S / 2."""
+        kr = k.float().repeat_interleave(H // KV, dim=2)
+        vr = v.float().repeat_interleave(H // KV, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q[:, S - R:].float(), kr)
+        sc = sc / math.sqrt(HD)
+        qi = torch.arange(S - R, S, device=dev)[:, None]
+        kj = torch.arange(S, device=dev)[None]
+        masked = kj > qi
+        if drop:
+            masked = masked | ((kj >= S // 2) & (kj < S // 2 + DROP_KEYS))
+        sc = sc.masked_fill(masked, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vr)
+
+    out, ref = FA.attention(q, k, v, causal=True)[:, S - R:], plain_rows()
+    e, rel = max_err(out, ref), row_rel_err(out, ref, 1).max().item()
+    miss = row_rel_err(plain_rows(drop=True), ref, 1).min().item()
+    del out, ref
+    print(f"flash_attention bf16 B=1 S={S} H={H} KV={KV} hd={HD} causal, "
+          f"last {R} rows: max_abs_err {e:.3e}; per row, max err / max "
+          f"|plain| {rel:.3e} (tol {REL_TOL}); {DROP_KEYS} keys dropped "
+          f"give >= {miss:.3e}")
+    assert miss > REL_TOL, "25d's bound cannot see a dropped tile"
+    assert rel <= REL_TOL, "flash_attention disagrees at S=32768"
+    worst["flash_attention"] = max(worst["flash_attention"], e)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+
+    def library():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    measure("flash_attention_32k",
+            f"bf16, causal, B=1 S={S} H={H} KV={KV} hd={HD} (plain: the "
+            f"last {R} rows)",
+            lambda: FA.attention(q, k, v, causal=True), plain_rows, library,
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * H * HD * S * (S + 1) // 2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # decode: 8 slots on a 32768-row cache, positions at chunk edges; the
+    # rings at positions up to 524287
+    L = LONG_L
+    c = decode_chunk(B, L, KV)
+    cases = [("flash_decode_32k", H, KV, HD, L, 0,
+              [L - 1, L - 2, c - 1, c, 2 * c, L - c, L - c - 1, 20000]),
+             ("flash_decode_ring_hd64", H, KV, HD, SWA_WINDOW, SWA_WINDOW,
+              [LONG_POS - i * 4099 for i in range(8)]),
+             ("flash_decode_ring_hd256", RG_H, 1, RG_HD, RG_WINDOW,
+              RG_WINDOW, [LONG_POS - i * 2053 for i in range(8)])]
+    for name, h, kv, hd, L_, window, positions in cases:
+        qd = randn(B, 1, h, hd, dtype=bf)
+        ck, cv = (randn(B, L_, kv, hd, dtype=bf) for _ in range(2))
+        pos = torch.tensor(positions, device=dev, dtype=torch.int32)
+        out = FA.decode(qd, ck, cv, pos, window=window)
+        ref = FA.decode_ref(qd, ck, cv, pos, window=window)
+        e, rel = max_err(out, ref), row_rel_err(out, ref, 0).max().item()
+        # the plain version without cache rows [0, DROP_KEYS): the rest as
+        # a plain cache (a ring's slots are all written at these positions)
+        dropped = FA.decode_ref(qd, ck[:, DROP_KEYS:], cv[:, DROP_KEYS:],
+                                torch.full_like(pos, L_ - DROP_KEYS - 1)
+                                if window else pos - DROP_KEYS)
+        miss = row_rel_err(dropped, ref, 0).min().item()
+        mask = decode_mask(pos, L_, window)
+        print(f"flash_decode bf16 B={B} L={L_} H={h} KV={kv} hd={hd} "
+              f"window={window} pos={positions}: max_abs_err {e:.3e}; per "
+              f"slot, max err / max |plain| {rel:.3e} (tol {REL_TOL}); "
+              f"{DROP_KEYS} keys dropped give >= {miss:.3e}")
+        assert miss > REL_TOL, "25d's bound cannot see a dropped tile"
+        assert rel <= REL_TOL, f"{name} disagrees with its plain version"
+        worst["flash_decode"] = max(worst["flash_decode"], e)
+        keys = int(mask.sum())
+        ckt, cvt, qdt = (t.transpose(1, 2).contiguous()
+                         for t in (ck, cv, qd))
+        measure(name, f"bf16, B={B} L={L_} H={h} KV={kv} hd={hd} window "
+                f"{window}, pos {positions[-1]}-{positions[0]}",
+                lambda: FA.decode(qd, ck, cv, pos, window=window),
+                lambda: FA.decode_ref(qd, ck, cv, pos, window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qdt, ckt, cvt, attn_mask=mask[:, None, None, :],
+                    enable_gqa=True),
+                2 * (2 * qd.numel() + 2 * keys * kv * hd) + 4 * B,
+                4 * h * hd * keys)
+        del qd, ck, cv, ckt, cvt, qdt, mask, out, ref, dropped
+    torch.cuda.empty_cache()
 
 
 def recurrent_phases(dev, smi, rg, rwkv, whisper, prompt=PROMPT, new=NEW,
@@ -2976,6 +3253,10 @@ def main() -> int:
                                           get_config("whisper-large-v3"))
     print(f"launches of phases 22-24 {recurrent_launches}")
 
+    # ------------------------------------------------------- 25 the dry-run
+    dryrun_launches = dryrun_phases(dev, smi)
+    long_kernel_checks(dev, measure, worst)
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -3009,13 +3290,17 @@ def main() -> int:
                       "deepseek": family_launches["deepseek"].get(name, 0),
                       "qwen2_vl": family_launches["qwen2_vl"].get(name, 0),
                       **{path: got.get(name, 0)
-                         for path, got in recurrent_launches.items()}}
+                         for path, got in recurrent_launches.items()},
+                      "dryrun": dryrun_launches.get(name, 0)}
                for name in sources}
     # the flash kernels at the slice's new shapes (phase 4's lines)
     shapes = {"flash_attention": ("flash_attention_hd256",
                                   "flash_attention_train_hd256",
-                                  "flash_attention_whisper"),
-              "flash_decode": ("flash_decode_hd256",)}
+                                  "flash_attention_whisper",
+                                  "flash_attention_32k"),
+              "flash_decode": ("flash_decode_hd256", "flash_decode_32k",
+                               "flash_decode_ring_hd64",
+                               "flash_decode_ring_hd256")}
     kernels = [dict(name=n, route="cuda", source=sources[n][0],
                     replaces=sources[n][1],
                     launches=sum(by_path[n].values()),
@@ -3037,7 +3322,8 @@ def main() -> int:
     assert by_path["onebit_encode_ef"]["elastic"] > 0
     assert by_path["flash_attention"]["hybrid"] > 0
     assert by_path["onebit_encode_ef"]["hybrid"] > 0
-    for path in ("tp_serve", "qwen2_vl", "recurrentgemma", "whisper"):
+    for path in ("tp_serve", "qwen2_vl", "recurrentgemma", "whisper",
+                 "dryrun"):
         assert by_path["flash_attention"][path] > 0
         assert by_path["flash_decode"][path] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "

@@ -16,12 +16,13 @@ into the one dimension a leaf shards over the tensor axis: the hybrid
 mesh planner (``parallel.mesh_plan``) cuts each logical device's block
 on it.
 
-The reference's decode-attention and MoE sharding hints
+``data_axes`` names the axes that shard a batch (the dry-run's specs
+read it).  The reference's ``batch_spec`` has no caller in either
+package and is not ported.  Its decode-attention and MoE sharding hints
 (``set_attn_decode_hints``, ``attn_decode_constraint``,
-``set_moe_sharding_hints``, ``moe_constraint``) and ``data_axes`` /
-``batch_spec`` are requests to XLA's partitioner; the port's logical
-devices have no partitioner to ask, so they are not ported (ROADMAP
-queue A item 8 records the decision).
+``set_moe_sharding_hints``, ``moe_constraint``) are requests to XLA's
+partitioner; the port's logical devices have no partitioner to ask, so
+they are not ported (ROADMAP records the decision).
 """
 from __future__ import annotations
 
@@ -83,9 +84,11 @@ def _trailing_spec(names: list, ndim: int) -> Tuple[Optional[str], ...]:
     return (None,) * min(ndim, 2)
 
 
-def param_specs(params, policy: str = "fsdp"):
+def param_specs(params, multi_pod: bool = False, policy: str = "fsdp"):
     """A tree like ``params`` whose leaves are each tensor's spec (a tuple
-    of axis names or None, one per dimension).
+    of axis names or None, one per dimension).  ``multi_pod`` is the
+    reference's argument; as there, the specs do not depend on it (the
+    pod axis shards only batches).
 
     policy:
       fsdp    : weights sharded over both data (ZeRO-3) and model (TP).
@@ -124,3 +127,8 @@ def model_axis_dim(path, ndim: int) -> Optional[int]:
             return lead + i
     return None
 
+
+
+def data_axes(multi_pod: bool = False):
+    """Mesh axes that shard the batch dimension."""
+    return ("pod", "data") if multi_pod else ("data",)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.backend import on_card
 from repro_torch.kernels.flash_attention.flash_attention import (
     DTYPE_CODES, LAUNCHES, flash_attention, flash_decode, reset_launches)
 from repro_torch.kernels.flash_attention.ref import attention_ref, decode_ref
@@ -48,6 +49,14 @@ def _check(q, kv, what: str) -> None:
                              "aligned tensors")
 
 
+def _flash(q, k, v, causal: bool, window: int):
+    """The prefill kernel; on ``meta`` (``backend.meta_as_card``) its
+    output's shape, which is all it allocates."""
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B, S, H, hd]; k, v [B, S, KV, hd] (KV divides H) -> [B, S, H, hd].
     ``window`` applies only with ``causal`` (as in the Pallas kernel)."""
@@ -55,8 +64,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     if k.shape[1] != q.shape[1]:
         raise ValueError("attention: q and k/v need one sequence length")
     window = window if causal else 0
-    if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=causal, window=window)
+    if on_card(q):
+        return _flash(q, k, v, causal, window)
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -68,7 +77,7 @@ class _AttentionGrad(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return _flash(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, grad):
@@ -88,7 +97,7 @@ def attention_grad(q, k, v, *, causal: bool = True, window: int = 0):
     if k.shape[1] != q.shape[1]:
         raise ValueError("attention_grad: q and k/v need one sequence length")
     window = window if causal else 0
-    if q.device.type == "cuda":
+    if on_card(q):
         return _AttentionGrad.apply(q, k, v, causal, window)
     return attention_ref(q, k, v, causal=causal, window=window)
 
@@ -100,7 +109,9 @@ def decode(q, ck, cv, pos, *, window: int = 0):
     if q.shape[1] != 1 or pos.shape != (q.shape[0],):
         raise ValueError(f"decode: want q [B,1,H,hd] and pos [B], got "
                          f"{tuple(q.shape)} and {tuple(pos.shape)}")
-    if q.device.type == "cuda":
+    if q.device.type == "meta" and on_card(q):
+        return torch.empty_like(q)          # the kernel's output shape
+    if on_card(q):
         pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
         return flash_decode(q, ck, cv, pos, window=window)
     return decode_ref(q, ck, cv, pos, window=window)

@@ -1,0 +1,155 @@
+"""Cost and memory counts of one step, the counterpart of the JAX
+package's ``launch/hlo_analysis.py``.
+
+The reference reads XLA's compiled artifact: ``cost_analysis()`` for HLO
+FLOPs and bytes, ``memory_analysis()`` for buffer sizes, and the HLO text
+for collective bytes.  PyTorch runs eagerly and has no HLO, so the port
+counts the step's aten operations as they run on the ``meta`` device
+(shapes only, nothing allocated):
+
+  flops           ``torch.utils.flop_counter.FlopCounterMode``: matmul,
+                  bmm, convolution and attention products.  On meta the
+                  attention takes its plain version (``kernels.backend``),
+                  so the count is the plain version's products, the
+                  masked blocks that the flash kernel skips included.
+  bytes_accessed  ``ByteCounter``: each aten op's input and output bytes,
+                  views counting 0 — the same unfused upper bound as the
+                  reference's HLO bytes.
+  peak bytes      ``MetaMemory``: the most bytes of meta storage alive at
+                  once, under ``kernels.backend.meta_as_card`` (the flash
+                  entries allocate only their outputs, as on the card).
+                  It is the byte count the dry-run decides a card run's
+                  batch by, before the run; the card run itself reads
+                  ``torch.cuda.max_memory_allocated``.
+
+Collectives: the port's devices are logical and it has no partitioner,
+so one card's step issues no collective and a record's ``collectives``
+is null.  The traffic model of the reference (``_traffic``,
+``_group_size``) is kept for the ``torch.distributed`` backend; the HLO
+text parser ``collective_bytes`` has nothing to parse and is not ported.
+
+  op               result bytes R, group size S   traffic per device
+  all-reduce       R                               2 (S-1)/S * R
+  all-gather       R (the gathered tensor)         (S-1)/S * R
+  reduce-scatter   R (the shard)                   (S-1) * R   (input = S*R)
+  all-to-all       R                               (S-1)/S * R
+  collective-permute R                             R
+"""
+from __future__ import annotations
+
+import re
+import weakref
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import FlopCounterMode
+
+# ops whose output shares its input's storage though the schema says
+# otherwise (matmul's reshapes, autograd's detach)
+_ALIASES = {"aten::_unsafe_view", "aten::detach", "aten::alias",
+            "aten::lift_fresh"}
+
+
+def _tensors(tree):
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ByteCounter(TorchDispatchMode):
+    """Sums each aten op's input and output bytes (an in-place op reads
+    and writes its output: both count); views count 0."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not (func.is_view or func._schema.name in _ALIASES):
+            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
+            self.bytes += sum(_nbytes(t) for t in _tensors(out))
+        return out
+
+
+class MetaMemory(TorchDispatchMode):
+    """Live and peak bytes of the meta storages the ops under it make
+    (factories included: build the state inside the mode).  A storage
+    counts once, from the op that made it until its last tensor dies."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+        self._ids = set()
+
+    def _free(self, key, n):
+        self._ids.discard(key)
+        self.live -= n
+
+    def track(self, t: torch.Tensor) -> None:
+        if t.device.type != "meta":
+            return
+        st = t.untyped_storage()
+        if id(st) in self._ids:
+            return
+        n = st.nbytes()
+        self._ids.add(id(st))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, id(st), n)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            self.track(t)
+        return out
+
+
+def count_cost(fn: Callable, *args) -> Tuple[Dict[str, float], object]:
+    """Run ``fn(*args)`` (meta tensors) counting its FLOPs and bytes.
+    Returns ({"flops", "bytes_accessed"}, fn's result)."""
+    flops = FlopCounterMode(display=False)
+    nbytes = ByteCounter()
+    with flops, nbytes:
+        out = fn(*args)
+    return {"flops": float(flops.get_total_flops()),
+            "bytes_accessed": float(nbytes.bytes)}, out
+
+
+# -------------------------------------------------- collective traffic model
+# No caller yet: a one-card record's ``collectives`` is null.  The
+# reference's per-collective model is kept here, with parity tests, for the
+# torch.distributed backend that will fill that field.
+_GROUPS_IOTA_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_GROUPS_LIST_RE = re.compile(r"replica_groups=\{\{([0-9, ]+)\}")
+
+
+def _group_size(line: str) -> int:
+    """Group size S of a collective from its replica_groups (iota form
+    ``[G,S]<=[N]`` or an explicit ``{{...}}`` list); 2 when unknown."""
+    m = _GROUPS_IOTA_RE.search(line)
+    if m:
+        return max(int(m.group(2)), 1)
+    m = _GROUPS_LIST_RE.search(line)
+    if m:
+        return max(len(m.group(1).split(",")), 1)
+    return 2    # unknown: conservative (factor (S-1)/S ~ 1/2 .. 1)
+
+
+def _traffic(op: str, result_bytes: int, s: int) -> float:
+    """Per-device ring traffic of one collective (module docstring)."""
+    if s <= 1:
+        return 0.0
+    if op == "all-reduce":
+        return 2.0 * (s - 1) / s * result_bytes
+    if op == "all-gather":
+        return (s - 1) / s * result_bytes
+    if op == "reduce-scatter":
+        return float(s - 1) * result_bytes
+    if op == "all-to-all":
+        return (s - 1) / s * result_bytes
+    return float(result_bytes)      # collective-permute

@@ -23,7 +23,8 @@ class Model:
     cfg: ModelConfig
     init: Callable          # (seed=0, dtype=..., device=...,
                             #  vocab_pad_multiple=1) -> params
-    loss_fn: Callable       # (params, batch, compute_dtype=...) -> (loss, metrics)
+    loss_fn: Callable       # (params, batch, compute_dtype=..., remat=False)
+                            # -> (loss, metrics)
     leaf_layout: Callable   # params -> LeafLayout (the JAX package's leaves)
     forward: Optional[Callable]  # (params, tokens, **kw) -> (logits, aux, caches | None)
     init_cache: Callable    # (batch, max_len, dtype, **kw) -> caches
@@ -42,15 +43,17 @@ def build_model(cfg: ModelConfig) -> Model:
             init=lambda seed=0, dtype=torch.float32, device="cpu",
                 vocab_pad_multiple=1:
                 W.init_params(cfg, seed, dtype, device, vocab_pad_multiple),
-            loss_fn=lambda params, batch, compute_dtype=torch.bfloat16:
-                W.loss_fn(params, cfg, batch, compute_dtype),
+            loss_fn=lambda params, batch, compute_dtype=torch.bfloat16,
+                remat=False:
+                W.loss_fn(params, cfg, batch, compute_dtype, remat),
             leaf_layout=lambda params: W.leaf_layout(cfg, params),
             forward=None,
             init_cache=lambda batch, max_len, dtype=torch.bfloat16, **kw:
                 W.init_cache(cfg, batch, max_len, dtype, **kw),
             decode_step=lambda params, caches, token, pos,
-                compute_dtype=torch.bfloat16:
-                W.decode_step(params, cfg, caches, token, pos, compute_dtype),
+                compute_dtype=torch.bfloat16, **kw:
+                W.decode_step(params, cfg, caches, token, pos, compute_dtype,
+                              **kw),
             prefill=None,
         )
     from repro_torch.models import transformer as T
@@ -60,8 +63,9 @@ def build_model(cfg: ModelConfig) -> Model:
         init=lambda seed=0, dtype=torch.float32, device="cpu",
             vocab_pad_multiple=1:
             T.init_params(cfg, seed, dtype, device, vocab_pad_multiple),
-        loss_fn=lambda params, batch, compute_dtype=torch.bfloat16:
-            T.loss_fn(params, cfg, batch, compute_dtype),
+        loss_fn=lambda params, batch, compute_dtype=torch.bfloat16,
+            remat=False:
+            T.loss_fn(params, cfg, batch, compute_dtype, remat),
         leaf_layout=lambda params: T.leaf_layout(cfg, params),
         forward=lambda params, tokens, **kw: T.forward(params, cfg, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, **kw:

@@ -14,6 +14,14 @@ import torch
 import torch.nn.functional as F
 
 
+def _generator(device, seed: int) -> torch.Generator:
+    """The init's generator on ``device``; a ``meta`` init (shapes only,
+    the dry-run's) draws nothing and takes a CPU generator."""
+    dev = torch.device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev
+                           ).manual_seed(seed)
+
+
 def to_tensor(a):
     """A leaf of a parameter tree from the JAX package (numpy, or tensors
     a checkpoint load made) as a writable CPU tensor of its dtype."""

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
@@ -34,9 +35,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.common import (cross_entropy, dense, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       to_tensor)
+from repro_torch.models.common import (_generator, cross_entropy, dense,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init, to_tensor)
 from repro_torch.models.moe import moe_apply, moe_init
 
 KINDS = ("attn", "local", "rglru", "rwkv")
@@ -151,7 +152,7 @@ def _tp_sum(partials):
 
 
 def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window_override,
-                  tp_axis=None):
+                  tp_axis=None, moe_per_row=True):
     """One-token decode for one layer.  Returns (x, cache): attention
     caches are written in place, a recurrent layer returns its new state.
 
@@ -181,7 +182,7 @@ def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window_override,
     x = x + out
     h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
     if use_moe:
-        out, _ = moe_apply(p["moe"], h, cfg, per_row=True)
+        out, _ = moe_apply(p["moe"], h, cfg, per_row=moe_per_row)
     elif tp_axis is None:
         out = mlp_apply(p["mlp"], h, cfg.act)
     else:
@@ -201,7 +202,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     The draws differ from ``jax.random``'s; tests carry weights over with
     ``from_jax_params``."""
     plan_segments(cfg)                                 # rejects unknown kinds
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = _generator(device, seed)
     V, d = cfg.padded_vocab(vocab_pad_multiple), cfg.d_model
 
     def normal(*shape):
@@ -288,20 +289,23 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 # ------------------------------------------------------------------- forward
-def forward(params, cfg: ModelConfig, tokens, positions=None,
-            vision_embeds=None, compute_dtype=torch.bfloat16,
-            return_cache: bool = False, window_override: int = 0):
-    """Full-sequence forward.  Returns (logits, aux, caches | None): aux is
-    the sum of the MoE layers' load-balance losses (0 without MoE), caches
-    each layer's state (``{k, v}``, MLA's ``{c_kv, k_rope}`` or a
-    recurrent layer's final state).
+def _group_forward(ps, cfg: ModelConfig, sigs, x, aux_total, positions,
+                   window_override):
+    """Layers ``ps`` (one layer group, or one plain layer) in order.
+    Returns (x, aux_total, states)."""
+    states = []
+    for p, sig in zip(ps, sigs):
+        x, aux, st = _layer_forward(p, cfg, sig, x, positions,
+                                    window_override)
+        if aux is not None:
+            aux_total = aux_total + aux
+        states.append(st)
+    return x, aux_total, states
 
-    tokens [B, S] int.  positions: [B, S] ([B, 3, S] with M-RoPE; the
-    default broadcasts ``arange(S)`` to all three rows).  vision_embeds
-    [B, P, d]: the vision stub, written over the leading P token slots.
-    window_override: sliding-window mask for plain attention layers — the
-    prefill-side twin of ``decode_step``'s ring-buffer override (``local``
-    layers always mask to ``cfg.window``)."""
+
+def _hidden(params, cfg: ModelConfig, tokens, positions, vision_embeds,
+            compute_dtype, return_cache, window_override, remat):
+    """Embedding and layers: (x before the final norm, aux, caches)."""
     B, S = tokens.shape
     x = params["embed"].to(compute_dtype)[tokens]
     if vision_embeds is not None:
@@ -313,24 +317,66 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
             positions = positions[:, None].expand(B, 3, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: List[Any] = []
-    for p, sig in zip(params["layers"], _layer_sigs(cfg)):
-        x, aux, st = _layer_forward(p, cfg, sig, x, positions,
-                                    window_override)
-        if aux is not None:
-            aux_total = aux_total + aux
-        if return_cache:
-            caches.append(st)
-    return (_logits(params, cfg, x), aux_total,
-            caches if return_cache else None)
+    layers, i = params["layers"], 0
+    for seg in plan_segments(cfg):
+        if seg[0] == "plain":
+            groups, sigs = [layers[i:i + 1]], (seg[1],)
+        else:
+            _, sigs, n_groups = seg
+            P = len(sigs)
+            groups = [layers[i + g * P:i + (g + 1) * P]
+                      for g in range(n_groups)]
+        for ps in groups:
+            if remat and seg[0] == "scan" and not return_cache:
+                # per-layer-group activation remat (the reference's
+                # jax.checkpoint of its scan body)
+                x, aux_total = checkpoint(
+                    lambda ps_, x_, a_, _sigs=sigs: _group_forward(
+                        ps_, cfg, _sigs, x_, a_, positions,
+                        window_override)[:2],
+                    ps, x, aux_total, use_reentrant=False)
+            else:
+                x, aux_total, sts = _group_forward(
+                    ps, cfg, sigs, x, aux_total, positions, window_override)
+                if return_cache:
+                    caches += sts
+            i += len(ps)
+    return x, aux_total, caches if return_cache else None
 
 
-def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16):
+def forward(params, cfg: ModelConfig, tokens, positions=None,
+            vision_embeds=None, compute_dtype=torch.bfloat16,
+            return_cache: bool = False, window_override: int = 0,
+            remat: bool = False):
+    """Full-sequence forward.  Returns (logits, aux, caches | None): aux is
+    the sum of the MoE layers' load-balance losses (0 without MoE), caches
+    each layer's state (``{k, v}``, MLA's ``{c_kv, k_rope}`` or a
+    recurrent layer's final state).
+
+    tokens [B, S] int.  positions: [B, S] ([B, 3, S] with M-RoPE; the
+    default broadcasts ``arange(S)`` to all three rows).  vision_embeds
+    [B, P, d]: the vision stub, written over the leading P token slots.
+    window_override: sliding-window mask for plain attention layers — the
+    prefill-side twin of ``decode_step``'s ring-buffer override (``local``
+    layers always mask to ``cfg.window``).
+
+    remat: recompute each layer group of ``plan_segments``' scan segment
+    in the backward (``torch.utils.checkpoint``, non-reentrant; plain
+    layers are not recomputed, as in the reference)."""
+    x, aux, caches = _hidden(params, cfg, tokens, positions, vision_embeds,
+                             compute_dtype, return_cache, window_override,
+                             remat)
+    return _logits(params, cfg, x), aux, caches
+
+
+def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16,
+            remat: bool = False):
     """Next-token CE + the MoE aux loss.  batch: {tokens, labels[, mask,
     positions, vision_embeds]}.  Returns (loss, {"ce", "aux"})."""
     logits, aux, _ = forward(params, cfg, batch["tokens"],
                              positions=batch.get("positions"),
                              vision_embeds=batch.get("vision_embeds"),
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, remat=remat)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
                        vocab_size=cfg.vocab_size)
     return ce + aux, {"ce": ce, "aux": aux}
@@ -340,13 +386,13 @@ def prefill(params, cfg: ModelConfig, tokens, positions=None,
             vision_embeds=None, compute_dtype=torch.bfloat16,
             window_override: int = 0):
     """Forward over the prompt: last-token logits [B, 1, Vpad] and the
-    per-layer states."""
-    logits, _, caches = forward(params, cfg, tokens, positions=positions,
-                                vision_embeds=vision_embeds,
-                                compute_dtype=compute_dtype,
-                                return_cache=True,
-                                window_override=window_override)
-    return logits[:, -1:], caches
+    per-layer states.  Only the last position goes through the final norm
+    and the output projection (the reference projects every position and
+    keeps the last: the same values row by row, without the [B, S, Vpad]
+    logits, 20 GB per row at S=32768 and a 152k vocab)."""
+    x, _, caches = _hidden(params, cfg, tokens, positions, vision_embeds,
+                           compute_dtype, True, window_override, False)
+    return _logits(params, cfg, x[:, -1:]), caches
 
 
 # --------------------------------------------------------------------- decode
@@ -386,7 +432,7 @@ def paged_layers(cfg: ModelConfig, window_override: int = 0) -> List[bool]:
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos,
                 compute_dtype=torch.bfloat16, window_override: int = 0,
-                tp_axis: Optional[str] = None):
+                tp_axis: Optional[str] = None, moe_per_row: bool = True):
     """One decode step.  token [B, 1] int; pos [B] int, the position of
     each row's token (rows decode at their own positions).  Updates the
     attention caches in place and puts each recurrent layer's new state
@@ -399,7 +445,12 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos,
     every cache leaf is rank-major ``[tp, ..., KV/tp, hd]``, and ``cfg``
     is the rank-local config (``num_heads/tp``, ``num_kv_heads/tp``), as
     the JAX package's engine passes it inside its ``shard_map``.  The
-    value names the axis; the port's tensor axis is always dimension 0."""
+    value names the axis; the port's tensor axis is always dimension 0.
+
+    moe_per_row: each row routes alone (the serving engine's slots, as
+    the reference's engine vmaps its decode over them); False routes the
+    B tokens as one dispatch group with one capacity, as the reference's
+    ``decode_step`` called on a batch does (the dry-run's serve step)."""
     if tp_axis is not None and (
             cfg.moe or cfg.attn_type == "mla"
             or any(k not in ("attn", "local") for k in cfg.layer_kinds)):
@@ -410,7 +461,7 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos,
     x = params["embed"].to(compute_dtype)[token]
     for i, (p, sig) in enumerate(zip(params["layers"], _layer_sigs(cfg))):
         x, caches[i] = _layer_decode(p, cfg, sig, x, pos, caches[i],
-                                     window_override, tp_axis)
+                                     window_override, tp_axis, moe_per_row)
     return _logits(params, cfg, x), caches
 
 

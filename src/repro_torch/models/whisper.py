@@ -26,13 +26,14 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import LeafLayout, leaf_paths, tree_map
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (cross_entropy, dense, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       to_tensor)
+from repro_torch.models.common import (_generator, cross_entropy, dense,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init, to_tensor)
 
 DEC_POSITIONS = 448
 STACKS = ("dec_layers", "enc_layers")
@@ -72,7 +73,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Seeded init with the JAX init's distributions (embed ``normal *
     0.02``, dec_pos ``normal * 0.01``, dense weights ``normal / sqrt(in)``,
     zero biases, fp32 norms); the draws differ from ``jax.random``'s."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = _generator(device, seed)
     V, d = cfg.padded_vocab(vocab_pad_multiple), cfg.d_model
 
     def normal(*shape):
@@ -126,19 +127,33 @@ def leaf_layout(cfg: ModelConfig, params) -> LeafLayout:
     return LeafLayout(tuple(names), tuple(parts), tuple(stacked))
 
 
-def encode(params, cfg: ModelConfig, frames, compute_dtype=torch.bfloat16):
+def _layers(body, layer_params, x, remat: bool):
+    """``x = body(p, x)`` over the layers; ``remat`` recomputes each
+    layer in the backward (the reference's ``jax.checkpoint`` of its scan
+    body; non-reentrant ``torch.utils.checkpoint``)."""
+    for p in layer_params:
+        x = (checkpoint(body, p, x, use_reentrant=False) if remat
+             else body(p, x))
+    return x
+
+
+def encode(params, cfg: ModelConfig, frames, compute_dtype=torch.bfloat16,
+           remat: bool = False):
     """frames [B, n_frames, d_model] (the conv front end's output)."""
     B, Fr, _ = frames.shape
     x = frames.to(compute_dtype) + _sinusoids(
         Fr, cfg.d_model, frames.device)[None].to(compute_dtype)
     pos = torch.arange(Fr, device=frames.device)[None].expand(B, Fr)
-    for p in params["enc_layers"]:
+
+    def body(p, x):
         h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
         out, _ = attn.attention_forward(p["attn"], h, pos, cfg, causal=False,
                                         use_rope=False)
         x = x + out
         h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
+        return x + mlp_apply(p["mlp"], h, cfg.act)
+
+    x = _layers(body, params["enc_layers"], x, remat)
     return norm_apply(cfg.norm, params["enc_ln_post"], x, cfg.norm_eps)
 
 
@@ -155,13 +170,14 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def decode_train(params, cfg: ModelConfig, tokens, enc_out,
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, remat: bool = False):
     """Teacher-forced decoder forward.  tokens [B, S] -> logits."""
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = params["embed"].to(compute_dtype)[tokens]
     x = x + _dec_positions(params, pos[:1], compute_dtype)
-    for p in params["dec_layers"]:
+
+    def body(p, x):
         h = norm_apply(cfg.norm, p["ln1"], x, cfg.norm_eps)
         out, _ = attn.attention_forward(p["self_attn"], h, pos, cfg,
                                         causal=True, use_rope=False)
@@ -171,16 +187,18 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
                                         kv_x=enc_out)
         x = x + out
         h = norm_apply(cfg.norm, p["ln2"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
-    return _logits(params, cfg, x)
+        return x + mlp_apply(p["mlp"], h, cfg.act)
+
+    return _logits(params, cfg, _layers(body, params["dec_layers"], x, remat))
 
 
-def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16):
+def loss_fn(params, cfg: ModelConfig, batch, compute_dtype=torch.bfloat16,
+            remat: bool = False):
     """batch: {frames [B, F, d], tokens [B, S], labels [B, S][, mask]}.
     Returns (ce, {"ce", "aux": 0})."""
-    enc_out = encode(params, cfg, batch["frames"], compute_dtype)
+    enc_out = encode(params, cfg, batch["frames"], compute_dtype, remat)
     logits = decode_train(params, cfg, batch["tokens"], enc_out,
-                          compute_dtype)
+                          compute_dtype, remat)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
                        vocab_size=cfg.vocab_size)
     return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}

@@ -74,6 +74,13 @@ class Cell(NamedTuple):
     backend: str
 
 
+# the acceptance matrix: every one of these cells must stay registered
+# and device-executable (the reference's set, cell for cell)
+ACCEPTANCE_CELLS = frozenset(
+    Cell(s, a, c, "device")
+    for s in MATRIX_SYNCS for a in ARCHS for c in MATRIX_METHODS)
+
+
 def registered_cells() -> List[Cell]:
     """Every supported Strategy cell: the reference's registry, cell for
     cell."""
@@ -426,6 +433,10 @@ class Engine:
             m["dropped_updates"] = self.inner.dropped_updates()
         m.update(self.inner.extra_metrics())
         return m
+
+    def extra_metrics(self) -> Dict[str, Any]:
+        """The backend's own additions to ``metrics()``."""
+        return self.inner.extra_metrics()
 
     # --------------------------------------------------- elastic interface
     # (elastic.recovery drives these; every backend implements them)

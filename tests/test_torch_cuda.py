@@ -1084,3 +1084,89 @@ def test_whisper_on_card_matches_cpu(cuda):
     assert _err(outs[0][0], outs[1][0]) <= 1e-4
     assert _err(outs[0][1], outs[1][1]) <= 1e-4
     assert outs[0][2] == outs[1][2]
+
+
+# ------------------------------------------- the dry-run's lengths (25d)
+# Outputs at these lengths are small (std about sqrt(e / keys)), so each
+# query row or slot is held to its own scale: max |kernel - plain| within
+# REL[dtype] of its max |plain|.  The plain version with DROP keys (one
+# K/V tile of the bf16 prefill) masked out must miss that bound in every
+# row, so a kernel that loses a tile fails.
+REL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+DROP = 64
+
+
+def _row_rel(a, b, dim):
+    """Per slice of ``dim``: max |a - b| over the slice's max |b|."""
+    a = a.float().movedim(dim, 0).flatten(1)
+    b = b.float().movedim(dim, 0).flatten(1)
+    return (a - b).abs().amax(1) / b.abs().amax(1)
+
+
+def test_flash_prefill_last_rows_at_32k(cuda):
+    """The bf16 prefill at S=32768 (TinyLlama's heads, causal): its last
+    256 query rows against plain fp32 attention of those rows over all
+    keys (the whole plain product does not fit)."""
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    S, R, H, KV, hd = 32768, 256, 32, 4, 64
+    q = _randn(gen, torch.bfloat16, 1, S, H, hd)
+    k, v = (_randn(gen, torch.bfloat16, 1, S, KV, hd) for _ in range(2))
+    out = FA.attention(q, k, v, causal=True)[:, S - R:]
+    kr = k.float().repeat_interleave(H // KV, dim=2)
+    vr = v.float().repeat_interleave(H // KV, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q[:, S - R:].float(), kr) / hd ** 0.5
+    qi = torch.arange(S - R, S, device=cuda)[:, None]
+    kj = torch.arange(S, device=cuda)[None]
+    sc = sc.masked_fill(kj > qi, float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vr)
+    dropped = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc.masked_fill(
+        (kj >= S // 2) & (kj < S // 2 + DROP), float("-inf")), -1), vr)
+    assert _err(out, ref) <= TOLS[torch.bfloat16]
+    assert _row_rel(out, ref, 1).max() <= REL[torch.bfloat16] \
+        < _row_rel(dropped, ref, 1).min()
+
+
+def _decode_checks(q, ck, cv, pos, window, dtype):
+    """The kernel against decode_ref, and decode_ref without cache rows
+    [0, DROP) (the rest as a plain cache; a ring's slots are all written
+    at the positions used here) against decode_ref."""
+    ref = FA.decode_ref(q, ck, cv, pos, window=window)
+    out = FA.decode(q, ck, cv, pos, window=window)
+    L = ck.shape[1]
+    dropped = FA.decode_ref(q, ck[:, DROP:], cv[:, DROP:],
+                            torch.full_like(pos, L - DROP - 1) if window
+                            else pos - DROP)
+    assert _err(out, ref) <= TOLS[dtype]
+    assert _row_rel(out, ref, 0).max() <= REL[dtype] \
+        < _row_rel(dropped, ref, 0).min()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_32k(cuda, dtype):
+    """8 slots on a 32768-row cache, positions at split-K chunk edges."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        decode_chunk
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    B, L, H, KV, hd = 8, 32768, 32, 4, 64
+    c = decode_chunk(B, L, KV)
+    pos = torch.tensor([L - 1, L - 2, c - 1, c, 2 * c, L - c, L - c - 1,
+                        20000], device=cuda)
+    q = _randn(gen, dtype, B, 1, H, hd)
+    ck, cv = (_randn(gen, dtype, B, L, KV, hd) for _ in range(2))
+    _decode_checks(q, ck, cv, pos, 0, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,window", [(32, 4, 64, 4096),
+                                            (16, 1, 256, 2048)])
+def test_flash_ring_decode_at_524287(cuda, dtype, H, KV, hd, window):
+    """The long_500k rings: a 4096-row SWA ring (hd 64) and
+    RecurrentGemma's 2048-row ring (hd 256) read at positions up to
+    524287."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    B = 8
+    pos = torch.tensor([524287 - i * (window + 3) for i in range(B)],
+                       device=cuda)
+    q = _randn(gen, dtype, B, 1, H, hd)
+    ck, cv = (_randn(gen, dtype, B, window, KV, hd) for _ in range(2))
+    _decode_checks(q, ck, cv, pos, window, dtype)
