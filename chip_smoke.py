@@ -392,6 +392,35 @@ just before 25b and read just after 25c; they make the kernels'
 "dryrun" launches.  dryrun_phases(dev, smi, ...) runs 25a-c on the CPU
 too, with small configs and shapes given by cfg_for and shape_for.
 
+Phase 26 is the worker axis over torch.distributed, one process per
+worker (repro_torch.launch.dist.spawn; core.collectives.DistAxis):
+ 26a. gloo   bsp/ring/onebit@k (wire="measured") and bsp/allreduce/onebit@k
+             (modeled), fp32, TF32 off, 3 steps of phase 7's batches, over
+             k Gloo ranks on the one card (each rank's gradient on the
+             card with the kernels, the hops staged through pinned host
+             memory): k = 2 at full width and k = 4 at 2 layers (four
+             full-width ranks do not fit the card), the latter also
+             bsp/ring/{dgc,terngrad,qsgd}@4 measured.  Each against the
+             logical engine run just before in this process on the same
+             draws: losses within DIST_TOL, wire bytes equal.
+ 26b. nccl   bsp/ring/onebit@1 measured over an NCCL group of
+             torch.cuda.device_count() ranks, against the logical axis in
+             the same rank process.
+26a and 26b run in one spawn of 4 Gloo ranks (one process start), each
+run on a group of its first ranks while the others wait.
+ 26c. torchrun tools/torch_train_100m_e2e.py (AdamW, make_sharded_train_step
+             over make_bucketed_allreduce, bsp/allreduce/onebit@2) under
+             python -m torch.distributed.run --nproc-per-node 2
+             --dist-backend gloo against the same command with logical
+             workers: losses within DIST_TOL, wire_bytes equal.
+Each rank prints its peak memory, step walls and bytes staged through the
+host.  A rank's failure raises here.  Counts are zeroed in each rank
+just before each cell and read just after; 26a-b make the kernels'
+"dist" launches and 26c's ranks (the trainer's "dist:" line) their
+"dist_trainer" launches.  dist_phases(cfg, dev, smi, ...) runs on the
+CPU too (Gloo in 26b), with get_config("tinyllama-1.1b").reduced(),
+torch.device("cpu"), seq=32 and a short tool_argv.
+
 The last lines are the script's wall, the kernels JSON, the nvidia-smi
 line and the result.
 """
@@ -551,6 +580,30 @@ MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
                  ("bsp/ring/qsgd@4", "measured", 2),
                  ("bsp/ring/dgc@4", "measured", 2),
                  ("bsp/allreduce/terngrad@4", "modeled", 2))
+# phase 26: the worker axis over torch.distributed.  Phase 9's and phase
+# 7's cells over Gloo ranks on the one card, as (ranks, layers; None =
+# full depth): a full-width rank holds its replica, gradient, EF and the
+# exchange's outputs at once, and 4 such ranks ran out of the card's 80 GB
+# (PERF.md, phase 26), so 2 ranks at full depth and 4 at 2 layers, where
+# the other codecs' measured cells run too.  The NCCL cell at world size
+# device_count(); the 100M trainer over 2 ranks (its history logs steps 0
+# and 2).  fp32 with TF32 off: the ranks launch the logical engine's
+# kernels on their own rows, so the losses agree to DIST_TOL (bit for bit
+# but for the stochastic codecs' launches of one rank's segment)
+DIST_CELLS = (("bsp/ring/onebit@{k}", "measured"),
+              ("bsp/allreduce/onebit@{k}", "modeled"))
+DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured"),
+                    ("bsp/ring/terngrad@{k}", "measured"),
+                    ("bsp/ring/qsgd@{k}", "measured"))
+DIST_RUNS = ((2, None, DIST_CELLS),
+             (4, REDUCED_LAYERS, DIST_CELLS + DIST_CODEC_CELLS))
+# the kernel each method's cells must launch on every rank
+DIST_KERNEL = {"onebit": "onebit_encode_ef", "dgc": "topk_compress",
+               "terngrad": "terngrad_ternarize", "qsgd": "qsgd_compress"}
+DIST_NCCL_CELL = ("bsp/ring/onebit@{k}", "measured")
+DIST_TOL = 1e-5
+DIST_TOOL_ARGV = ["--strategy", "bsp/allreduce/onebit@2", "--steps", "3",
+                  "--batch-size", "2", "--seq-len", "256"]
 
 
 def phase(name):
@@ -673,8 +726,8 @@ def elastic_phases(cfg, dev, smi, arrivals, horizon, burn_times,
         """A Strategy whose build hands the engine that fit_elastic drives
         to the ``watchers`` (they wrap its methods with checks)."""
 
-        def build(self, grad_fn, layout=None, device="cuda"):
-            eng = Strategy.build(self, grad_fn, layout, device)
+        def build(self, grad_fn, layout=None, device="cuda", group=None):
+            eng = Strategy.build(self, grad_fn, layout, device, group)
             for watch in watchers:
                 watch(eng)
             engines.append(eng)
@@ -978,8 +1031,8 @@ def hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
         """A Strategy whose engine reports its state and plan at
         ``finalize`` (Trainer.fit's last call into it)."""
 
-        def build(self, grad_fn, layout=None, device="cuda"):
-            eng = Strategy.build(self, grad_fn, layout, device)
+        def build(self, grad_fn, layout=None, device="cuda", group=None):
+            eng = Strategy.build(self, grad_fn, layout, device, group)
             fin = eng.finalize
 
             def finalize(st):
@@ -1655,6 +1708,231 @@ def long_kernel_checks(dev, measure, worst):
                 4 * h * hd * keys)
         del qd, ck, cv, ckt, cvt, qdt, mask, out, ref, dropped
     torch.cuda.empty_cache()
+
+
+def _launch_modules():
+    from repro_torch.kernels import flash_attention, onebit, qsgd, terngrad
+    from repro_torch.kernels import topk
+    return (flash_attention, onebit, topk, terngrad, qsgd)
+
+
+def _train_cells(cfg, dev, cells, seq, batch, steps, group=None,
+                 logical=False):
+    """Each (spec, wire) cell from seed-0 weights through ``Strategy.build``
+    and the shared fit loop, over ``group`` (one worker per rank) or with
+    every worker in this process; with ``logical`` also again with every
+    worker in this process.  Returns per cell the losses, wire bytes, step
+    walls (ms, read where the engine fetches the first held worker's
+    batch, after a synchronize), peak memory, bytes staged through the
+    host and kernel launches (counts zeroed just before the cell)."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.train import Strategy, value_and_grad
+    from repro_torch.train.strategy import fit
+    on_card = dev.type == "cuda"
+    model = build_model(cfg)
+    grad_fn = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, compute_dtype=torch.float32))
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, batch_size=batch),
+                              device=dev)
+    mods = _launch_modules()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def run(spec, wire, group):
+        params = model.init(seed=0, dtype=torch.float32, device=dev)
+        engine = Strategy.parse(spec, lr=0.01, wire=wire).build(
+            grad_fn, model.leaf_layout(params), device=dev, group=group)
+        first = engine.inner.axis.ids[0]
+        marks = []
+
+        def timed(t, w):
+            if w == first:
+                sync()
+                marks.append(time.perf_counter())
+            return batches(t, w)
+
+        for mod in mods:
+            mod.reset_launches()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _, hist, mets = fit(engine, params, timed, steps)
+        sync()
+        marks.append(time.perf_counter())
+        del params
+        got = dict(losses=[h["loss"] for h in hist], wire=mets["wire_bytes"],
+                   step_ms=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+                   peak=torch.cuda.max_memory_allocated(dev) if on_card
+                   else 0,
+                   staged=getattr(engine.inner.axis, "staged_bytes", 0),
+                   launches={k: v for mod in mods
+                             for k, v in mod.LAUNCHES.items()})
+        del engine
+        if on_card:
+            torch.cuda.empty_cache()
+        return got
+
+    out = {}
+    for spec, wire in cells:
+        out[spec] = run(spec, wire, group)
+        if logical:
+            out[spec]["logical"] = run(spec, wire, None)
+    return out
+
+
+def _dist_rank(rank, world, dev, runs, seq, batch, steps):
+    """One rank of phase 26: for each run ``(k, backend, cfg, cells,
+    logical)``, ``_train_cells`` over a ``backend`` group of the first k
+    ranks (the whole Gloo group when k is the world), while the other
+    ranks wait at a barrier.  Returns each run's result (None where this
+    rank is outside the run's group)."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for k, backend, cfg, cells, logical in runs:
+        group = (dist.group.WORLD if (k, backend) == (world, "gloo")
+                 else dist.new_group(list(range(k)), backend=backend))
+        out.append(_train_cells(cfg, dev, cells, seq, batch, steps, group,
+                                logical) if rank < k else None)
+        dist.barrier()
+    return out
+
+
+def dist_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
+                steps=TRAIN_STEPS, runs=DIST_RUNS, tool_argv=DIST_TOOL_ARGV):
+    """Phase 26: the worker axis over torch.distributed, one process per
+    worker (``launch.dist``), at ``cfg``'s widths on ``dev``.  One spawn
+    of Gloo ranks runs 26a and 26b, each on a group of its first ranks:
+
+      26a. for each (ranks k, layers, cells) of ``runs``, the cells at @k
+           over k Gloo ranks on one card against the logical engine run
+           before the spawn in this process on the same draws: losses
+           within DIST_TOL, wire bytes equal;
+      26b. ``DIST_NCCL_CELL`` over an NCCL group of
+           ``torch.cuda.device_count()`` ranks against the logical axis
+           in the same rank process (the CPU rehearsal takes Gloo here:
+           NCCL needs a card);
+      26c. ``tools/torch_train_100m_e2e.py``'s AdamW trainer under
+           ``torch.distributed.run`` over 2 Gloo ranks against the same
+           command on the logical axis.
+
+    Each rank's peak memory, step walls and bytes staged through the host
+    are printed.  Returns the launches of the kernels per path ("dist":
+    26a and 26b, "dist_trainer": 26c), summed over ranks."""
+    import importlib.util
+    from repro_torch.launch.dist import spawn
+    on_card = dev.type == "cuda"
+    where = "cuda" if on_card else "cpu"
+    launches = {"dist": {}, "dist_trainer": {}}
+
+    def add(path, counts):
+        for name, n in counts.items():
+            launches[path][name] = launches[path].get(name, 0) + n
+
+    def report(tag, got, spec, ref):
+        g = got[spec]
+        diffs = [abs(a - b) for a, b in zip(g["losses"], ref["losses"])]
+        print(f"  {tag}: losses {g['losses']}, wire {g['wire']} B (logical "
+              f"{ref['wire']}); |rank - logical| per step "
+              f"{[f'{d:.2e}' for d in diffs]} (tol {DIST_TOL}); step walls "
+              f"{[f'{x:.1f}' for x in g['step_ms']]} ms (logical "
+              f"{[f'{x:.1f}' for x in ref['step_ms']]} ms); peak "
+              f"{g['peak'] / 2**30:.2f} GiB; staged "
+              f"{g['staged'] / steps / 2**30:.3f} GiB/step; launches "
+              f"{g['launches']}; card {smi}")
+        add("dist", g["launches"])
+        assert len(diffs) == steps and max(diffs) <= DIST_TOL
+        assert g["wire"] == ref["wire"]
+        kernel = DIST_KERNEL[spec.split("/")[2].split("@")[0]]
+        assert g["launches"][kernel] > 0 or not on_card
+
+    phase("26 the worker axis over torch.distributed: the logical "
+          "references, then one spawn of Gloo ranks on " + str(dev))
+    nccl = "nccl" if on_card else "gloo"
+    n_nccl = torch.cuda.device_count() if on_card else 1
+    plan, refs = [], []
+    for k, layers, cells in runs:
+        cfg_k = cfg if layers is None else dataclasses.replace(
+            cfg, num_layers=layers)
+        cells = tuple((spec.format(k=k), wire) for spec, wire in cells)
+        refs.append(_train_cells(cfg_k, dev, cells, seq, batch, steps))
+        plan.append((k, "gloo", cfg_k, cells, False))
+    plan.append((n_nccl, nccl, cfg,
+                 ((DIST_NCCL_CELL[0].format(k=n_nccl), DIST_NCCL_CELL[1]),),
+                 True))
+    if on_card:
+        torch.cuda.empty_cache()
+    world = max(k for k, *_ in plan)
+    t0 = time.perf_counter()
+    ranks = spawn(_dist_rank, world, "gloo", device=where, timeout_s=600,
+                  args=(plan, seq, batch, steps))
+    print(f"  {world} ranks in {time.perf_counter() - t0:.1f} s (start and "
+          f"every run)")
+    for i, (k, backend, cfg_k, cells, logical) in enumerate(plan):
+        label = "26b" if logical else "26a"
+        phase(f"{label} {k} {backend} rank(s): {[c for c, _ in cells]}, "
+              f"{cfg_k.name} at {cfg_k.num_layers} layers, full widths, "
+              "fp32")
+        for spec, _ in cells:
+            for r in range(k):
+                got = ranks[r][i]
+                report(f"{backend} rank {r} {spec}", got, spec,
+                       got[spec]["logical"] if logical else refs[i][spec])
+                assert got[spec]["launches"]["flash_attention"] == \
+                    cfg_k.num_layers * steps or not on_card
+
+    phase("26c tools/torch_train_100m_e2e.py under torch.distributed.run, "
+          "2 Gloo ranks, AdamW, against the logical axis")
+    tool = os.path.join(ROOT, "tools", "torch_train_100m_e2e.py")
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    argv = list(tool_argv) + ["--device", where]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", tool, *argv, "--dist-backend", "gloo",
+         "--out", os.path.join(out_dir, "dist")],
+        capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        raise RuntimeError(f"torch.distributed.run exited "
+                           f"{res.returncode}:\n{res.stdout[-3000:]}\n"
+                           f"{res.stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    line = [x for x in res.stdout.splitlines() if x.startswith("dist: ")]
+    reports = json.loads(line[-1][len("dist: "):])["ranks"]
+    spec_ = importlib.util.spec_from_file_location("torch_train_100m_e2e",
+                                                   tool)
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
+    mod.main(argv + ["--out", os.path.join(out_dir, "logical")])
+    hist = []
+    for d in ("dist", "logical"):
+        with open(os.path.join(out_dir, d, "history.json")) as f:
+            hist.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(*hist)]
+    for r, rep in enumerate(reports):
+        print(f"  rank {r}: peak {rep['peak_bytes'] / 2**30:.2f} GiB, step "
+              f"{1e3 * rep['step_s']:.1f} ms (mean, the first included), "
+              f"staged {rep['staged_bytes'] / 2**30:.3f} GiB, launches "
+              f"{rep['launches']}; card {smi}")
+        add("dist_trainer", rep["launches"])
+    print(f"  torchrun wall {wall:.1f} s; losses dist "
+          f"{[h['loss'] for h in hist[0]]}, logical "
+          f"{[h['loss'] for h in hist[1]]}; |dist - logical| "
+          f"{[f'{d:.2e}' for d in diffs]} (tol {DIST_TOL}); wire_bytes "
+          f"{[h['wire_bytes'] for h in hist[0]]}")
+    assert len(reports) == 2 and len(diffs) == len(hist[1]) >= 2
+    assert max(diffs) <= DIST_TOL
+    assert [h["wire_bytes"] for h in hist[0]] == \
+        [h["wire_bytes"] for h in hist[1]]
+    assert all(rep["launches"]["onebit_encode_ef"] > 0 or not on_card
+               for rep in reports)
+    return launches
 
 
 def recurrent_phases(dev, smi, rg, rwkv, whisper, prompt=PROMPT, new=NEW,
@@ -3257,6 +3535,11 @@ def main() -> int:
     dryrun_launches = dryrun_phases(dev, smi)
     long_kernel_checks(dev, measure, worst)
 
+    # ----------------------------------------- 26 the torch.distributed axis
+    torch.cuda.empty_cache()
+    dist_launches = dist_phases(cfg, dev, smi)
+    print(f"launches of phase 26 {dist_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -3291,7 +3574,9 @@ def main() -> int:
                       "qwen2_vl": family_launches["qwen2_vl"].get(name, 0),
                       **{path: got.get(name, 0)
                          for path, got in recurrent_launches.items()},
-                      "dryrun": dryrun_launches.get(name, 0)}
+                      "dryrun": dryrun_launches.get(name, 0),
+                      **{path: got.get(name, 0)
+                         for path, got in dist_launches.items()}}
                for name in sources}
     # the flash kernels at the slice's new shapes (phase 4's lines)
     shapes = {"flash_attention": ("flash_attention_hd256",
@@ -3326,6 +3611,10 @@ def main() -> int:
                  "dryrun"):
         assert by_path["flash_attention"][path] > 0
         assert by_path["flash_decode"][path] > 0
+    for path in ("dist", "dist_trainer"):
+        assert by_path["flash_attention"][path] > 0
+        assert by_path["onebit_encode_ef"][path] > 0
+    assert all(by_path[name]["dist"] > 0 for name in DIST_KERNEL.values())
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

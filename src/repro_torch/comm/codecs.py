@@ -93,6 +93,7 @@ class SegmentCodec:
     name: str = "?"
     exact: bool = False
     lossy_ef: bool = False      # hop errors belong in an EF residual
+    draws: bool = False         # encode draws uniform noise [n, rows, LANE]
 
     def __init__(self, backend: str = "auto"):
         self.backend = backend
@@ -173,6 +174,7 @@ class TerngradCodec(SegmentCodec):
     """Stochastic ternary digits packed 16 per 32-bit word + one scale
     per worker."""
     name = "terngrad"
+    draws = True
 
     def __init__(self, clip_sigma: float = 2.5, backend: str = "auto"):
         super().__init__(backend)
@@ -218,6 +220,7 @@ class QsgdCodec(SegmentCodec):
     """s-level stochastic quantization: int8 levels + one l2 norm per
     worker."""
     name = "qsgd"
+    draws = True
 
     def __init__(self, s_levels: int = 127, backend: str = "auto"):
         super().__init__(backend)

@@ -8,7 +8,11 @@ A plan is built once per (leaf shapes × worker count) and owns:
     **issue order**, from ``core.comm_scheduler``, shared by the executed
     exchange and the analytic timeline so they cannot drift apart;
   * the **topology** schedule each bucket is reduced with
-    (``comm.transport``), over the worker axis;
+    (``comm.transport``), over the worker axis: ``reduce_grads`` and
+    ``exchange`` take an ``axis`` (``core.collectives``; every worker
+    logical in this process by default, one per ``torch.distributed``
+    rank with a ``DistAxis``), and the caller hands in the leaf lists of
+    the workers this process holds;
   * the **codec** (``comm.codecs``) and the ``wire`` mode:
 
       wire="modeled"   compression happens per worker before the exchange
@@ -56,6 +60,7 @@ from repro_torch.comm.transport import (SCHEDULES, compressed_allreduce,
 from repro_torch.core.comm_scheduler import (LayerCost, LinkModel, bucketize,
                                              random_order, schedule_no_overlap,
                                              schedule_overlap, tictac_order)
+from repro_torch.core.collectives import Axis, LogicalAxis
 from repro_torch.core.compression import Compressor
 from repro_torch.core.parameter_server import all_gather_flat, shard_of_flat
 
@@ -200,72 +205,89 @@ class CommPlan:
     def bucket_len(self, b: int) -> int:
         return sum(_numel(self.leaf_shapes[i]) for i in self.buckets[b])
 
-    def _fuse(self, lists, b: int, length: int) -> torch.Tensor:
-        if len(lists) != self.n:
-            raise ValueError(f"plan is for {self.n} workers, got "
-                             f"{len(lists)}")
+    def _axis(self, axis) -> Axis:
+        ax = axis if axis is not None else LogicalAxis(self.n)
+        if ax.size != self.n:
+            raise ValueError(f"plan is for {self.n} workers, the axis has "
+                             f"{ax.size}")
+        return ax
+
+    def _fuse(self, lists, b: int, length: int, ax: Axis) -> torch.Tensor:
+        if len(lists) != len(ax.ids):
+            raise ValueError(f"this process holds {len(ax.ids)} of the "
+                             f"plan's {self.n} workers, got {len(lists)} "
+                             "lists")
         return fuse(lists, self.buckets[b], self.leaf_shapes, length)
 
     # ------------------------------------------------- exact (fp32) ops
-    def reduce_grads(self, grads: List[List[torch.Tensor]]
+    def reduce_grads(self, grads: List[List[torch.Tensor]], axis=None
                      ) -> List[torch.Tensor]:
         """Full-precision bucketed mean-allreduce in plan issue order.
 
-        ``grads[w]`` is worker w's leaf list.  Each bucket is fused into
-        one [n, L] tensor, reduced by the topology schedule over the worker
-        axis and divided by n; every worker holds the same mean, and the
-        mean leaves come back once.  The bucket's leaves are dropped from
-        ``grads`` as soon as they are fused."""
+        ``grads[r]`` is the leaf list of worker ``axis.ids[r]``, one per
+        worker this process holds (all n on the default logical axis).
+        Each bucket is fused into one [k, L] tensor, reduced by the
+        topology schedule over the worker axis and divided by n; every
+        worker holds the same mean, and the mean leaves come back once, on
+        every process.  The bucket's leaves are dropped from ``grads`` as
+        soon as they are fused."""
+        ax = self._axis(axis)
         reduce_leaf = SCHEDULES[self.topology]
         rdt = getattr(torch, self.reduce_dtype)
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
         for b in self.order:                   # the executed schedule
-            flat = self._fuse(grads, b, self.bucket_len(b))
+            flat = self._fuse(grads, b, self.bucket_len(b), ax)
             if rdt != torch.float32:
                 flat = flat.to(rdt)            # the bf16 wire words
-            red = reduce_leaf(flat)[0].float() / self.n
+            red = reduce_leaf(flat, ax)[0].float() / self.n
             del flat
             scatter_flat(red, self.buckets[b], self.leaf_shapes, out)
         return out
 
     # ---------------------------------------- codec-in-schedule exchange
     def exchange(self, grads: List[List[torch.Tensor]],
-                 ef: Optional[List[List[torch.Tensor]]], gen=None):
+                 ef: Optional[List[List[torch.Tensor]]], gen=None,
+                 axis=None):
         """Mean-allreduce with encoded payloads inside the topology
-        schedule.  ``grads[w]`` and ``ef[w]`` (None for the stateless
-        quantizers) are worker w's leaf lists, consumed bucket by bucket;
-        ``gen`` drives the stochastic codecs.  Returns ``(mean leaves,
-        new ef lists or None, sent_elems [n])``; ``measured_bytes`` of the
-        summed ``sent_elems`` is dgc's per-step sparse payload."""
+        schedule.  ``grads[r]`` and ``ef[r]`` (None for the stateless
+        quantizers) are the leaf lists of worker ``axis.ids[r]``, one per
+        worker this process holds, consumed bucket by bucket; ``gen``
+        drives the stochastic codecs.  Returns ``(mean leaves, new ef
+        lists or None, sent_elems [k])``, ``sent_elems`` for the held
+        workers; ``measured_bytes`` of its sum over all workers is dgc's
+        per-step sparse payload."""
+        ax = self._axis(axis)
         comp, codec = self.compressor, self.codec
         gain = comp.ef_gain if comp.method == "onebit" else 1.0
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
         new_ef = (None if ef is None else
-                  [[None] * len(self.leaf_shapes) for _ in range(self.n)])
+                  [[None] * len(self.leaf_shapes) for _ in ax.ids])
         sent = None
         for b in self.order:
             idxs = self.buckets[b]
             L = self.bucket_len(b)
             P = pad_for_schedule(L, self.n)
-            g_flat = self._fuse(grads, b, P)
+            g_flat = self._fuse(grads, b, P, ax)
             if ef is not None:
                 # the transport applies the (over-relaxed) compensation,
                 # runs fused encode+EF hops and returns the telescoped
                 # next-step residual
-                e_flat = self._fuse(ef, b, P)
+                e_flat = self._fuse(ef, b, P, ax)
                 red, new_e, nz = compressed_allreduce_ef(
-                    g_flat, e_flat, self.topology, codec, gen, gain=gain)
+                    g_flat, e_flat, self.topology, codec, gen, gain=gain,
+                    axis=ax)
                 del e_flat
-                for w in range(self.n):
-                    scatter_flat(new_e[w, :L], idxs, self.leaf_shapes,
-                                 new_ef[w])
+                for row, lists in enumerate(new_ef):
+                    scatter_flat(new_e[row, :L], idxs, self.leaf_shapes,
+                                 lists)
                 del new_e
             else:
                 red, _, nz = compressed_allreduce(g_flat, self.topology,
-                                                  codec, gen)
+                                                  codec, gen, axis=ax)
             del g_flat
             sent = nz if sent is None else sent + nz
-            # every worker decodes the same sum: worker 0's is the mean
+            # every worker decodes the same sum: the first held one's is
+            # the mean
             scatter_flat(red[0, :L] / self.n, idxs, self.leaf_shapes, out)
             del red
         return out, new_ef, sent
@@ -282,6 +304,7 @@ class CommPlan:
         e.g. a ``core.tree.LeafView``); ``grads`` and ``ef`` as in
         ``exchange``.  Returns ``(new parameter leaves, new ef lists or
         None, sent_elems [n])``."""
+        ax = LogicalAxis(self.n)
         comp, codec = self.compressor, self.codec
         gain = comp.ef_gain if comp.method == "onebit" else 1.0
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
@@ -292,9 +315,9 @@ class CommPlan:
             idxs = self.buckets[b]
             L = self.bucket_len(b)
             P = pad_for_schedule(L, self.n)
-            g_flat = self._fuse(grads, b, P)
+            g_flat = self._fuse(grads, b, P, ax)
             if ef is not None:
-                e_flat = self._fuse(ef, b, P)
+                e_flat = self._fuse(ef, b, P, ax)
                 g_shard, new_e, nz = compressed_reduce_scatter_ef(
                     g_flat, e_flat, codec, gen, gain=gain)
                 del e_flat

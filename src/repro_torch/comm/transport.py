@@ -3,11 +3,13 @@ the exact schedules, the codec schedules that carry encoded payloads,
 and their byte models (the JAX package's ``comm/transport.py``).
 
 The JAX module runs these as ``lax.ppermute`` schedules inside
-``shard_map``; here a schedule takes ``x`` [n, ...] (row ``w`` is worker
-``w``'s tensor) and returns every worker's result in the same layout,
-through the ``core.collectives`` index operations.  Each hop and each
-addition is the reference's, in the reference's order, so every worker's
-sum is rounded as on the reference.
+``shard_map``; here a schedule takes ``x`` [k, ...] and an ``axis``
+(``core.collectives``): row ``r`` is worker ``axis.ids[r]``'s tensor, and
+the result comes back in the same layout.  The default axis is every row
+as a logical worker (k = n, one process); a ``DistAxis`` holds one worker
+per ``torch.distributed`` rank (k = 1).  Each hop and each addition is
+the reference's, in the reference's order, so every worker's sum is
+rounded as on the reference, on either axis.
 
 1. The **exact** schedules: full-precision; every worker ends with the
    same sum.  Per-device bytes of an n-worker reduce of size S:
@@ -32,14 +34,15 @@ sum is rounded as on the reference.
      a lossy recursive doubling would leave the replicas inconsistent.
    * fully-connected: every worker encodes its own contribution once and
      all-gathers the planes.
-   Every generator returns ``(result [n, P], residual [n, P], sent [n])``:
+   Every schedule returns ``(result [k, P], residual [k, P], sent [k])``:
    each worker's result, the EF contribution of every encode the worker
    made, and its count of data-dependent sparse elements shipped (dgc; 0
    otherwise).  The per-worker index arithmetic of the reference
    (``c.at[(me - i - 2) % n]``, ``lax.dynamic_slice`` at a per-worker
-   start) is Python integer arithmetic over the rows here, with the same
-   hop order; the stochastic codecs draw from one ``torch.Generator`` per
-   exchange.
+   start) is Python integer arithmetic over each held worker's id, with
+   the same hop order; the stochastic codecs draw one [n, ...] block per
+   encode from one ``torch.Generator`` per exchange, and a process that
+   holds some of the workers draws the whole block and keeps its rows.
 
 3. Byte models: ``schedule_tx_bytes`` is the mean per-worker bytes a
    schedule puts on the wire (total transmissions / n) for the
@@ -53,43 +56,52 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.comm.codecs import NoneCodec, Planes, SegmentCodec
-from repro_torch.core.collectives import (all_gather, axis_index, axis_size,
-                                          ppermute, psum)
+from repro_torch.comm.codecs import LANE, NoneCodec, Planes, SegmentCodec
+from repro_torch.core.collectives import Axis, LogicalAxis
+
+
+def _axis(x: torch.Tensor, axis) -> Axis:
+    """The axis a schedule runs over: the given one, or every row of
+    ``x`` as a logical worker."""
+    return axis if axis is not None else LogicalAxis(x.shape[0])
 
 
 def _per_worker(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A per-worker bool [n] shaped to broadcast against ``x`` [n, ...]."""
+    """A per-worker bool [k] shaped to broadcast against ``x`` [k, ...]."""
     return mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
-def ring_allreduce(x):
+def ring_allreduce(x, axis=None):
     """Bandwidth-optimal ring: reduce-scatter then all-gather, 2(n-1) steps."""
-    n = axis_size(x)
+    ax = _axis(x, axis)
+    n = ax.size
     if n == 1:
         return x
-    me = axis_index(x)
-    flat = x.reshape(n, -1)
+    me = ax.index(x)
+    k = x.shape[0]
+    rows = torch.arange(k, device=x.device)
+    flat = x.reshape(k, -1)
     L = flat.shape[1]
     m = -(-L // n)
-    chunks = x.new_zeros((n, n * m))
+    chunks = x.new_zeros((k, n * m))
     chunks[:, :L] = flat
-    chunks = chunks.reshape(n, n, m)             # [worker, chunk, m]
+    chunks = chunks.reshape(k, n, m)             # [row, chunk, m]
     fwd = [(i, (i + 1) % n) for i in range(n)]
     for i in range(n - 1):
-        recv = ppermute(chunks[me, (me - i) % n], fwd)
+        recv = ax.ppermute(chunks[rows, (me - i) % n], fwd)
         dst = (me - i - 1) % n
-        chunks[me, dst] = chunks[me, dst] + recv
+        chunks[rows, dst] = chunks[rows, dst] + recv
     # rank r now owns reduced chunk (r + 1) % n
     for i in range(n - 1):
-        recv = ppermute(chunks[me, (me + 1 - i) % n], fwd)
-        chunks[me, (me - i) % n] = recv
-    return chunks.reshape(n, -1)[:, :L].reshape(x.shape)
+        recv = ax.ppermute(chunks[rows, (me + 1 - i) % n], fwd)
+        chunks[rows, (me - i) % n] = recv
+    return chunks.reshape(k, -1)[:, :L].reshape(x.shape)
 
 
-def butterfly_allreduce(x):
+def butterfly_allreduce(x, axis=None):
     """Recursive doubling: log2(n) exchange-and-add rounds (n power of 2)."""
-    n = axis_size(x)
+    ax = _axis(x, axis)
+    n = ax.size
     if n == 1:
         return x
     if n & (n - 1):
@@ -97,45 +109,46 @@ def butterfly_allreduce(x):
     acc = x
     for k in range(int(math.log2(n))):
         d = 1 << k
-        acc = acc + ppermute(acc, [(i, i ^ d) for i in range(n)])
+        acc = acc + ax.ppermute(acc, [(i, i ^ d) for i in range(n)])
     return acc
 
 
-def tree_allreduce(x):
+def tree_allreduce(x, axis=None):
     """Binomial tree: reduce to rank 0, then broadcast back down."""
-    n = axis_size(x)
+    ax = _axis(x, axis)
+    n = ax.size
     if n == 1:
         return x
     levels = int(math.log2(n))
     if 1 << levels != n:
         raise ValueError("tree requires power-of-two workers")
-    me = axis_index(x)
+    me = ax.index(x)
     acc = x
     # reduce phase: at level k, ranks with me % 2^(k+1) == 2^k send down
     for k in range(levels):
         d = 1 << k
-        recv = ppermute(acc, [(i, i - d) for i in range(n)
-                              if i % (2 * d) == d])
+        recv = ax.ppermute(acc, [(i, i - d) for i in range(n)
+                                 if i % (2 * d) == d])
         acc = torch.where(_per_worker(me % (2 * d) == 0, x), acc + recv, acc)
     # broadcast phase
     for k in reversed(range(levels)):
         d = 1 << k
-        recv = ppermute(acc, [(i, i + d) for i in range(n)
-                              if i % (2 * d) == 0])
+        recv = ax.ppermute(acc, [(i, i + d) for i in range(n)
+                                 if i % (2 * d) == 0])
         acc = torch.where(_per_worker(me % (2 * d) == d, x), recv, acc)
     return acc
 
 
-def fully_connected_allreduce(x):
+def fully_connected_allreduce(x, axis=None):
     """Every worker sends its full tensor to every other (the O(n^2)
     traffic case the survey warns about); numerically an all_gather + sum,
     the same rows summed in the same order on every worker."""
-    total = all_gather(x)[0].sum(0).to(x.dtype)
+    total = _axis(x, axis).all_gather(x)[0].sum(0).to(x.dtype)
     return total[None].expand_as(x)
 
 
-def psum_allreduce(x):
-    return psum(x)
+def psum_allreduce(x, axis=None):
+    return _axis(x, axis).psum(x)
 
 
 SCHEDULES = {
@@ -157,159 +170,189 @@ def pad_for_schedule(length: int, n: int) -> int:
 Exchange = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _permute(planes: Planes, perm) -> Planes:
-    return {k: ppermute(p, perm) for k, p in planes.items()}
-
-
 def _where_planes(cond: torch.Tensor, new: Planes, old: Planes) -> Planes:
     return {k: torch.where(_per_worker(cond, new[k]), new[k], old[k])
             for k in new}
 
 
 def _rows(idx, x: torch.Tensor) -> torch.Tensor:
-    """Row ``idx[w]`` of worker w's block of ``x`` [n, k, m]: [n, m]."""
-    return torch.stack([x[w, j] for w, j in enumerate(idx)])
+    """Row ``idx[r]`` of row r's block of ``x`` [k, n, m]: [k, m]."""
+    return torch.stack([x[r, j] for r, j in enumerate(idx)])
 
 
-def _ring_rs(flat, codec: SegmentCodec, gen, n: int):
-    """Compressed ring reduce-scatter over ``flat`` [n, P]: worker r ends
-    owning reduced chunk r.  Returns (chunks [n, n, m] with chunk r of
-    worker r reduced, residual [n, n, m], sent [n])."""
-    c = flat.reshape(n, n, -1)
+def _noise(codec: SegmentCodec, seg: torch.Tensor, gen, ax: Axis):
+    """The stochastic codecs' uniform draws for ``seg`` [k, L] when this
+    process holds only some of the workers: the whole axis's [n, rows,
+    LANE] block from ``gen``, then this process's rows, so that each
+    worker's noise is the logical axis's.  None where the codec draws
+    nothing or holds every worker (it then draws the block itself)."""
+    if not codec.draws or ax.holds_all:
+        return None
+    shape = (ax.size, -(-seg.shape[1] // LANE), LANE)
+    return torch.rand(shape, generator=gen, device=seg.device)[ax.ids]
+
+
+def _encode(codec: SegmentCodec, seg, gen, ax: Axis) -> Planes:
+    return codec.encode(seg, gen, _noise(codec, seg, gen, ax))
+
+
+def _encode_ef(codec: SegmentCodec, seg, gen, ax: Axis):
+    return codec.encode_ef(seg, gen, _noise(codec, seg, gen, ax))
+
+
+def _gathered(planes: Planes, ax: Axis) -> Planes:
+    """Every worker's planes, [n, ...] in worker order (each process
+    holding all of them after an all-gather)."""
+    if ax.holds_all:
+        return planes
+    return {key: p[0] for key, p in ax.all_gather(planes).items()}
+
+
+def _ring_rs(flat, codec: SegmentCodec, gen, ax: Axis):
+    """Compressed ring reduce-scatter over ``flat`` [k, P]: worker w ends
+    owning reduced chunk w.  Returns (chunks [k, n, m] with chunk w of
+    worker w reduced, residual [k, n, m], sent [k])."""
+    n = ax.size
+    c = flat.reshape(flat.shape[0], n, -1)
     res = torch.zeros_like(c)
-    sent = torch.zeros(n, dtype=torch.int64, device=flat.device)
+    sent = torch.zeros(c.shape[0], dtype=torch.int64, device=flat.device)
     fwd = [(i, (i + 1) % n) for i in range(n)]
     m = c.shape[2]
     for i in range(n - 1):
-        pos = [(w - i - 1) % n for w in range(n)]
+        pos = [(w - i - 1) % n for w in ax.ids]
         # fused encode + hop EF: the planes and the quantization residual
         # (send - decode) from one read of the chunk
-        planes, r = codec.encode_ef(_rows(pos, c), gen)
-        for w, j in enumerate(pos):
-            res[w, j] += r[w]
+        planes, r = _encode_ef(codec, _rows(pos, c), gen, ax)
+        for row, j in enumerate(pos):
+            res[row, j] += r[row]
         del r
         sent += codec.sent_elems(planes)
-        recv = codec.decode(_permute(planes, fwd))[:, :m]
+        recv = codec.decode(ax.ppermute(planes, fwd))[:, :m]
         del planes
-        for w in range(n):
-            c[w, (w - i - 2) % n] += recv[w]
+        for row, w in enumerate(ax.ids):
+            c[row, (w - i - 2) % n] += recv[row]
         del recv
     return c, res, sent
 
 
-def _owner_encode(c, res, codec: SegmentCodec, gen):
+def _owner_encode(c, res, codec: SegmentCodec, gen, ax: Axis):
     """Encode worker w's chunk w once at its owner (EF the encode error)
     and replace it with its own decode, so every worker, the owner
     included, consumes identical bytes.  Returns the planes; encoding is
     not a transmission (the caller counts each send)."""
-    n, _, m = c.shape
-    own = list(range(n))
-    chunk = _rows(own, c)
-    planes = codec.encode(chunk, gen)
+    m = c.shape[2]
+    chunk = _rows(ax.ids, c)
+    planes = _encode(codec, chunk, gen, ax)
     dec = codec.decode(planes)[:, :m]
-    for w in own:
-        res[w, w] += chunk[w] - dec[w]
-        c[w, w] = dec[w]
+    for row, w in enumerate(ax.ids):
+        res[row, w] += chunk[row] - dec[row]
+        c[row, w] = dec[row]
     return planes
 
 
-def _ring_exchange(flat, codec: SegmentCodec, gen) -> Exchange:
-    n = axis_size(flat)
+def _ring_exchange(flat, codec: SegmentCodec, gen, ax: Axis) -> Exchange:
+    n = ax.size
+    k = flat.shape[0]
     fwd = [(i, (i + 1) % n) for i in range(n)]
-    c, res, sent = _ring_rs(flat, codec, gen, n)
+    c, res, sent = _ring_rs(flat, codec, gen, ax)
     m = c.shape[2]
-    planes = _owner_encode(c, res, codec, gen)
+    planes = _owner_encode(c, res, codec, gen, ax)
     for i in range(n - 1):
         # one transmission per hop: i = 0 is the owner's own send, later
         # ones relay it, n - 1 sends per plane
         sent += codec.sent_elems(planes)
-        planes = _permute(planes, fwd)
+        planes = ax.ppermute(planes, fwd)
         dec = codec.decode(planes)[:, :m]
-        for w in range(n):
-            c[w, (w - 1 - i) % n] = dec[w]
+        for row, w in enumerate(ax.ids):
+            c[row, (w - 1 - i) % n] = dec[row]
         del dec
-    return c.reshape(n, -1), res.reshape(n, -1), sent
+    return c.reshape(k, -1), res.reshape(k, -1), sent
 
 
-def _butterfly_exchange(flat, codec: SegmentCodec, gen) -> Exchange:
+def _butterfly_exchange(flat, codec: SegmentCodec, gen,
+                        ax: Axis) -> Exchange:
     """Halving-doubling: recursive-halving RS (hop EF) + an all-gather of
     the owner-encoded chunk planes (consistent decode everywhere)."""
-    n = axis_size(flat)
+    n = ax.size
     if n & (n - 1):
         raise ValueError("butterfly requires power-of-two workers")
-    acc = flat.reshape(n, n, -1)
+    k = flat.shape[0]
+    acc = flat.reshape(k, n, -1)
     m = acc.shape[2]
     res = torch.zeros_like(acc)
-    sent = torch.zeros(n, dtype=torch.int64, device=flat.device)
-    for k in range(int(math.log2(n))):
-        d = n >> (k + 1)                      # rank and chunk distance
-        base = [w & ~((n >> k) - 1) for w in range(n)]
-        mine = [b + (d if w & d else 0) for w, b in enumerate(base)]
-        other = [b + (0 if w & d else d) for w, b in enumerate(base)]
-        send = torch.stack([acc[w, s:s + d].reshape(-1)
-                            for w, s in enumerate(other)])
-        planes, r = codec.encode_ef(send, gen)
+    sent = torch.zeros(k, dtype=torch.int64, device=flat.device)
+    for lvl in range(int(math.log2(n))):
+        d = n >> (lvl + 1)                    # rank and chunk distance
+        base = [w & ~((n >> lvl) - 1) for w in ax.ids]
+        mine = [b + (d if w & d else 0) for w, b in zip(ax.ids, base)]
+        other = [b + (0 if w & d else d) for w, b in zip(ax.ids, base)]
+        send = torch.stack([acc[row, s:s + d].reshape(-1)
+                            for row, s in enumerate(other)])
+        planes, r = _encode_ef(codec, send, gen, ax)
         del send
-        for w, s in enumerate(other):
-            res[w, s:s + d] += r[w].reshape(d, m)
+        for row, s in enumerate(other):
+            res[row, s:s + d] += r[row].reshape(d, m)
         del r
         sent += codec.sent_elems(planes)
-        recv = codec.decode(_permute(planes, [(i, i ^ d) for i in range(n)]))
+        recv = codec.decode(ax.ppermute(planes,
+                                        [(i, i ^ d) for i in range(n)]))
         del planes
-        for w, s in enumerate(mine):
-            acc[w, s:s + d] += recv[w, :d * m].reshape(d, m)
+        for row, s in enumerate(mine):
+            acc[row, s:s + d] += recv[row, :d * m].reshape(d, m)
         del recv
-    planes = _owner_encode(acc, res, codec, gen)
+    planes = _owner_encode(acc, res, codec, gen, ax)
     sent += codec.sent_elems(planes) * (n - 1)        # AG transmissions
     # every worker gathers all n owners' planes and decodes the same chunks
-    chunks = codec.decode(planes)[:, :m]
-    out = chunks.reshape(1, -1).expand(n, -1)
-    return out, res.reshape(n, -1), sent
+    chunks = codec.decode(_gathered(planes, ax))[:, :m]
+    out = chunks.reshape(1, -1).expand(k, -1)
+    return out, res.reshape(k, -1), sent
 
 
-def _tree_exchange(flat, codec: SegmentCodec, gen) -> Exchange:
-    n = axis_size(flat)
+def _tree_exchange(flat, codec: SegmentCodec, gen, ax: Axis) -> Exchange:
+    n = ax.size
     levels = int(math.log2(n))
     if 1 << levels != n:
         raise ValueError("tree requires power-of-two workers")
-    me = axis_index(flat)
+    me = ax.index(flat)
     L = flat.shape[1]
     acc = flat
     res = torch.zeros_like(flat)
-    sent = torch.zeros(n, dtype=torch.int64, device=flat.device)
+    sent = torch.zeros(flat.shape[0], dtype=torch.int64, device=flat.device)
     # reduce: senders re-encode their partial and EF the encode error
-    for k in range(levels):
-        d = 1 << k
+    for lvl in range(levels):
+        d = 1 << lvl
         is_sender = me % (2 * d) == d
         is_receiver = me % (2 * d) == 0
-        planes, r = codec.encode_ef(acc, gen)
+        planes, r = _encode_ef(codec, acc, gen, ax)
         res = res + torch.where(is_sender[:, None], r, 0.0)
         sent += torch.where(is_sender, codec.sent_elems(planes), 0)
         perm = [(i, i - d) for i in range(n) if i % (2 * d) == d]
-        recv = codec.decode(_permute(planes, perm))[:, :L]
+        recv = codec.decode(ax.ppermute(planes, perm))[:, :L]
         acc = torch.where(is_receiver[:, None], acc + recv, acc)
     # the root encodes the total once; the planes broadcast down
     # unchanged (each of the n - 1 forwards is counted below)
-    planes, r = codec.encode_ef(acc, gen)
+    planes, r = _encode_ef(codec, acc, gen, ax)
     res = res + torch.where((me == 0)[:, None], r, 0.0)
-    for k in reversed(range(levels)):
-        d = 1 << k
+    for lvl in reversed(range(levels)):
+        d = 1 << lvl
         is_sender = me % (2 * d) == 0
         is_receiver = me % (2 * d) == d
         sent += torch.where(is_sender, codec.sent_elems(planes), 0)
         perm = [(i, i + d) for i in range(n) if i % (2 * d) == 0]
-        planes = _where_planes(is_receiver, _permute(planes, perm), planes)
+        planes = _where_planes(is_receiver, ax.ppermute(planes, perm),
+                               planes)
     return codec.decode(planes)[:, :L], res, sent
 
 
-def _fully_connected_exchange(flat, codec: SegmentCodec, gen) -> Exchange:
-    n, L = flat.shape
-    planes, res = codec.encode_ef(flat, gen)
-    sent = codec.sent_elems(planes) * (n - 1)
+def _fully_connected_exchange(flat, codec: SegmentCodec, gen,
+                              ax: Axis) -> Exchange:
+    k, L = flat.shape
+    planes, res = _encode_ef(codec, flat, gen, ax)
+    sent = codec.sent_elems(planes) * (ax.size - 1)
     # every worker gathers the n payloads and sums their decodes in worker
     # order: the same total everywhere
-    total = codec.decode(planes)[:, :L].sum(0)
-    return total[None].expand(n, -1), res, sent
+    total = codec.decode(_gathered(planes, ax))[:, :L].sum(0)
+    return total[None].expand(k, -1), res, sent
 
 
 _CODEC_EXCHANGES = {
@@ -322,23 +365,24 @@ _CODEC_EXCHANGES = {
 
 
 def compressed_allreduce(flat, topology: str, codec: SegmentCodec,
-                         gen=None) -> Exchange:
-    """Sum-allreduce ``flat`` [n, P] (P from ``pad_for_schedule``) with
-    encoded payloads inside the ``topology`` schedule.  Returns
-    ``(reduced_sum [n, P], ef_residual [n, P], sent_elems [n])``; callers
+                         gen=None, *, axis=None) -> Exchange:
+    """Sum-allreduce ``flat`` [k, P] (P from ``pad_for_schedule``; a row
+    per worker of ``axis`` this process holds, all of them by default)
+    with encoded payloads inside the ``topology`` schedule.  Returns
+    ``(reduced_sum [k, P], ef_residual [k, P], sent_elems [k])``; callers
     divide by n for the mean and fold the residual into each worker's
     error feedback.  ``flat`` is worked on in place."""
-    return _CODEC_EXCHANGES[topology](flat, codec, gen)
+    return _CODEC_EXCHANGES[topology](flat, codec, gen, _axis(flat, axis))
 
 
 def compressed_reduce_scatter(flat, codec: SegmentCodec,
-                              gen=None) -> Exchange:
-    """Compressed ring reduce-scatter: worker r receives reduced chunk r
-    of ``flat`` [n, P] ([n, P / n]).  Returns (shards, residual [n, P],
-    sent [n]), the gradient-push half of the PS / ZeRO exchange."""
-    n = axis_size(flat)
-    c, res, sent = _ring_rs(flat, codec, gen, n)
-    return _rows(range(n), c), res.reshape(n, -1), sent
+                              gen=None, *, axis=None) -> Exchange:
+    """Compressed ring reduce-scatter: worker w receives reduced chunk w
+    of ``flat`` [k, P] ([k, P / n]).  Returns (shards, residual [k, P],
+    sent [k]), the gradient-push half of the PS / ZeRO exchange."""
+    ax = _axis(flat, axis)
+    c, res, sent = _ring_rs(flat, codec, gen, ax)
+    return _rows(ax.ids, c), res.reshape(flat.shape[0], -1), sent
 
 
 def _compensate(flat, ef, gain):
@@ -350,7 +394,8 @@ def _compensate(flat, ef, gain):
 
 
 def compressed_allreduce_ef(flat, ef, topology: str, codec: SegmentCodec,
-                            gen=None, *, gain: float = 1.0) -> Exchange:
+                            gen=None, *, gain: float = 1.0,
+                            axis=None) -> Exchange:
     """EF-compensated exchange: compensate ``c_in = flat + gain * ef``,
     run the codec schedule (every hop's encode is the fused
     ``encode_ef``), and fold the hop residuals into the next residual,
@@ -359,16 +404,17 @@ def compressed_allreduce_ef(flat, ef, topology: str, codec: SegmentCodec,
     ``(reduced_sum, new_ef, sent_elems)``.  ``flat``'s buffer becomes
     ``new_ef``."""
     cin, new_ef = _compensate(flat, ef, gain)
-    red, res, sent = _CODEC_EXCHANGES[topology](cin, codec, gen)
+    red, res, sent = compressed_allreduce(cin, topology, codec, gen,
+                                          axis=axis)
     return red, new_ef.add_(res), sent
 
 
 def compressed_reduce_scatter_ef(flat, ef, codec: SegmentCodec, gen=None, *,
-                                 gain: float = 1.0) -> Exchange:
+                                 gain: float = 1.0, axis=None) -> Exchange:
     """EF-compensated ring reduce-scatter (``compressed_allreduce_ef``'s
     PS / ZeRO gradient-push counterpart)."""
     cin, new_ef = _compensate(flat, ef, gain)
-    shard, res, sent = compressed_reduce_scatter(cin, codec, gen)
+    shard, res, sent = compressed_reduce_scatter(cin, codec, gen, axis=axis)
     return shard, new_ef.add_(res), sent
 
 

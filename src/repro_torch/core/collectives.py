@@ -1,20 +1,41 @@
-"""The port's worker-axis seam: K logical workers as dimension 0 of a
-tensor, in one process.
+"""The port's worker-axis seam: the collectives every schedule of
+``comm.transport`` is written against, behind one axis object.
 
 The JAX package runs its collective schedules inside ``shard_map``, one
 program per device, with ``lax.ppermute`` / ``axis_index`` / ``psum`` over
-a named axis.  Here every collective takes and returns a tensor whose row
-``w`` is worker ``w``'s value, and is an index operation over that row
-dimension.  The schedules in ``comm.transport`` are written against these
-with the JAX package's hop order, so each worker's sums are taken in the
-reference's order.  This runs on the CPU and on one card; a
-``torch.distributed`` backend behind the same functions is later work.
+a named axis.  Here a schedule takes an axis and a tensor ``x`` whose row
+``r`` is the value of worker ``axis.ids[r]``, one row per worker this
+process holds:
+
+  ``LogicalAxis(n)``        all n workers in one process, stacked on
+                            dimension 0 (``ids`` = 0..n-1); every
+                            collective is an index operation over the rows.
+                            This is the default, on the CPU or one card.
+  ``DistAxis(group, backend)``  one worker per ``torch.distributed`` rank
+                            (``ids`` = [rank]); ``ppermute`` is one
+                            ``batch_isend_irecv`` per hop, ``all_gather``
+                            the backend's gather.
+
+Both take the reference's hop order, and ``psum`` / ``psum_scatter`` add
+the workers' values in worker order (never ``dist.all_reduce``, whose
+summation order is the backend's), so every worker's sums are rounded as
+on the reference and equal bit for bit across the two axes.  Gloo's
+point-to-point ops take only CPU tensors: with ``backend="gloo"`` and
+tensors on the card, ``DistAxis`` stages each one through pinned host
+memory and counts the bytes it stages (``staged_bytes``).  NCCL takes the
+card's tensors directly.  The module functions below are the logical
+axis's, kept for the callers that stack workers themselves.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
+
+Perm = Sequence[Tuple[int, int]]
+Hop = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+DIST_BACKENDS = ("gloo", "nccl")
 
 
 def axis_size(x: torch.Tensor) -> int:
@@ -26,7 +47,7 @@ def axis_index(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[0], device=x.device)
 
 
-def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+def ppermute(x: torch.Tensor, perm: Perm) -> torch.Tensor:
     """``lax.ppermute``: worker ``dst`` receives worker ``src``'s row for
     every ``(src, dst)`` in ``perm``; a worker that receives nothing gets
     zeros."""
@@ -62,3 +83,173 @@ def psum_scatter(x) -> torch.Tensor:
     for w in range(1, len(x)):
         acc += x[w]
     return acc
+
+
+class LogicalAxis:
+    """n workers stacked on dimension 0 of every tensor, in one process."""
+
+    def __init__(self, n: int):
+        self.size = n
+        self.ids: List[int] = list(range(n))
+        self.device = torch.device("cpu")     # where ``gather_values`` works
+
+    @property
+    def holds_all(self) -> bool:
+        return True
+
+    def index(self, x: torch.Tensor) -> torch.Tensor:
+        return axis_index(x)
+
+    def ppermute(self, x: Hop, perm: Perm) -> Hop:
+        if isinstance(x, dict):
+            return {k: ppermute(v, perm) for k, v in x.items()}
+        return ppermute(x, perm)
+
+    def all_gather(self, x: Hop) -> Hop:
+        if isinstance(x, dict):
+            return {k: all_gather(v) for k, v in x.items()}
+        return all_gather(x)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x)
+
+    def psum_scatter(self, x) -> torch.Tensor:
+        return psum_scatter(x)
+
+
+class DistAxis:
+    """One worker per rank of a ``torch.distributed`` process group: this
+    process holds row ``rank`` only (``ids == [rank]``), and every tensor
+    a schedule hands in is ``[1, ...]``.
+
+    ``backend`` names the group's backend ("gloo" or "nccl"); it decides
+    where the bytes travel and nothing falls back from one to the other.
+    Under gloo, tensors on the card are staged through pinned host
+    buffers, and ``staged_bytes`` counts every byte copied to or from the
+    host."""
+
+    def __init__(self, group=None, backend: str = "gloo"):
+        import torch.distributed as dist
+        if backend not in DIST_BACKENDS:
+            raise ValueError(f"backend={backend!r} (want {DIST_BACKENDS})")
+        self._dist = dist
+        self.group = group if group is not None else dist.group.WORLD
+        self.backend = backend
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+        self.ids = [self.rank]
+        self.device = (torch.device("cuda", torch.cuda.current_device())
+                       if backend == "nccl" else torch.device("cpu"))
+        self.staged_bytes = 0
+
+    @property
+    def holds_all(self) -> bool:
+        return self.size == 1
+
+    def index(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tensor(self.ids, device=x.device)
+
+    def _peer(self, group_rank: int) -> int:
+        return self._dist.get_global_rank(self.group, group_rank)
+
+    # ------------------------------------------------------------ staging
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the backend sends it: contiguous, bool as bytes, and
+        under gloo in (pinned, when staged from the card) host memory."""
+        x = x.contiguous()
+        if x.dtype == torch.bool:
+            x = x.view(torch.uint8)
+        if self.backend == "gloo" and x.device.type != "cpu":
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            self.staged_bytes += host.numel() * host.element_size()
+            return host
+        return x
+
+    def _buffer(self, like: torch.Tensor, shape) -> torch.Tensor:
+        dtype = torch.uint8 if like.dtype == torch.bool else like.dtype
+        if self.backend == "gloo" and like.device.type != "cpu":
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=like.device)
+
+    def _back(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """A received buffer as a tensor like ``like`` (device, dtype)."""
+        if buf.device != like.device:
+            self.staged_bytes += buf.numel() * buf.element_size()
+            buf = buf.to(like.device)
+        return buf.view(torch.bool) if like.dtype == torch.bool else buf
+
+    # -------------------------------------------------------- collectives
+    def ppermute(self, x: Hop, perm: Perm) -> Hop:
+        """One hop: every (src, dst) pair of ``perm`` in one
+        ``batch_isend_irecv``.  Every rank calls it with the same ``perm``;
+        a rank that receives nothing gets zeros.  ``x`` may be a dict of
+        planes, which travel in the same batch."""
+        planes = x if isinstance(x, dict) else {"": x}
+        me = self.rank
+        dst = [d for s, d in perm if s == me]
+        src = [s for s, d in perm if d == me]
+        out: Dict[str, torch.Tensor] = {}
+        ops, recvs = [], []
+        for k, p in planes.items():
+            if src and src[0] == me:               # a hop to itself
+                out[k] = p.clone()
+                continue
+            if dst:
+                ops.append(self._dist.P2POp(self._dist.isend, self._wire(p),
+                                            self._peer(dst[0]), self.group))
+            if src:
+                buf = self._buffer(p, p.shape)
+                ops.append(self._dist.P2POp(self._dist.irecv, buf,
+                                            self._peer(src[0]), self.group))
+                recvs.append((k, buf, p))
+            else:
+                out[k] = torch.zeros_like(p)
+        if ops:
+            for req in self._dist.batch_isend_irecv(ops):
+                req.wait()
+        for k, buf, p in recvs:
+            out[k] = self._back(buf, p)
+        return out if isinstance(x, dict) else out[""]
+
+    def all_gather(self, x: Hop) -> Hop:
+        """``lax.all_gather``: ``x`` [1, ...] -> [1, n, ...], every worker's
+        row in worker order (a dict of planes gathers plane by plane)."""
+        if isinstance(x, dict):
+            return {k: self.all_gather(v) for k, v in x.items()}
+        src = self._wire(x[0])
+        out = self._buffer(x, (self.size,) + tuple(x.shape[1:]))
+        if self.backend == "nccl":
+            self._dist.all_gather_into_tensor(out, src, group=self.group)
+        else:
+            self._dist.all_gather(list(out.unbind(0)), src, group=self.group)
+        return self._back(out, x)[None]
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The worker-order sum of every worker's row, [1, ...]."""
+        rows = self.all_gather(x)[0]
+        acc = rows[0].clone()
+        for w in range(1, self.size):
+            acc += rows[w]
+        return acc[None]
+
+    def psum_scatter(self, x) -> torch.Tensor:
+        """``x[0]`` is this worker's ``[n, m]`` contribution; returns the
+        worker-order sum of chunk ``rank``, [1, m]."""
+        rows = self.all_gather(x[0][None])[0]     # [n workers, n, m]
+        acc = rows[0, self.rank].clone()
+        for w in range(1, self.size):
+            acc += rows[w, self.rank]
+        return acc[None]
+
+
+Axis = Union[LogicalAxis, DistAxis]
+
+
+def gather_values(axis: Axis, values: Sequence[float]) -> List[float]:
+    """Every worker's scalar, in worker order, from each process's values
+    for the workers it holds (float64 on the wire: fp32 values and ints
+    below 2**53 travel exactly)."""
+    x = torch.tensor([[float(v)] for v in values], dtype=torch.float64,
+                     device=axis.device)
+    return [float(v) for v in axis.all_gather(x)[0, :, 0]]

@@ -22,11 +22,14 @@ counts the step's aten operations as they run on the ``meta`` device
                   batch by, before the run; the card run itself reads
                   ``torch.cuda.max_memory_allocated``.
 
-Collectives: the port's devices are logical and it has no partitioner,
-so one card's step issues no collective and a record's ``collectives``
-is null.  The traffic model of the reference (``_traffic``,
-``_group_size``) is kept for the ``torch.distributed`` backend; the HLO
-text parser ``collective_bytes`` has nothing to parse and is not ported.
+Collectives: the dry-run's devices are logical and the port has no
+partitioner, so a record's step issues no collective and its
+``collectives`` is null.  The worker axis of BSP allreduce training runs
+over ``torch.distributed`` (``core.collectives.DistAxis``), but the
+dry-run's meshes do not yet; the traffic model of the reference
+(``_traffic``, ``_group_size``) is kept for the dry-run's collectives
+(ROADMAP queue A item 9g).  The HLO text parser ``collective_bytes`` has
+nothing to parse and is not ported.
 
   op               result bytes R, group size S   traffic per device
   all-reduce       R                               2 (S-1)/S * R
@@ -121,9 +124,10 @@ def count_cost(fn: Callable, *args) -> Tuple[Dict[str, float], object]:
 
 
 # -------------------------------------------------- collective traffic model
-# No caller yet: a one-card record's ``collectives`` is null.  The
+# No caller yet: a dry-run record's ``collectives`` is null.  The
 # reference's per-collective model is kept here, with parity tests, for the
-# torch.distributed backend that will fill that field.
+# dry-run over torch.distributed meshes that will fill that field (ROADMAP
+# queue A item 9g).
 _GROUPS_IOTA_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
 _GROUPS_LIST_RE = re.compile(r"replica_groups=\{\{([0-9, ]+)\}")
 

@@ -3,8 +3,11 @@ communication (survey §3.3): the JAX package's
 ``train/data_parallel.py::DeviceEngine`` over the survey's Table 1,
 {bsp, ssp, asp, sma} x {allreduce, ps}.
 
-K logical workers share one device (``core.collectives``); gradients
-travel as the reference's leaf list (``core.tree.LeafLayout``).
+K logical workers share one device (``core.collectives.LogicalAxis``),
+or, under BSP allreduce, each worker is one ``torch.distributed`` rank
+(``group=``: ``core.collectives.DistAxis``, one process per worker as
+one device per worker in the reference); gradients travel as the
+reference's leaf list (``core.tree.LeafLayout``).
 
   sync=bsp        every step runs each worker's forward and backward on its
                   own batch (one after another), then by ``wire`` mode:
@@ -55,7 +58,18 @@ device time by phase (``tools/torch_train_profile.py``).
 ``torch.Generator``s seeded from (seed, step or event, worker) drive the
 stochastic methods (``core.sync.event_generator``): one per worker for the
 modeled roundtrip, one (worker index K) for the measured exchange.  They
-are not the JAX package's key streams.
+are not the JAX package's key streams.  A rank computes its worker's
+gradient with that worker's generator and draws the exchange's whole
+noise blocks, keeping its rows, so a process group reproduces the
+logical engine's numbers.
+
+Over a process group (``DeviceEngine(..., group=)``) each rank holds the
+replicated parameters and its own worker's EF row only (EF memory cut by
+K), runs the exchange over ``DistAxis``, gathers the K losses (the
+float64 worker-order mean, as on the logical axis) and dgc's sparse
+counts, and only rank 0 writes the trace.  PS, SSP/ASP/SMA, backup
+workers, detection and the elastic interface raise there: they are later
+slices of ROADMAP queue A item 9.
 """
 from __future__ import annotations
 
@@ -70,7 +84,8 @@ from torch.profiler import record_function
 
 from repro_torch.comm.plan import (WIRE_MODES, CommPlan, fuse, plan_buckets,
                                    scatter_flat)
-from repro_torch.core.collectives import psum_scatter
+from repro_torch.core.collectives import (DistAxis, LogicalAxis,
+                                          gather_values, psum_scatter)
 from repro_torch.core.comm_scheduler import LinkModel
 from repro_torch.core.compression import EF_METHODS, Compressor
 from repro_torch.core.parameter_server import (all_gather_flat, make_ps_step,
@@ -80,7 +95,7 @@ from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
                                    event_generator, firing_schedule)
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.elastic.backup import participation_weights
-from repro_torch.obs.trace import get_recorder
+from repro_torch.obs.trace import NullRecorder, get_recorder
 from repro_torch.train.train_loop import fold_in
 
 DEVICE_SYNCS = ("bsp", "ssp", "asp", "sma")   # device-executable sync models
@@ -155,17 +170,20 @@ def make_bucketed_allreduce(params_example, topology: str = "ring",
     into ~bucket_mb buckets in backward order, issued in the chosen
     transfer order, each reduced with the topology-explicit schedule.  A
     thin wrapper over ``CommPlan.reduce_grads`` (the exact full-precision
-    path); the plan takes the worker count from the lists it is given."""
+    path); the plan takes the worker count from the lists it is given, or
+    from ``axis`` (``reduce_grads(grads, axis=)``, ``grads`` then the lists
+    of the workers this process holds)."""
     layout = layout or LeafLayout.of_tree(params_example)
     plan = CommPlan.plan(layout.shapes(params_example), n=1,
                          topology=topology, bucket_mb=bucket_mb, order=order,
                          back_s_per_byte=back_s_per_byte, seed=seed)
 
-    def reduce_grads(grads: List[List[torch.Tensor]]) -> List[torch.Tensor]:
-        p = plan if len(grads) == plan.n else dataclasses.replace(
-            plan, n=len(grads))
+    def reduce_grads(grads: List[List[torch.Tensor]],
+                     axis=None) -> List[torch.Tensor]:
+        n = len(grads) if axis is None else axis.size
+        p = plan if n == plan.n else dataclasses.replace(plan, n=n)
         with record_function("allreduce"):
-            return p.reduce_grads(grads)
+            return p.reduce_grads(grads, axis)
 
     reduce_grads.fused_layers = plan.fused
     reduce_grads.order = plan.order
@@ -183,48 +201,58 @@ def _worker_mean(values) -> np.float32:
 
 
 def make_sharded_train_step(train_step: Callable, workers: int,
-                            compressed: bool):
+                            compressed: bool, axis=None):
     """Lift a ``make_train_step`` step (built with ``reduce_fn``, e.g.
-    ``make_bucketed_allreduce``'s) over ``workers`` logical workers on one
-    device: the reference's ``shard_map`` over the worker axis, run as
+    ``make_bucketed_allreduce``'s) over ``workers`` workers: the
+    reference's ``shard_map`` over the worker axis, run as
 
-      1. each worker's gradient, cast and compression in turn, on its
-         slice of the stacked batch (``[workers, ...]`` leaves), with its
-         generator (the step's with the worker index folded in) and, when
-         ``compressed``, its row of the stacked ``[workers, ...]`` EF
-         leaves;
-      2. ``reduce_fn`` once over the workers' leaf lists;
-      3. the optimizer once, on the replicated parameters.
+      1. the gradient, cast and compression of each worker this process
+         holds, in turn, on its slice of the stacked batch (``[workers,
+         ...]`` leaves), with its generator (the step's with the worker
+         index folded in) and, when ``compressed``, its row of the stacked
+         EF leaves;
+      2. ``reduce_fn`` once over those workers' leaf lists;
+      3. the optimizer once, on this process's replica of the parameters.
 
-    Metrics are the fp32 mean over workers (``pmean``).  The step has the
-    ``train_loop`` contract ``step(state, stacked_batch, gen) -> (state,
-    metrics)`` and, as ``make_train_step``'s, updates the state in place
-    (each worker renews its row of the EF)."""
+    ``axis`` (``core.collectives``) says which workers this process holds:
+    all of them by default, on one device; with a ``DistAxis`` each rank
+    runs its own worker, and its EF leaves are ``[1, ...]`` (its row).
+    Metrics are the fp32 mean over all workers (``pmean``), gathered
+    across processes in worker order.  The step has the ``train_loop``
+    contract ``step(state, stacked_batch, gen) -> (state, metrics)`` and,
+    as ``make_train_step``'s, updates the state in place (each worker
+    renews its row of the EF)."""
     worker, update = train_step._worker, train_step._update
     if train_step._reduce_fn is None:
         raise ValueError("make_sharded_train_step needs a step built with "
                          "reduce_fn (e.g. make_bucketed_allreduce)")
+    ax = axis if axis is not None else LogicalAxis(workers)
+    if ax.size != workers:
+        raise ValueError(f"{workers} workers on an axis of {ax.size}")
 
     def step(state, batch, gen: Optional[torch.Generator] = None):
         ef = state["ef"] if compressed else None
         sent, per_worker = [], []
-        for w in range(workers):
+        for row, w in enumerate(ax.ids):
             loss, mets, leaves, wire = worker(
                 state["params"], tree_map(lambda x: x[w], batch),
-                None if ef is None else [e[w] for e in ef],
+                None if ef is None else [e[row] for e in ef],
                 None if gen is None else fold_in(gen, w))
             sent.append(leaves)
             per_worker.append(dict(mets, loss=loss, wire_bytes=wire))
             del leaves
-        mean = train_step._reduce_fn(sent)
+        if axis is None:
+            mean = train_step._reduce_fn(sent)
+        else:
+            mean = train_step._reduce_fn(sent, axis=ax)
         del sent
         state, mets = update(state, mean, per_worker[0],
                              per_worker[0]["loss"],
                              per_worker[0]["wire_bytes"])
         for m in per_worker:
             m["lr"] = mets["lr"]
-        return state, {k: _worker_mean(m[k] for m in per_worker)
-                       for k in mets}
+        return state, {k: _worker_mean(gather_values(
+            ax, [m[k] for m in per_worker])) for k in mets}
 
     return step
 
@@ -281,6 +309,31 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _dist_axis(cfg: DataParallelConfig, group) -> DistAxis:
+    """The worker axis over ``group``, for the cells it runs (BSP
+    allreduce without backup workers or detection); the others raise,
+    naming the ROADMAP item that will port them."""
+    if cfg.arch == "ps":
+        _not_ported("arch='ps'", "9b (the parameter server over ranks)")
+    if cfg.sync != "bsp":
+        _not_ported(f"sync={cfg.sync!r}", "9c (SSP, ASP and SMA over ranks)")
+    if cfg.backup or cfg.detect:
+        _not_ported("backup workers" if cfg.backup else
+                    "straggler detection", "9d (backup workers, detection "
+                    "and elastic resizes across ranks)")
+    import torch.distributed as dist
+    axis = DistAxis(group, dist.get_backend(group))
+    if axis.size != cfg.num_workers:
+        raise ValueError(f"{cfg.num_workers} workers on a process group of "
+                         f"{axis.size} ranks")
+    return axis
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} over a process group is not ported "
+                              f"yet (ROADMAP queue A item {item})")
+
+
 class DeviceEngine(ElasticWorkerSet):
     """{bsp, ssp, asp, sma} x {allreduce, ps} over K workers on one device:
     ``init / step / finalize`` plus a composed ``run`` returning
@@ -288,10 +341,15 @@ class DeviceEngine(ElasticWorkerSet):
 
     ``grad_fn(params, batch) -> (loss, grads)`` with ``grads`` a tree like
     ``params``; ``layout`` maps such a tree onto the reference's leaves
-    (``LeafLayout.of_tree(params)`` when not given)."""
+    (``LeafLayout.of_tree(params)`` when not given).
+
+    ``group`` (a ``torch.distributed`` process group of ``num_workers``
+    ranks, ``dist.group.WORLD`` for the default one) runs one worker per
+    rank: BSP allreduce only (module docstring)."""
 
     def __init__(self, cfg: DataParallelConfig, grad_fn: Callable,
-                 layout: Optional[LeafLayout] = None, device="cuda"):
+                 layout: Optional[LeafLayout] = None, device="cuda",
+                 group=None):
         if cfg.sync not in DEVICE_SYNCS:
             raise ValueError(f"sync={cfg.sync!r} (supported: {DEVICE_SYNCS})")
         if cfg.arch not in ARCHS:
@@ -310,6 +368,8 @@ class DeviceEngine(ElasticWorkerSet):
                              "(async modes have no round to drop from)")
         if cfg.backup >= cfg.num_workers:
             raise ValueError("backup k must leave at least one worker")
+        self._group_axis = (None if group is None
+                            else _dist_axis(cfg, group))
         self.cfg = cfg
         self.grad_fn = grad_fn
         self.layout = layout
@@ -327,6 +387,16 @@ class DeviceEngine(ElasticWorkerSet):
     @property
     def _ef_active(self) -> bool:
         return self.cfg.compressor.method in EF_METHODS
+
+    @property
+    def axis(self):
+        """The worker axis: one worker per rank of the process group, or
+        every worker (their current number) in this process."""
+        return self._group_axis or LogicalAxis(self.cfg.num_workers)
+
+    def _local_only(self, what: str, item: str):
+        if self._group_axis is not None:
+            _not_ported(what, item)
 
     # ------------------------------------------------------------- planning
     def _layout(self, params) -> LeafLayout:
@@ -371,7 +441,8 @@ class DeviceEngine(ElasticWorkerSet):
         K = cfg.num_workers
         plan = self._ensure_plan(st["params"])
         drop = self.backup_drop(cfg.backup)
-        rec = get_recorder()
+        # one trace per run: a process group's rank 0 writes it
+        rec = get_recorder() if self.axis.ids[0] == 0 else NullRecorder()
         if rec.enabled:
             # one compute span over the whole step (the reference's fused
             # dispatch: gradients, exchange, update), synchronized so its
@@ -397,6 +468,7 @@ class DeviceEngine(ElasticWorkerSet):
                         pid="train", cat="comm", clock=("train_step", t))
         self._dropped += len(drop)
         # participant-mean loss, float64 like the reference's accounting
+        losses = gather_values(self.axis, losses)
         part = [losses[w] for w in range(K) if w not in drop]
         ev = dict(step=t, loss=float(np.mean(part)), max_staleness=0)
         if drop:
@@ -404,11 +476,13 @@ class DeviceEngine(ElasticWorkerSet):
         return st, [ev]
 
     def _bsp_body(self, st, batches, t, plan: CommPlan, drop):
-        """The BSP step's work: every worker's gradient and compression,
-        the exchange and the update of ``st`` in place.  Returns (the
-        workers' losses as floats, dgc's sparse elements sent)."""
+        """The BSP step's work: the gradient and compression of every
+        worker this process holds, the exchange and the update of ``st``
+        in place.  Returns (those workers' losses as floats, dgc's sparse
+        elements sent by all workers)."""
         cfg = self.cfg
         K = cfg.num_workers
+        ax = self.axis
         comp = cfg.compressor
         layout = self._layout(st["params"])
         weights = participation_weights(K, drop)
@@ -428,7 +502,7 @@ class DeviceEngine(ElasticWorkerSet):
             batches = lambda _t, w: fetched[w]   # noqa: E731
         sent: List[List[torch.Tensor]] = []
         losses = []
-        for w in range(K):
+        for row, w in enumerate(ax.ids):
             with record_function("forward_backward"):
                 loss, grads = self.grad_fn(st["params"], batches(t, w))
             leaves = layout.leaves(grads, consume=True)
@@ -436,7 +510,7 @@ class DeviceEngine(ElasticWorkerSet):
             ef_new = None
             with record_function("stack_and_compress"):
                 if comp.method != "none" and not plan.in_schedule:
-                    ef = None if st["ef"] is None else st["ef"][w]
+                    ef = None if st["ef"] is None else st["ef"][row]
                     leaves, ef_new, _ = comp.roundtrip(
                         leaves, ef, self._generator(t, w))
                     del ef
@@ -446,7 +520,7 @@ class DeviceEngine(ElasticWorkerSet):
             if wt != 1.0:
                 leaves = [x * wt for x in leaves]
             if ef_new is not None and wt > 0:
-                st["ef"][w] = ef_new
+                st["ef"][row] = ef_new
             sent.append(leaves)
             losses.append(float(loss))
             del leaves, ef_new
@@ -467,12 +541,12 @@ class DeviceEngine(ElasticWorkerSet):
                         params, sent, st["ef"], self._generator(t, K), lr)
                 else:
                     avg, ef_new, sent_elems = plan.exchange(
-                        sent, st["ef"], self._generator(t, K))
+                        sent, st["ef"], self._generator(t, K), axis=ax)
                 if ef_new is not None:
                     for w, row in kept.items():
                         ef_new[w] = row
                     st["ef"] = ef_new
-                nz = int(sent_elems.sum())
+                nz = int(sum(gather_values(ax, sent_elems.tolist())))
             elif cfg.arch == "ps":
                 if self._ps_update is None:
                     self._ps_update = make_bucketed_ps_update(
@@ -481,7 +555,7 @@ class DeviceEngine(ElasticWorkerSet):
                         back_s_per_byte=cfg.back_s_per_byte, seed=cfg.seed)
                 new = self._ps_update(params, sent)
             else:
-                avg = plan.reduce_grads(sent)
+                avg = plan.reduce_grads(sent, axis=ax)
         with record_function("sgd_update"):
             if cfg.arch == "ps":
                 st["params"] = layout.update(st["params"], new,
@@ -596,10 +670,11 @@ class DeviceEngine(ElasticWorkerSet):
         params = tree_map(lambda x: x.to(self.device), params)
         ef = None
         if self._ef_active:
+            # one residual per worker this process holds
             shapes = self._layout(params).shapes(params)
             ef = [cfg.compressor.init_state(
                 torch.empty(s, device=self.device) for s in shapes)
-                for _ in range(K)]
+                for _ in self.axis.ids]
         st: Dict[str, Any] = dict(params=params, ef=ef, wire=0)
         if cfg.sync in ("ssp", "asp"):
             st.update(
@@ -658,6 +733,7 @@ class DeviceEngine(ElasticWorkerSet):
         zero residuals at the batch frontier (ssp/asp) or at the
         pre-reshard center (sma).  The comm plan depends on the worker
         count and is re-planned at the next step."""
+        self._local_only("reshard", "9d (elastic resizes across ranks)")
         ef = st["ef"]
         slots, grown = self._reshard_workers(new_workers, lost)
         self._plan, self._ps_update = None, None
@@ -679,6 +755,8 @@ class DeviceEngine(ElasticWorkerSet):
         cache is dropped (batches are a pure function of (batch index,
         worker)); ``ef`` is a list per worker of the reference's leaves,
         where the reference stacks a worker axis."""
+        self._local_only("export_state", "9d (elastic snapshots across "
+                         "ranks)")
         sync = self.cfg.sync
         arrays: Dict[str, Any] = {"ef": st["ef"]}
         if sync == "sma":
@@ -692,6 +770,8 @@ class DeviceEngine(ElasticWorkerSet):
     def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
         """Rebuild the run-state from an ``export_state`` snapshot.  The
         engine must already be configured at ``meta['num_workers']``."""
+        self._local_only("import_state", "9d (elastic snapshots across "
+                         "ranks)")
         sync = self.cfg.sync
         st: Dict[str, Any] = dict(ef=arrays["ef"])
         self._load_snapshot_meta(meta, sync, st)
@@ -712,7 +792,7 @@ class DeviceEngine(ElasticWorkerSet):
                        else st["params"])
         params = _tree_bytes(params_like)
         ef = (sum(x.numel() * x.element_size() for e in st["ef"] for x in e)
-              // self.cfg.num_workers if st.get("ef") is not None else 0)
+              // len(st["ef"]) if st.get("ef") is not None else 0)
         return {"params": params, "opt": 0, "ef": ef, "total": params}
 
     def run(self, params, batches: Callable[[int, int], Any], steps: int):

@@ -13,11 +13,17 @@ every one on its backend:
           simulation: any sync model, any compressor.  Architecture is
           transparent there (the simulated server is the PS).
   device  ``train.data_parallel.DeviceEngine``: K logical workers on one
-          device, every sync model and both architectures.
+          device, every sync model and both architectures; or, given a
+          ``torch.distributed`` process group (``build(..., group=)``,
+          ``Trainer(..., group=)``), one worker per rank for the BSP
+          allreduce cells.
 
-``backend="auto"`` resolves to ``device``: the port's workers are logical,
-so one card holds any worker count (the reference falls back to ``sim``
-when the process has fewer devices than workers).  ``wire="measured"``
+``backend="auto"`` resolves to ``device``: by default the port's workers
+are logical, so one card holds any worker count (the reference falls
+back to ``sim`` when the process has fewer devices than workers).  A
+process group is the reference's one-worker-per-device layout; the sim
+backend, hybrid meshes and the cells that are not BSP allreduce refuse
+one, naming the ROADMAP item that will port them.  ``wire="measured"``
 needs the device backend.  ``bsp+backup:k`` drops the k slowest workers
 each round, ``+detect`` ranks them by measured step times, and
 ``Trainer.fit(plan=...)`` runs under an elastic event plan
@@ -386,13 +392,14 @@ class Strategy:
         return "device"
 
     def build(self, grad_fn: Callable, layout: Optional[LeafLayout] = None,
-              device="cuda") -> "Engine":
+              device="cuda", group=None) -> "Engine":
         """Construct the engine for this cell on ``device``; ``grad_fn``
         may be a ``parallel.StagedModel``, and ``layout`` maps the
         parameter tree onto the reference's leaves (see
-        ``DeviceEngine``)."""
+        ``DeviceEngine``).  ``group``: run one worker per rank of this
+        ``torch.distributed`` process group (``workers`` ranks)."""
         return BACKENDS[self.resolve_backend()](self, grad_fn, layout,
-                                                device)
+                                                device, group)
 
 
 # --------------------------------------------------------------- engines
@@ -410,11 +417,13 @@ class Engine:
     backend = "?"
 
     def __init__(self, strategy: Strategy, grad_fn: Callable,
-                 layout: Optional[LeafLayout] = None, device="cuda"):
+                 layout: Optional[LeafLayout] = None, device="cuda",
+                 group=None):
         self.strategy = strategy
-        self.inner = self._make_inner(strategy, grad_fn, layout, device)
+        self.inner = self._make_inner(strategy, grad_fn, layout, device,
+                                      group)
 
-    def _make_inner(self, strategy, grad_fn, layout, device):
+    def _make_inner(self, strategy, grad_fn, layout, device, group):
         raise NotImplementedError
 
     def init(self, params):
@@ -475,7 +484,11 @@ class SimBackend(Engine):
 
     backend = "sim"
 
-    def _make_inner(self, s: Strategy, grad_fn, layout, device):
+    def _make_inner(self, s: Strategy, grad_fn, layout, device, group):
+        if group is not None:
+            raise ValueError("the simulator runs every worker in one "
+                             "process; a process group needs the device "
+                             "backend")
         grad_fn = _as_grad_fn(grad_fn)
         return SimSyncEngine(
             SyncConfig(mode=s.sync, num_workers=s.workers,
@@ -494,8 +507,13 @@ class DeviceBackend(Engine):
 
     backend = "device"
 
-    def _make_inner(self, s: Strategy, grad_fn, layout, device):
+    def _make_inner(self, s: Strategy, grad_fn, layout, device, group):
         if s.is_hybrid:
+            if group is not None:
+                raise NotImplementedError(
+                    "hybrid meshes (tensor and stage axes, ZeRO, AdamW, "
+                    "precisions) over a process group are not ported yet "
+                    "(ROADMAP queue A item 9e)")
             from repro_torch.parallel.engine import HybridConfig, HybridEngine
             return HybridEngine(
                 HybridConfig(
@@ -517,7 +535,7 @@ class DeviceBackend(Engine):
                 backup=s.backup, bucket_mb=s.bucket_mb, order=s.order,
                 detect=s.detect, wire=s.wire, sma_mu=s.sma_mu,
                 seed=s.seed),
-            grad_fn, layout, device)
+            grad_fn, layout, device, group)
 
 
 BACKENDS: Dict[str, type] = {"sim": SimBackend, "device": DeviceBackend}
@@ -555,11 +573,14 @@ class Trainer:
     the elastic trainer: the engine is snapshotted through
     ``checkpoint.store`` into ``checkpoint_dir`` and lives through
     crashes, resizes, restarts and straggler events in the same
-    process."""
+    process.  ``group`` runs one worker per rank of a ``torch.distributed``
+    process group (``Strategy.build``); every rank calls ``fit`` and gets
+    the same parameters and history."""
 
-    def __init__(self, strategy: Strategy, device="cuda"):
+    def __init__(self, strategy: Strategy, device="cuda", group=None):
         self.strategy = strategy
         self.device = device
+        self.group = group
 
     def fit(self, grad_fn: Callable, params,
             batches: Callable[[int, int], Any], steps: int, *,
@@ -567,10 +588,15 @@ class Trainer:
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 5):
         if plan is not None:
+            if self.group is not None:
+                raise NotImplementedError(
+                    "elastic plans over a process group are not ported yet "
+                    "(ROADMAP queue A item 9d)")
             from repro_torch.elastic.recovery import fit_elastic
             return fit_elastic(self.strategy, grad_fn, params, batches,
                                steps, plan, checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every,
                                layout=layout, device=self.device)
-        engine = self.strategy.build(grad_fn, layout, self.device)
+        engine = self.strategy.build(grad_fn, layout, self.device,
+                                     self.group)
         return fit(engine, params, batches, steps)

@@ -1,0 +1,175 @@
+"""The worker axis over ``torch.distributed``: one process per worker
+(``core.collectives.DistAxis``, ``launch.dist.spawn``), Gloo on the CPU,
+against the logical axis and the JAX reference.
+
+Two spawns of a few seconds each (``tests/torch_dist_ranks.py`` holds
+the rank functions, which import only torch and the port):
+
+* 8 ranks: every exact schedule over the 8-rank group on
+  ``test_torch_train.py``'s ``x`` [8, 1003] against the JAX schedules of
+  its ``jax_runs`` (ring, butterfly, tree bit for bit; fully-connected and
+  psum within 1e-6); every exact schedule, codec exchange
+  (``compressed_allreduce_ef``: ring, butterfly, tree, fully-connected x
+  onebit, dgc, terngrad, qsgd), ``make_allreduce`` and ``psum_scatter``
+  over the 8 ranks and over sub-groups of 2, 3 and 4 ranks bit for bit
+  against the logical axis (butterfly and tree refuse 3 workers on both);
+  then ``bsp/allreduce/onebit@8`` through the engine against the JAX
+  engine (losses within 1e-4 per step, wire bytes exact).
+* 4 ranks: ``bsp/allreduce/{none,onebit}@4`` modeled and
+  ``bsp/ring/{onebit,dgc,terngrad}@4`` measured through ``Trainer.fit``
+  against the logical engine (losses, parameters and wire bytes bit for
+  bit); ``make_sharded_train_step`` with AdamW and onebit against the
+  logical sharded step (metrics, parameters, each rank's EF row); and the
+  cells and methods a process group refuses, each naming its ROADMAP
+  item.
+"""
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_ranks as R
+from repro_torch.launch.dist import spawn
+from test_torch_train import jax_runs, setup  # noqa: F401 (fixture)
+
+torch.set_num_threads(2)
+
+WORLD_A, WORLD_B = 8, 4
+JAX_SPEC = "bsp/allreduce/onebit@8"
+TIMEOUT_S = 240
+_CACHE = {}
+
+
+@pytest.fixture(scope="module")
+def axis_runs(jax_runs):
+    x, _ = jax_runs
+    xt = torch.from_numpy(x)
+    ranks = spawn(R.axis_rank, WORLD_A, "gloo", device="cpu",
+                  args=(xt, setup()["params"], JAX_SPEC),
+                  timeout_s=TIMEOUT_S)
+    return ranks, R.logical_cases(xt)
+
+
+@pytest.fixture(scope="module")
+def engine_runs():
+    params = setup()["params"]
+    return spawn(R.engine_rank, WORLD_B, "gloo", device="cpu",
+                 args=(params,), timeout_s=TIMEOUT_S)
+
+
+def _rows(ranks, k, key):
+    """Ranks 0..k-1's values of ``key`` stacked as the logical rows."""
+    vals = [ranks[r][k][key] for r in range(k)]
+    if isinstance(vals[0], str):
+        assert len(set(vals)) == 1
+        return vals[0]
+    if isinstance(vals[0], dict):
+        return {n: torch.cat([v[n] for v in vals]) for n in vals[0]}
+    if isinstance(vals[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*vals))
+    return torch.cat(vals)
+
+
+def _equal(a, b):
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_equal, a, b))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+# -------------------------------------------------- schedules against JAX
+@pytest.mark.parametrize("name", list(R.SCHEDULES))
+def test_schedules_over_8_ranks_match_jax(jax_runs, axis_runs, name):
+    _, ref = jax_runs
+    ranks, _ = axis_runs
+    port = _rows(ranks, WORLD_A, "sched/" + name).numpy()
+    if name in ("ring", "butterfly", "tree"):
+        np.testing.assert_array_equal(port, ref["sched_" + name])
+    else:
+        np.testing.assert_allclose(port, ref["sched_" + name], rtol=1e-6,
+                                   atol=1e-6)
+
+
+# --------------------------------------- the dist axis against the logical
+def _case_ids():
+    ids = []
+    for k in (WORLD_A,) + R.SUBGROUPS:
+        ids += [(k, "sched/" + n) for n in R.SCHEDULES]
+        ids.append((k, "psum_scatter"))
+        if k & (k - 1) == 0:
+            ids += [(k, f"codec/{t}/{m}") for t in R.CODEC_TOPOLOGIES
+                    for m in R.CODEC_METHODS]
+            ids += [(k, "allreduce/" + n) for n in R.SCHEDULES]
+    return ids
+
+
+@pytest.mark.parametrize("k,key", _case_ids(),
+                         ids=[f"{k}-{key}" for k, key in _case_ids()])
+def test_dist_axis_matches_logical(axis_runs, k, key):
+    ranks, logical = axis_runs
+    got, want = _rows(ranks, k, key), logical[k][key]
+    if isinstance(want, str):           # butterfly and tree at 3 workers
+        assert "power-of-two" in want
+    assert _equal(got, want)
+
+
+# -------------------------------------------------------- engine cells
+def test_engine_over_8_ranks_matches_jax_engine(jax_runs, axis_runs):
+    _, ref = jax_runs
+    ranks, _ = axis_runs
+    losses, leaves, wire = ranks[0]["engine"]
+    assert np.abs(np.array(losses) - ref[JAX_SPEC + "/losses"]).max() \
+        <= 1e-4
+    assert wire == int(ref[JAX_SPEC + "/wire"])
+    for i, leaf in enumerate(leaves):
+        assert np.abs(leaf.numpy() - ref[f"{JAX_SPEC}/p{i}"]).max() <= 1e-4
+    # every rank holds the same replica, losses and bytes
+    for r in ranks[1:]:
+        assert r["engine"][0] == losses and r["engine"][2] == wire
+        assert all(torch.equal(a, b) for a, b in zip(r["engine"][1],
+                                                     leaves))
+
+
+def _logical_cell(spec, wire):
+    if spec not in _CACHE:
+        _CACHE[spec] = R.engine_cell(spec, wire, setup()["params"])
+    return _CACHE[spec]
+
+
+@pytest.mark.parametrize("spec,wire", R.ENGINE_CELLS)
+def test_engine_over_4_ranks_matches_logical_engine(engine_runs, spec,
+                                                    wire):
+    losses, leaves, nbytes = _logical_cell(spec, wire)
+    assert len(losses) == R.ENGINE_STEPS
+    for r in engine_runs:
+        got_losses, got_leaves, got_bytes = r["cells"][spec]
+        assert got_losses == losses
+        assert got_bytes == nbytes
+        assert all(torch.equal(a, b) for a, b in zip(got_leaves, leaves))
+
+
+def test_sharded_step_over_4_ranks_matches_logical(engine_runs):
+    hist, leaves, ef = R.sharded_run(setup()["params"])
+    assert len(hist) == R.SHARDED["steps"]
+    assert len({h["wire_bytes"] for h in hist}) == 1 and \
+        hist[0]["wire_bytes"] > 0
+    for rank, r in enumerate(engine_runs):
+        got_hist, got_leaves, got_ef = r["sharded"]
+        assert got_hist == hist
+        assert all(torch.equal(a, b) for a, b in zip(got_leaves, leaves))
+        # each rank carries its own worker's EF row, [1, ...]
+        assert all(torch.equal(a, b[rank:rank + 1])
+                   for a, b in zip(got_ef, ef))
+
+
+@pytest.mark.parametrize("name", list(R.REFUSALS))
+def test_group_refuses_unported_cells(engine_runs, name):
+    want = R.REFUSALS[name][2]
+    for r in engine_runs:
+        msg = r["refusals"][name]
+        assert msg != "no error" and want in msg, msg
+        if want.startswith("9"):
+            assert msg.startswith("NotImplementedError") and \
+                f"ROADMAP queue A item {want}" in msg, msg
