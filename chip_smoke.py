@@ -361,10 +361,12 @@ lengths:
              TinyLlama-1.1B x all four shapes, Qwen2-VL-7B x prefill_32k,
              DeepSeek-V2-Lite-16B x long_500k (the 524288-row MLA latent
              cache), RecurrentGemma-9B x long_500k, Whisper-large-v3 x
-             decode_32k: the meta FLOPs and bytes extrapolated to the full
-             depth, the card's median ms at each depth at run_pair's batch
-             and their extrapolation, the peak GiB beside the meta count
-             it was planned by, and the roofline terms (H100 constants).
+             train_4k, prefill_32k and decode_32k: the meta FLOPs and
+             bytes extrapolated to the full depth, the card's median ms at
+             each depth at run_pair's batch and their extrapolation, the
+             peak GiB at 2 groups beside the meta count it was planned by
+             (launch.cost: the card's op transients and BLAS workspaces
+             included), and the roofline terms (H100 constants).
  25c. full   run_pair at full depth on the card for TinyLlama-1.1B x all
              four shapes, RecurrentGemma-9B x long_500k and
              DeepSeek-V2-Lite-16B x long_500k: the measured ms beside the
@@ -394,15 +396,23 @@ too, with small configs and shapes given by cfg_for and shape_for.
 
 Phase 26 is the worker axis over torch.distributed, one process per
 worker (repro_torch.launch.dist.spawn; core.collectives.DistAxis):
- 26a. gloo   bsp/ring/onebit@k (wire="measured") and bsp/allreduce/onebit@k
-             (modeled), fp32, TF32 off, 3 steps of phase 7's batches, over
-             k Gloo ranks on the one card (each rank's gradient on the
-             card with the kernels, the hops staged through pinned host
-             memory): k = 2 at full width and k = 4 at 2 layers (four
-             full-width ranks do not fit the card), the latter also
-             bsp/ring/{dgc,terngrad,qsgd}@4 measured.  Each against the
+ 26a. gloo   bsp/ring/onebit@k (wire="measured") and
+             bsp/allreduce/onebit@k (modeled), fp32, TF32 off, 3 steps of
+             phase 7's batches, and bsp/ps/onebit@k measured, 2 steps,
+             over k Gloo ranks on the one card (each rank's gradient on
+             the card with the kernels, the hops staged through pinned
+             host memory): k = 2 at full width, with ssp:3/ps/onebit@2
+             (modeled, 1 step of 3 push events), and k = 4 at 2 layers
+             (four full-width ranks do not fit the card), the latter also
+             bsp/ring/{dgc,terngrad,qsgd}@4 measured (3 steps) and, 2
+             steps each, bsp/ps/{dgc,qsgd}@4 measured, bsp/ps/none@4
+             modeled, bsp/ps/terngrad@4 in both modes,
+             sma/allreduce/none@4 and bsp+backup:1/ring/onebit@4
+             measured, and asp/allreduce/none@4 (1 step of 5 events).  Each against the
              logical engine run just before in this process on the same
-             draws: losses within DIST_TOL, wire bytes equal.
+             draws: losses (one per step, or per push event) within
+             DIST_TOL and the terngrad and qsgd cells' bit for bit, wire
+             bytes equal.
  26b. nccl   bsp/ring/onebit@1 measured over an NCCL group of
              torch.cuda.device_count() ranks, against the logical axis in
              the same rank process.
@@ -465,8 +475,8 @@ DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRY_PROBES = ([("tinyllama-1.1b", s) for s in DRY_SHAPES]
               + [("qwen2-vl-7b", "prefill_32k"),
                  ("deepseek-v2-lite-16b", "long_500k"),
-                 ("recurrentgemma-9b", "long_500k"),
-                 ("whisper-large-v3", "decode_32k")])
+                 ("recurrentgemma-9b", "long_500k")]
+              + [("whisper-large-v3", s) for s in DRY_SHAPES[:3]])
 DRY_RUNS = ([("tinyllama-1.1b", s) for s in DRY_SHAPES]
             + [("recurrentgemma-9b", "long_500k"),
                ("deepseek-v2-lite-16b", "long_500k")])
@@ -585,22 +595,45 @@ MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
 # full depth): a full-width rank holds its replica, gradient, EF and the
 # exchange's outputs at once, and 4 such ranks ran out of the card's 80 GB
 # (PERF.md, phase 26), so 2 ranks at full depth and 4 at 2 layers, where
-# the other codecs' measured cells run too.  The NCCL cell at world size
-# device_count(); the 100M trainer over 2 ranks (its history logs steps 0
-# and 2).  fp32 with TF32 off: the ranks launch the logical engine's
-# kernels on their own rows, so the losses agree to DIST_TOL (bit for bit
-# but for the stochastic codecs' launches of one rank's segment)
-DIST_CELLS = (("bsp/ring/onebit@{k}", "measured"),
-              ("bsp/allreduce/onebit@{k}", "modeled"))
-DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured"),
-                    ("bsp/ring/terngrad@{k}", "measured"),
-                    ("bsp/ring/qsgd@{k}", "measured"))
-DIST_RUNS = ((2, None, DIST_CELLS),
+# the other codecs', the parameter server's, ASP's, SMA's and the backup
+# workers' cells run too.  A cell is (spec, wire, global steps; None =
+# TRAIN_STEPS).  The parameter server's and SMA's cells over ranks move
+# the whole model through Gloo's host staging every step, and an SSP/ASP
+# step is K push events that each do (DistAxis.psum_scatter gathers every
+# rank's full contribution), so those cells take fewer steps.  The NCCL cell at world size device_count(); the 100M trainer
+# over 2 ranks (its history logs steps 0 and 2).  fp32 with TF32 off: the
+# ranks launch the logical engine's kernels on their own rows at the
+# logical engine's shapes (each stochastic codec's scale from its own
+# segment, kernels.segments.per_segment), so the losses agree to DIST_TOL
+# and the terngrad and qsgd cells bit for bit
+DIST_CELLS = (("bsp/ring/onebit@{k}", "measured", None),
+              ("bsp/allreduce/onebit@{k}", "modeled", None),
+              ("bsp/ps/onebit@{k}", "measured", 2))
+DIST_FULL_CELLS = (("ssp:3/ps/onebit@{k}", "modeled", 1),)
+DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured", None),
+                    ("bsp/ring/terngrad@{k}", "measured", None),
+                    ("bsp/ring/qsgd@{k}", "measured", None),
+                    ("bsp/ps/none@{k}", "modeled", 2),
+                    ("bsp/ps/dgc@{k}", "measured", 2),
+                    ("bsp/ps/qsgd@{k}", "measured", 2),
+                    ("bsp/ps/terngrad@{k}", "modeled", 2),
+                    ("bsp/ps/terngrad@{k}", "measured", 2),
+                    ("asp/allreduce/none@{k}", "modeled", 1),
+                    ("sma/allreduce/none@{k}", "modeled", 2),
+                    ("bsp+backup:1/ring/onebit@{k}", "measured", 2))
+DIST_RUNS = ((2, None, DIST_CELLS + DIST_FULL_CELLS),
              (4, REDUCED_LAYERS, DIST_CELLS + DIST_CODEC_CELLS))
-# the kernel each method's cells must launch on every rank
-DIST_KERNEL = {"onebit": "onebit_encode_ef", "dgc": "topk_compress",
-               "terngrad": "terngrad_ternarize", "qsgd": "qsgd_compress"}
-DIST_NCCL_CELL = ("bsp/ring/onebit@{k}", "measured")
+# the kernel each (method, wire) cell must launch on every rank that
+# computes: the measured codecs' hop kernels, the modeled roundtrip's
+DIST_KERNEL = {("onebit", "measured"): "onebit_encode_ef",
+               ("onebit", "modeled"): "onebit_encode_ef",
+               ("dgc", "measured"): "topk_compress",
+               ("terngrad", "measured"): "terngrad_ternarize",
+               ("terngrad", "modeled"): "terngrad_compress",
+               ("qsgd", "measured"): "qsgd_compress"}
+# cells whose losses must equal the logical engine's bit for bit
+DIST_BITWISE = ("terngrad", "qsgd")
+DIST_NCCL_CELL = ("bsp/ring/onebit@{k}", "measured", None)
 DIST_TOL = 1e-5
 DIST_TOOL_ARGV = ["--strategy", "bsp/allreduce/onebit@2", "--steps", "3",
                   "--batch-size", "2", "--seq-len", "256"]
@@ -1556,7 +1589,9 @@ def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
             n1, n2 = card["n1"], card["n2"]
             peak = (f"; peak {n2['max_memory_allocated'] / 2**30:.2f} GiB "
                     f"at 2 groups, {card['meta_peak_n2'] / 2**30:.2f} GiB "
-                    "counted on meta" if cuda else "")
+                    f"counted on meta (card / count "
+                    f"{n2['max_memory_allocated'] / card['meta_peak_n2']:.3f})"
+                    if cuda else "")
             print(f"  {arch} x {s}: meta {rec['cost']['flops']:.4g} FLOP, "
                   f"{rec['cost']['bytes_accessed']:.4g} B (x{rec['extrap_mult']:.4g}"
                   f" groups); card batch {card['batch']} {card['reduced']}: "
@@ -1582,7 +1617,9 @@ def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
                       f"(measured / extrapolated "
                       f"{run['ms'] / probe['ms']:.3f})")
             peak = (f", peak {run['max_memory_allocated'] / 2**30:.2f} GiB "
-                    f"({rec['meta_peak'] / 2**30:.2f} GiB counted on meta)"
+                    f"({rec['meta_peak'] / 2**30:.2f} GiB counted on meta; "
+                    f"card / count "
+                    f"{run['max_memory_allocated'] / rec['meta_peak']:.3f})"
                     if cuda else "")
             print(f"  {arch} x {s}: batch {rec['batch']} {rec['reduced']}, "
                   f"{run['ms']:.2f} ms per step (median of "
@@ -1718,13 +1755,15 @@ def _launch_modules():
 
 def _train_cells(cfg, dev, cells, seq, batch, steps, group=None,
                  logical=False):
-    """Each (spec, wire) cell from seed-0 weights through ``Strategy.build``
-    and the shared fit loop, over ``group`` (one worker per rank) or with
-    every worker in this process; with ``logical`` also again with every
-    worker in this process.  Returns per cell the losses, wire bytes, step
-    walls (ms, read where the engine fetches the first held worker's
-    batch, after a synchronize), peak memory, bytes staged through the
-    host and kernel launches (counts zeroed just before the cell)."""
+    """Each (spec, wire, steps) cell (steps None: ``steps``) from seed-0
+    weights through ``Strategy.build`` and the shared fit loop, over
+    ``group`` (one worker per rank) or with every worker in this process;
+    with ``logical`` also again with every worker in this process.
+    Returns per (spec, wire) the losses (one per step, or per push event
+    under SSP/ASP), the firing worker of each event, wire bytes, global
+    step walls (ms, each ``engine.step`` between two synchronizes), peak
+    memory, bytes staged through the host and kernel launches (counts
+    zeroed just before the cell)."""
     from repro_torch.data import LMDataConfig, make_lm_batches
     from repro_torch.models import build_model
     from repro_torch.train import Strategy, value_and_grad
@@ -1742,30 +1781,32 @@ def _train_cells(cfg, dev, cells, seq, batch, steps, group=None,
         if on_card:
             torch.cuda.synchronize(dev)
 
-    def run(spec, wire, group):
+    def run(spec, wire, n_steps, group):
         params = model.init(seed=0, dtype=torch.float32, device=dev)
         engine = Strategy.parse(spec, lr=0.01, wire=wire).build(
             grad_fn, model.leaf_layout(params), device=dev, group=group)
-        first = engine.inner.axis.ids[0]
-        marks = []
+        step, walls = engine.step, []
 
-        def timed(t, w):
-            if w == first:
-                sync()
-                marks.append(time.perf_counter())
-            return batches(t, w)
+        def timed_step(st, b, t):
+            sync()
+            t0 = time.perf_counter()
+            out = step(st, b, t)
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            return out
 
+        engine.step = timed_step
         for mod in mods:
             mod.reset_launches()
         sync()
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
-        _, hist, mets = fit(engine, params, timed, steps)
+        _, hist, mets = fit(engine, params, batches, n_steps)
         sync()
-        marks.append(time.perf_counter())
         del params
-        got = dict(losses=[h["loss"] for h in hist], wire=mets["wire_bytes"],
-                   step_ms=[1e3 * (b - a) for a, b in zip(marks, marks[1:])],
+        got = dict(losses=[h["loss"] for h in hist],
+                   workers=[h.get("worker") for h in hist],
+                   wire=mets["wire_bytes"], steps=n_steps, step_ms=walls,
                    peak=torch.cuda.max_memory_allocated(dev) if on_card
                    else 0,
                    staged=getattr(engine.inner.axis, "staged_bytes", 0),
@@ -1777,10 +1818,11 @@ def _train_cells(cfg, dev, cells, seq, batch, steps, group=None,
         return got
 
     out = {}
-    for spec, wire in cells:
-        out[spec] = run(spec, wire, group)
+    for spec, wire, n_steps in cells:
+        out[spec, wire] = run(spec, wire, n_steps or steps, group)
         if logical:
-            out[spec]["logical"] = run(spec, wire, None)
+            out[spec, wire]["logical"] = run(spec, wire, n_steps or steps,
+                                             None)
     return out
 
 
@@ -1812,7 +1854,8 @@ def dist_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
       26a. for each (ranks k, layers, cells) of ``runs``, the cells at @k
            over k Gloo ranks on one card against the logical engine run
            before the spawn in this process on the same draws: losses
-           within DIST_TOL, wire bytes equal;
+           within DIST_TOL (the terngrad and qsgd cells bit for bit),
+           wire bytes equal;
       26b. ``DIST_NCCL_CELL`` over an NCCL group of
            ``torch.cuda.device_count()`` ranks against the logical axis
            in the same rank process (the CPU rehearsal takes Gloo here:
@@ -1834,22 +1877,38 @@ def dist_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
         for name, n in counts.items():
             launches[path][name] = launches[path].get(name, 0) + n
 
-    def report(tag, got, spec, ref):
-        g = got[spec]
+    def report(tag, g, ref, key, rank, cfg_k):
+        spec, wire = key
+        method = spec.split("/")[2].split("@")[0].split(":")[0]
+        events = len(g["losses"])
         diffs = [abs(a - b) for a, b in zip(g["losses"], ref["losses"])]
+        per = "event" if events > g["steps"] else "step"
         print(f"  {tag}: losses {g['losses']}, wire {g['wire']} B (logical "
-              f"{ref['wire']}); |rank - logical| per step "
-              f"{[f'{d:.2e}' for d in diffs]} (tol {DIST_TOL}); step walls "
+              f"{ref['wire']}); |rank - logical| per {per} "
+              f"{[f'{d:.2e}' for d in diffs]} (tol {DIST_TOL}; bitwise "
+              f"{g['losses'] == ref['losses']}); step walls "
               f"{[f'{x:.1f}' for x in g['step_ms']]} ms (logical "
-              f"{[f'{x:.1f}' for x in ref['step_ms']]} ms); peak "
+              f"{[f'{x:.1f}' for x in ref['step_ms']]} ms), "
+              f"{events // g['steps']} event(s) a step; peak "
               f"{g['peak'] / 2**30:.2f} GiB; staged "
-              f"{g['staged'] / steps / 2**30:.3f} GiB/step; launches "
+              f"{g['staged'] / g['steps'] / 2**30:.3f} GiB/step; launches "
               f"{g['launches']}; card {smi}")
         add("dist", g["launches"])
-        assert len(diffs) == steps and max(diffs) <= DIST_TOL
+        assert events == len(ref["losses"]) and \
+            g["workers"] == ref["workers"]
+        assert max(diffs) <= DIST_TOL
+        if method in DIST_BITWISE:
+            assert g["losses"] == ref["losses"]
         assert g["wire"] == ref["wire"]
-        kernel = DIST_KERNEL[spec.split("/")[2].split("@")[0]]
-        assert g["launches"][kernel] > 0 or not on_card
+        # a rank computes the gradients of its worker's events (every
+        # step but under SSP/ASP)
+        grads = (sum(w == rank for w in g["workers"])
+                 if per == "event" else g["steps"])
+        assert g["launches"]["flash_attention"] == \
+            cfg_k.num_layers * grads or not on_card
+        kernel = DIST_KERNEL.get((method, wire))
+        assert kernel is None or g["launches"][kernel] > 0 or not grads \
+            or not on_card, (key, kernel)
 
     phase("26 the worker axis over torch.distributed: the logical "
           "references, then one spawn of Gloo ranks on " + str(dev))
@@ -1859,32 +1918,31 @@ def dist_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
     for k, layers, cells in runs:
         cfg_k = cfg if layers is None else dataclasses.replace(
             cfg, num_layers=layers)
-        cells = tuple((spec.format(k=k), wire) for spec, wire in cells)
+        cells = tuple((spec.format(k=k), wire, n) for spec, wire, n in cells)
         refs.append(_train_cells(cfg_k, dev, cells, seq, batch, steps))
         plan.append((k, "gloo", cfg_k, cells, False))
-    plan.append((n_nccl, nccl, cfg,
-                 ((DIST_NCCL_CELL[0].format(k=n_nccl), DIST_NCCL_CELL[1]),),
+    spec, wire, n = DIST_NCCL_CELL
+    plan.append((n_nccl, nccl, cfg, ((spec.format(k=n_nccl), wire, n),),
                  True))
     if on_card:
         torch.cuda.empty_cache()
     world = max(k for k, *_ in plan)
     t0 = time.perf_counter()
-    ranks = spawn(_dist_rank, world, "gloo", device=where, timeout_s=600,
+    ranks = spawn(_dist_rank, world, "gloo", device=where, timeout_s=900,
                   args=(plan, seq, batch, steps))
     print(f"  {world} ranks in {time.perf_counter() - t0:.1f} s (start and "
           f"every run)")
     for i, (k, backend, cfg_k, cells, logical) in enumerate(plan):
         label = "26b" if logical else "26a"
-        phase(f"{label} {k} {backend} rank(s): {[c for c, _ in cells]}, "
-              f"{cfg_k.name} at {cfg_k.num_layers} layers, full widths, "
-              "fp32")
-        for spec, _ in cells:
+        phase(f"{label} {k} {backend} rank(s): "
+              f"{[f'{c} {w}' for c, w, _ in cells]}, {cfg_k.name} at "
+              f"{cfg_k.num_layers} layers, full widths, fp32")
+        for spec, wire, _ in cells:
             for r in range(k):
-                got = ranks[r][i]
-                report(f"{backend} rank {r} {spec}", got, spec,
-                       got[spec]["logical"] if logical else refs[i][spec])
-                assert got[spec]["launches"]["flash_attention"] == \
-                    cfg_k.num_layers * steps or not on_card
+                got = ranks[r][i][spec, wire]
+                report(f"{backend} rank {r} {spec} {wire}", got,
+                       got["logical"] if logical else refs[i][spec, wire],
+                       (spec, wire), r, cfg_k)
 
     phase("26c tools/torch_train_100m_e2e.py under torch.distributed.run, "
           "2 Gloo ranks, AdamW, against the logical axis")

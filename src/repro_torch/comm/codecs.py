@@ -47,6 +47,7 @@ from repro_torch.kernels import onebit as K1
 from repro_torch.kernels import qsgd as KQ
 from repro_torch.kernels import terngrad as KT
 from repro_torch.kernels import topk as KK
+from repro_torch.kernels.segments import per_segment
 from repro_torch.kernels.terngrad.ref import std0
 
 LANE = 256          # encode rows are [ceil(L / LANE), LANE]
@@ -183,7 +184,9 @@ class TerngradCodec(SegmentCodec):
     def encode(self, seg, gen=None, u=None):
         g0 = seg.float()                  # statistics on unpadded data
         if self.clip_sigma:
-            sigma = std0(g0, dim=1)[:, None]
+            # each worker's sigma from its own row (``per_segment``), so a
+            # process holding one worker gets the logical axis's bits
+            sigma = per_segment(std0, g0)[:, None]
             g0 = torch.clamp(g0, -self.clip_sigma * sigma,
                              self.clip_sigma * sigma)
         lo, hi = torch.aminmax(g0, dim=1)

@@ -205,6 +205,13 @@ class CommPlan:
     def bucket_len(self, b: int) -> int:
         return sum(_numel(self.leaf_shapes[i]) for i in self.buckets[b])
 
+    def chunk_lens(self) -> List[int]:
+        """The distinct 1/n chunk lengths of the buckets' padded flat
+        vectors, ascending: the segment lengths a chunked schedule hands
+        its codec, one worker's segment per row."""
+        return sorted({pad_for_schedule(self.bucket_len(b), self.n)
+                       // self.n for b in range(len(self.buckets))})
+
     def _axis(self, axis) -> Axis:
         ax = axis if axis is not None else LogicalAxis(self.n)
         if ax.size != self.n:
@@ -293,7 +300,8 @@ class CommPlan:
         return out, new_ef, sent
 
     def ps_exchange(self, params, grads: List[List[torch.Tensor]],
-                    ef: Optional[List[List[torch.Tensor]]], gen, lr: float):
+                    ef: Optional[List[List[torch.Tensor]]], gen, lr: float,
+                    axis=None):
         """The centralized counterpart of ``exchange``: per bucket in issue
         order, a compressed ring reduce-scatter of the workers' gradients
         with their EF (the PS push), SGD on each worker's 1/n shard with
@@ -301,15 +309,16 @@ class CommPlan:
         of the updated shards (the pull: parameters travel exact).
 
         ``params`` is the replicated parameter leaf list (any indexable,
-        e.g. a ``core.tree.LeafView``); ``grads`` and ``ef`` as in
-        ``exchange``.  Returns ``(new parameter leaves, new ef lists or
-        None, sent_elems [n])``."""
-        ax = LogicalAxis(self.n)
+        e.g. a ``core.tree.LeafView``); ``grads``, ``ef`` and ``axis`` as
+        in ``exchange``.  Returns ``(new parameter leaves, new ef lists or
+        None, sent_elems [k])`` for the held workers."""
+        ax = self._axis(axis)
+        k = len(ax.ids)
         comp, codec = self.compressor, self.codec
         gain = comp.ef_gain if comp.method == "onebit" else 1.0
         out: List[torch.Tensor] = [None] * len(self.leaf_shapes)
         new_ef = (None if ef is None else
-                  [[None] * len(self.leaf_shapes) for _ in range(self.n)])
+                  [[None] * len(self.leaf_shapes) for _ in ax.ids])
         sent = None
         for b in self.order:
             idxs = self.buckets[b]
@@ -319,24 +328,25 @@ class CommPlan:
             if ef is not None:
                 e_flat = self._fuse(ef, b, P, ax)
                 g_shard, new_e, nz = compressed_reduce_scatter_ef(
-                    g_flat, e_flat, codec, gen, gain=gain)
+                    g_flat, e_flat, codec, gen, gain=gain, axis=ax)
                 del e_flat
-                for w in range(self.n):
-                    scatter_flat(new_e[w, :L], idxs, self.leaf_shapes,
-                                 new_ef[w])
+                for row, lists in enumerate(new_ef):
+                    scatter_flat(new_e[row, :L], idxs, self.leaf_shapes,
+                                 lists)
                 del new_e
             else:
                 g_shard, _, nz = compressed_reduce_scatter(g_flat, codec,
-                                                           gen)
+                                                           gen, axis=ax)
             del g_flat
             sent = nz if sent is None else sent + nz
             p_flat = torch.cat([params[i].float().reshape(-1)
                                 for i in idxs])[None]
-            p_shard = shard_of_flat(p_flat.expand(self.n, L))
+            p_shard = shard_of_flat(p_flat.expand(k, L), ax)
             new_shard = p_shard - lr * (g_shard / self.n)
             del p_flat, p_shard, g_shard
-            # every worker gathers the same vector: worker 0's is the pull
-            full = all_gather_flat(new_shard, L)[0]
+            # every worker gathers the same vector: the first held one's
+            # is the pull
+            full = all_gather_flat(new_shard, L, ax)[0]
             scatter_flat(full, idxs, self.leaf_shapes, out)
             del new_shard, full
         return out, new_ef, sent

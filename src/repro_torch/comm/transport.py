@@ -57,13 +57,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.comm.codecs import LANE, NoneCodec, Planes, SegmentCodec
-from repro_torch.core.collectives import Axis, LogicalAxis
-
-
-def _axis(x: torch.Tensor, axis) -> Axis:
-    """The axis a schedule runs over: the given one, or every row of
-    ``x`` as a logical worker."""
-    return axis if axis is not None else LogicalAxis(x.shape[0])
+from repro_torch.core.collectives import Axis, axis_of as _axis
 
 
 def _per_worker(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,8 @@ process holds:
                             ``batch_isend_irecv`` per hop, ``all_gather``
                             the backend's gather.
 
-Both take the reference's hop order, and ``psum`` / ``psum_scatter`` add
+Both take the reference's hop order, ``broadcast`` hands one worker's
+tensor to every worker unchanged, and ``psum`` / ``psum_scatter`` add
 the workers' values in worker order (never ``dist.all_reduce``, whose
 summation order is the backend's), so every worker's sums are rounded as
 on the reference and equal bit for bit across the two axes.  Gloo's
@@ -115,6 +116,11 @@ class LogicalAxis:
 
     def psum_scatter(self, x) -> torch.Tensor:
         return psum_scatter(x)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Worker ``src``'s tensor on every worker: one process holds
+        them all, so ``x`` is already it."""
+        return x
 
 
 class DistAxis:
@@ -242,8 +248,28 @@ class DistAxis:
             acc += rows[w, self.rank]
         return acc[None]
 
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Worker ``src``'s ``x`` on every rank, bit for bit: the source
+        passes its tensor, every other rank a tensor of the same shape
+        and dtype to receive into (its values are not read).  One
+        ``dist.broadcast``; the result is on ``x``'s device."""
+        if self.rank == src:
+            buf = self._wire(x)
+        else:
+            buf = self._buffer(x, x.shape)
+        self._dist.broadcast(buf, self._peer(src), group=self.group)
+        if self.rank == src:
+            return x
+        return self._back(buf, x)
+
 
 Axis = Union[LogicalAxis, DistAxis]
+
+
+def axis_of(x: torch.Tensor, axis=None) -> Axis:
+    """The axis a collective over ``x`` runs on: ``axis``, or every row
+    of ``x`` as a logical worker."""
+    return axis if axis is not None else LogicalAxis(x.shape[0])
 
 
 def gather_values(axis: Axis, values: Sequence[float]) -> List[float]:

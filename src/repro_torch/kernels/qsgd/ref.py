@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.segments import by_segment
+from repro_torch.kernels.segments import by_segment, per_segment
 
 
 def l2_norms(g, segments: int = 1):
     """The l2 norm of each of ``segments`` equal row blocks of ``g``:
-    fp32 ``[]`` for one segment, else ``[segments]``."""
-    norm = torch.linalg.vector_norm(g.float().reshape(segments, -1), dim=1)
+    fp32 ``[]`` for one segment, else ``[segments]`` (each block reduced
+    alone on the card: ``segments.per_segment``)."""
+    norm = per_segment(lambda t, dim: torch.linalg.vector_norm(t, dim=dim),
+                       g.float().reshape(segments, -1))
     return norm[0] if segments == 1 else norm
 
 

@@ -25,6 +25,16 @@ def by_segment(x: torch.Tensor, per_segment) -> Tuple[torch.Tensor,
     return x.reshape(S, -1, x.shape[-1]), v.reshape(S, 1, 1)
 
 
+def per_segment(reduce, x: torch.Tensor) -> torch.Tensor:
+    """``reduce(t, dim)`` of each row of ``x`` [S, L]: [S].  Each row is
+    reduced by a launch of its own, so a segment's bits do
+    not depend on how many segments ``x`` holds (CUDA splits a reduction
+    across blocks by the whole launch's shape, so row r of an [S, L]
+    reduction can round otherwise than the same row alone: a process
+    holding one worker's segment must get the logical axis's bits)."""
+    return torch.stack([reduce(row, dim=0) for row in x])
+
+
 def check(kernel: str, name: str, t: torch.Tensor, shape, dtype, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``."""

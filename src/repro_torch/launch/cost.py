@@ -17,14 +17,17 @@ counts the step's aten operations as they run on the ``meta`` device
                   reference's HLO bytes.
   peak bytes      ``MetaMemory``: the most bytes of meta storage alive at
                   once, under ``kernels.backend.meta_as_card`` (the flash
-                  entries allocate only their outputs, as on the card).
-                  It is the byte count the dry-run decides a card run's
-                  batch by, before the run; the card run itself reads
+                  entries allocate only their outputs, as on the card),
+                  with the card's transients that no meta storage stands
+                  for (``card_transient``) and the BLAS workspaces the
+                  card holds (``CARD_WORKSPACE_BYTES``).  It is the byte
+                  count the dry-run decides a card run's batch by, before
+                  the run; the card run itself reads
                   ``torch.cuda.max_memory_allocated``.
 
 Collectives: the dry-run's devices are logical and the port has no
 partitioner, so a record's step issues no collective and its
-``collectives`` is null.  The worker axis of BSP allreduce training runs
+``collectives`` is null.  The worker axis of data-parallel training runs
 over ``torch.distributed`` (``core.collectives.DistAxis``), but the
 dry-run's meshes do not yet; the traffic model of the reference
 (``_traffic``, ``_group_size``) is kept for the dry-run's collectives
@@ -63,6 +66,29 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+# What the card allocates beside the ops' outputs, measured against
+# torch.cuda.max_memory_allocated around every aten op of the dry-run's
+# steps (tools/torch_memory_probe.py, H100, torch 2.11): the cuBLAS and
+# cuBLASLt workspaces, held from the first matmul on, and two ops whose
+# CUDA kernels take a temporary as large as a tensor they touch.  The
+# softmax backward is the attention backward's plain replay, so it sits
+# at every training step's peak: without it the count missed 1.25-2.0
+# GiB per batch row ([B, H, 4096, 4096] fp32) of Whisper-large-v3 and
+# TinyLlama-1.1B at train_4k.
+CARD_WORKSPACE_BYTES = 64 * 2 ** 20
+_CARD_TRANSIENT = {
+    "aten::_softmax_backward_data": lambda args, out: _nbytes(out),
+    "aten::logsumexp": lambda args, out: _nbytes(args[0]),
+}
+
+
+def card_transient(func, args, out) -> int:
+    """Bytes the card's kernel for ``func`` holds above its inputs and
+    outputs while it runs (0 for the ops not measured to hold any)."""
+    rule = _CARD_TRANSIENT.get(func._schema.name)
+    return rule(args, out) if rule else 0
+
+
 class ByteCounter(TorchDispatchMode):
     """Sums each aten op's input and output bytes (an in-place op reads
     and writes its output: both count); views count 0."""
@@ -82,7 +108,9 @@ class ByteCounter(TorchDispatchMode):
 class MetaMemory(TorchDispatchMode):
     """Live and peak bytes of the meta storages the ops under it make
     (factories included: build the state inside the mode).  A storage
-    counts once, from the op that made it until its last tensor dies."""
+    counts once, from the op that made it until its last tensor dies;
+    an op's card transient (``card_transient``) counts at the peak while
+    the op runs, above its outputs."""
 
     def __init__(self):
         super().__init__()
@@ -109,6 +137,9 @@ class MetaMemory(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         for t in _tensors(out):
             self.track(t)
+        extra = card_transient(func, args, out)
+        if extra and out.device.type == "meta":
+            self.peak = max(self.peak, self.live + extra)
         return out
 
 

@@ -59,7 +59,8 @@ from repro_torch.configs import ARCHS, SKIPS, get_config, get_shape
 from repro_torch.core.parallelism import param_specs
 from repro_torch.core.tree import get_path, leaf_paths
 from repro_torch.kernels.backend import meta_as_card
-from repro_torch.launch.cost import MetaMemory, count_cost
+from repro_torch.launch.cost import (CARD_WORKSPACE_BYTES, MetaMemory,
+                                     count_cost)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (VOCAB_PAD, batch_shardable,
                                       cache_specs, decode_window,
@@ -234,8 +235,9 @@ def meta_memory(cfg, shape, batch: int = 1) -> Dict[str, float]:
     """Bytes a card run of ``cfg`` at ``batch`` keeps live, counted on
     meta with the kernels' allocations: ``weights`` (parameters and
     optimizer state), ``peak`` (the most alive at once during the step,
-    the state included) and ``init`` (the most the build adds above what
-    it leaves: one leaf's fp32 draw before its cast)."""
+    the state, the card's op transients and its BLAS workspaces included;
+    ``launch.cost``) and ``init`` (the most the build adds above what it
+    leaves: one leaf's fp32 draw before its cast)."""
     mm = MetaMemory()
     seen = {}
     with mm, meta_as_card():
@@ -245,26 +247,50 @@ def meta_memory(cfg, shape, batch: int = 1) -> Dict[str, float]:
         mm.peak = mm.live
         step(*args)
         del step, args
-    return {"weights": float(seen["w"]), "peak": float(mm.peak),
+    return {"weights": float(seen["w"]),
+            "peak": float(mm.peak + CARD_WORKSPACE_BYTES),
             "init": float(init)}
+
+
+# the layer groups and batch rows the memory model is fitted at: from 1
+# to 2 groups a step's peak can shift once (Whisper-large-v3's prefill
+# peak grows by two groups' weights there, by one group's afterwards),
+# and the meta count of a train step at batch 1 can stand above the line
+# that batches 2 and 3 draw (by 1.3-11.7 GiB for Llama-3.2-3B, Qwen2-VL-7B
+# and RecurrentGemma-9B at train_4k), where the H100's peak lies on it
+# (tools/torch_memory_probe.py)
+MEMORY_GROUPS = (2, 3)
+MEMORY_BATCHES = (2, 3)
+
+
+def _fit(counts: Dict[int, Dict[str, float]]) -> Dict[str, float]:
+    """``peak(b) = fixed + b * row`` through the counts at the two
+    ``MEMORY_BATCHES``: what does not grow with the batch (the gradients,
+    the optimizer's temporaries) is ``fixed``, not a part of every row."""
+    lo, hi = MEMORY_BATCHES
+    row = (counts[hi]["peak"] - counts[lo]["peak"]) / (hi - lo)
+    return {"weights": counts[lo]["weights"],
+            "fixed": counts[lo]["peak"] - lo * row, "row": row}
 
 
 @functools.lru_cache(maxsize=None)
 def memory_model(cfg, shape) -> Dict[str, float]:
-    """Per-batch-row bytes model of a card run at the full depth, from
-    ``meta_memory`` at batch 1 for 1 and 2 layer groups, extrapolated as
-    the cost is: ``peak(b) = weights + b * row``, and the build's
-    transient ``init`` above the weights.  Also the 2-group model
-    (``weights2``, ``row2``), which bounds the probe's runs."""
+    """Bytes model of a card run at the full depth, ``peak(b) = fixed + b
+    * row``: ``meta_memory`` at ``MEMORY_BATCHES`` (``_fit``) for
+    ``MEMORY_GROUPS`` layer groups, extrapolated to the full depth as the
+    cost is, and the build's transient ``init`` above the ``weights``.
+    Also the 2-group model (``fixed2``, ``row2``), which bounds the
+    probe's runs."""
+    a, c = MEMORY_GROUPS
     mult = _extrap_mult(cfg)
-    m1 = meta_memory(_depth_variant(cfg, 1), shape)
-    m2 = meta_memory(_depth_variant(cfg, 2), shape)
-    full = _extrap({k: m1[k] for k in ("weights", "peak")},
-                   {k: m2[k] for k in ("weights", "peak")}, mult)
-    return {"weights": full["weights"],
-            "row": full["peak"] - full["weights"],
-            "init": max(m1["init"], m2["init"]),
-            "weights2": m2["weights"], "row2": m2["peak"] - m2["weights"]}
+    counts = {n: {b: meta_memory(_depth_variant(cfg, n), shape, b)
+                  for b in MEMORY_BATCHES} for n in MEMORY_GROUPS}
+    fits = {n: _fit(counts[n]) for n in MEMORY_GROUPS}
+    full = {k: max(fits[a][k] + (mult - a) / (c - a)
+                   * (fits[c][k] - fits[a][k]), 0.0) for k in fits[a]}
+    init = max(c["init"] for n in MEMORY_GROUPS for c in counts[n].values())
+    return dict(full, init=init, weights2=fits[2]["weights"],
+                fixed2=fits[2]["fixed"], row2=fits[2]["row"])
 
 
 def card_budget(device) -> float:
@@ -274,19 +300,33 @@ def card_budget(device) -> float:
     return CARD_SHARE * total
 
 
-def card_batch(shape, weights: float, row: float, init: float,
+def card_batch(shape, fixed: float, row: float, build: float,
                budget: float):
-    """The largest batch <= the per-data-shard batch whose bytes fit in
-    ``budget`` (None if not even 1 fits, or the build's transient does
-    not), and the cuts it makes."""
+    """The largest batch <= the per-data-shard batch whose bytes ``fixed +
+    b * row`` fit in ``budget`` (None if not even 1 fits, or the build's
+    ``build`` bytes do not), and the cuts it makes."""
     want = max(shape.global_batch // DATA_SHARDS, 1)
-    if weights + max(row, init) > budget:
+    if max(fixed + row, build) > budget:
         return None, []
-    b = min(want, int((budget - weights) // max(row, 1.0)))
-    reduced = ([f"batch {want} -> {b}: {weights + want * row:.4g} B "
+    b = min(want, int((budget - fixed) // max(row, 1.0)))
+    reduced = ([f"batch {want} -> {b}: {fixed + want * row:.4g} B "
                 f"counted on meta > {budget:.4g} B of the card"]
                if b < want else [])
     return b, reduced
+
+
+def batch_plan(mem: Dict[str, float], shape, budget: float):
+    """(batch, cuts, basis) of a pair from its ``memory_model``: the
+    largest batch the full depth fits in ``budget`` (basis "full
+    depth"), else the largest 2 layer groups fit ("2 groups": the
+    probe's runs only), else (None, [], None)."""
+    b, reduced = card_batch(shape, mem["fixed"], mem["row"],
+                            mem["weights"] + mem["init"], budget)
+    if b is not None:
+        return b, reduced, "full depth"
+    b, reduced = card_batch(shape, mem["fixed2"], mem["row2"],
+                            mem["weights2"] + mem["init"], budget)
+    return b, reduced, "2 groups" if b is not None else None
 
 
 def time_step(cfg, shape, batch: int, device,
@@ -429,23 +469,18 @@ def _probe_card(cfg, shape, mult: float, device) -> Dict[str, Any]:
     the full depth cannot fit, the largest batch 2 groups fit)."""
     mem = memory_model(cfg, shape)
     budget = card_budget(device)
-    b, reduced = card_batch(shape, mem["weights"], mem["row"], mem["init"],
-                            budget)
-    basis = "full depth"
-    if b is None:
-        b, reduced = card_batch(shape, mem["weights2"], mem["row2"],
-                                mem["init"], budget)
-        basis = "2 groups"
-    card = {"memory_model": mem, "budget": budget, "batch_basis": basis}
+    b, reduced, basis = batch_plan(mem, shape, budget)
+    card = {"memory_model": mem, "budget": budget,
+            "batch_basis": basis or "2 groups"}
     if b is None:
         card.update(status="exceeds_card",
-                    bytes_2_groups=mem["weights2"] + mem["row2"])
+                    bytes_2_groups=mem["fixed2"] + mem["row2"])
         return card
     t1 = time_step(_depth_variant(cfg, 1), shape, b, device)
     t2 = time_step(_depth_variant(cfg, 2), shape, b, device)
     card.update(status="ok", batch=b, reduced=reduced, n1=t1, n2=t2,
                 ms=_extrap({"ms": t1["ms"]}, {"ms": t2["ms"]}, mult)["ms"],
-                meta_peak_n2=mem["weights2"] + b * mem["row2"])
+                meta_peak_n2=mem["fixed2"] + b * mem["row2"])
     return card
 
 
@@ -479,16 +514,15 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             shape = shape or get_shape(shape_name)
             mem = memory_model(cfg, shape)
             budget = card_budget(device)
-            b, reduced = card_batch(shape, mem["weights"], mem["row"],
-                                    mem["init"], budget)
+            b, reduced, basis = batch_plan(mem, shape, budget)
             rec.update(memory_model=mem, budget=budget)
-            if b is None:
+            if basis != "full depth":
                 rec.update(status="exceeds_card",
-                           bytes_counted=mem["weights"] + mem["row"])
+                           bytes_counted=mem["fixed"] + mem["row"])
             else:
                 run = time_step(cfg, shape, b, device)
                 rec.update(batch=b, reduced=reduced, card=run,
-                           meta_peak=mem["weights"] + b * mem["row"])
+                           meta_peak=mem["fixed"] + b * mem["row"])
         rec["wall_s"] = round(time.time() - t0, 1)
     except Exception as e:  # noqa: BLE001 — record failures, they are bugs
         rec = _error(arch, shape_name, mesh_name, e)
@@ -516,7 +550,7 @@ def _line(rec: Dict[str, Any]) -> str:
         if "card" in rec:
             extra += (f" card b={rec['batch']} ms={rec['card']['ms']:.4g} "
                       f"peak={rec['card'].get('max_memory_allocated', 0) / 2**30:.3g}"
-                      " GiB")
+                      f" GiB counted={rec['meta_peak'] / 2**30:.3g} GiB")
     return f"[{status:12s}] {rec['arch']} x {rec['shape']} x " \
            f"{rec.get('mesh')}  {extra}"
 

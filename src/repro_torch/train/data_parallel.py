@@ -4,10 +4,10 @@ communication (survey §3.3): the JAX package's
 {bsp, ssp, asp, sma} x {allreduce, ps}.
 
 K logical workers share one device (``core.collectives.LogicalAxis``),
-or, under BSP allreduce, each worker is one ``torch.distributed`` rank
-(``group=``: ``core.collectives.DistAxis``, one process per worker as
-one device per worker in the reference); gradients travel as the
-reference's leaf list (``core.tree.LeafLayout``).
+or each worker is one ``torch.distributed`` rank (``group=``:
+``core.collectives.DistAxis``, one process per worker as one device per
+worker in the reference); gradients travel as the reference's leaf list
+(``core.tree.LeafLayout``).
 
   sync=bsp        every step runs each worker's forward and backward on its
                   own batch (one after another), then by ``wire`` mode:
@@ -65,11 +65,18 @@ logical engine's numbers.
 
 Over a process group (``DeviceEngine(..., group=)``) each rank holds the
 replicated parameters and its own worker's EF row only (EF memory cut by
-K), runs the exchange over ``DistAxis``, gathers the K losses (the
-float64 worker-order mean, as on the logical axis) and dgc's sparse
-counts, and only rank 0 writes the trace.  PS, SSP/ASP/SMA, backup
-workers, detection and the elastic interface raise there: they are later
-slices of ROADMAP queue A item 9.
+K), runs the exchange or the PS round over ``DistAxis``, gathers the K
+losses (the float64 worker-order mean, as on the logical axis) and dgc's
+sparse counts, and only rank 0 writes the trace.  Under SSP/ASP every
+rank replays the same firing schedule and only the firing worker's rank
+computes: it broadcasts the event's loss and, under allreduce, its
+(compressed) leaves, while under PS the other ranks push exact zeros; a
+rank keeps its own worker's pulled parameters.  Under SMA a rank holds
+its own replica.  With backup workers every rank derives the same drop
+set; with detection each rank times its own worker's batch fetch and
+every rank's detector observes the K times gathered in worker order.
+The elastic interface (``reshard``, ``export_state``, ``import_state``)
+raises there: ROADMAP queue A item 9d.
 """
 from __future__ import annotations
 
@@ -84,8 +91,8 @@ from torch.profiler import record_function
 
 from repro_torch.comm.plan import (WIRE_MODES, CommPlan, fuse, plan_buckets,
                                    scatter_flat)
-from repro_torch.core.collectives import (DistAxis, LogicalAxis,
-                                          gather_values, psum_scatter)
+from repro_torch.core.collectives import (DistAxis, LogicalAxis, axis_of,
+                                          gather_values)
 from repro_torch.core.comm_scheduler import LinkModel
 from repro_torch.core.compression import EF_METHODS, Compressor
 from repro_torch.core.parameter_server import (all_gather_flat, make_ps_step,
@@ -137,21 +144,23 @@ def make_bucketed_ps_update(leaf_shapes, lr: float, bucket_mb: float = 4.0,
     worker equals the ring allreduce's; update work drops by n.
 
     ``params`` is the replicated leaf list (any indexable, e.g. a
-    ``core.tree.LeafView``), ``grads[w]`` worker w's leaf list, consumed
+    ``core.tree.LeafView``), ``grads[r]`` the leaf list of worker
+    ``axis.ids[r]`` (every worker on the default logical axis), consumed
     bucket by bucket."""
     shapes = [tuple(s) for s in leaf_shapes]
     buckets, order_idx, _ = plan_buckets(shapes, bucket_mb, order,
                                          back_s_per_byte, seed)
 
-    def ps_update(params, grads):
-        n = len(grads)
-        step = make_ps_step(sgd_update_fn(lr, mean_over=n))
+    def ps_update(params, grads, axis=None):
+        k = len(grads)
         out: List[torch.Tensor] = [None] * len(shapes)
         for b in order_idx:
             idxs = buckets[b]
             pb = torch.cat([params[i].float().reshape(-1) for i in idxs])
             gb = fuse(grads, idxs, shapes, pb.shape[0])
-            (new_pb,), _ = step([pb[None].expand(n, -1)], [gb], None)
+            ax = axis_of(gb, axis)
+            step = make_ps_step(sgd_update_fn(lr, mean_over=ax.size), ax)
+            (new_pb,), _ = step([pb[None].expand(k, -1)], [gb], None)
             del pb, gb
             scatter_flat(new_pb[0], idxs, shapes, out)
             del new_pb
@@ -259,7 +268,8 @@ def make_sharded_train_step(train_step: Callable, workers: int,
 
 def async_replay_step(st, batches, t, bound: Optional[int], *, K: int,
                       push_grad: Callable, apply_fn: Callable,
-                      event_wire: int, eff_periods: Tuple[int, ...]):
+                      event_wire: int, eff_periods: Tuple[int, ...],
+                      axis=None):
     """Replay the simulator's deterministic tick schedule: each tick's
     firing events apply in the simulator's worker order, each worker
     pushing the gradient of its stale pulled parameters.
@@ -267,11 +277,21 @@ def async_replay_step(st, batches, t, bound: Optional[int], *, K: int,
     ``push_grad(w, pulled, batch, event) -> (loss, leaves)`` computes
     worker w's (compressed) gradient leaves and renews its EF;
     ``apply_fn(params, leaves, w)`` applies one push through the
-    architecture.  Only the firing workers compute: a non-firing worker's
-    gradient and EF would be discarded, and a firing worker's pulled
-    parameters cannot change within its tick (each worker fires at most
-    once per tick), so computing at its event gives the reference's
-    values."""
+    architecture, on every process (``leaves`` is None where this process
+    does not hold w).  Only the firing workers compute: a non-firing
+    worker's gradient and EF would be discarded, and a firing worker's
+    pulled parameters cannot change within its tick (each worker fires at
+    most once per tick), so computing at its event gives the reference's
+    values.
+
+    ``axis`` (every worker logical by default) says which workers this
+    process holds: ``st["pulled"]`` has one entry per held worker, and
+    the firing worker's process broadcasts the event's loss.  The
+    schedule's scalars (versions, batch clocks, tick) advance alike on
+    every process, so all of them enter each event's collectives in the
+    same order."""
+    ax = axis if axis is not None else LogicalAxis(K)
+    held = ax.ids
     events = []
     while st["updates"] - st["updates_base"] < \
             (t + 1 - st["step_base"]) * K:
@@ -283,23 +303,29 @@ def async_replay_step(st, batches, t, bound: Optional[int], *, K: int,
             continue
         # a worker's batch index only advances at its own events, so its
         # batch is cached until it fires (invalidated below)
-        for w in range(K):
+        for w in held:
             if st["batch_cache"][w] is None:
                 st["batch_cache"][w] = batches(st["batch_idx"][w], w)
         for w in firing:
-            loss, leaves = push_grad(w, st["pulled"][w],
-                                     st["batch_cache"][w], st["updates"])
+            row = held.index(w) if w in held else None
+            loss, leaves = (push_grad(w, st["pulled"][row],
+                                      st["batch_cache"][w], st["updates"])
+                            if row is not None else (0.0, None))
+            # float64 carries the fp32 loss exactly
+            loss = ax.broadcast(torch.tensor(
+                [float(loss)], dtype=torch.float64, device=ax.device), w)
             staleness = st["server_ver"] - st["pulled_ver"][w]
             st["params"] = apply_fn(st["params"], leaves, w)
             del leaves
             st["server_ver"] += 1
             st["updates"] += 1
-            st["pulled"][w] = st["params"]   # pull = reference rebind
+            if row is not None:
+                st["pulled"][row] = st["params"]   # pull = reference rebind
             st["pulled_ver"][w] = st["server_ver"]
             st["batch_idx"][w] += 1
             st["batch_cache"][w] = None
             st["wire"] += event_wire
-            events.append(dict(step=st["updates"], loss=float(loss),
+            events.append(dict(step=st["updates"], loss=float(loss[0]),
                                max_staleness=staleness, worker=w))
     return st, events
 
@@ -310,17 +336,7 @@ def _tree_bytes(tree) -> int:
 
 
 def _dist_axis(cfg: DataParallelConfig, group) -> DistAxis:
-    """The worker axis over ``group``, for the cells it runs (BSP
-    allreduce without backup workers or detection); the others raise,
-    naming the ROADMAP item that will port them."""
-    if cfg.arch == "ps":
-        _not_ported("arch='ps'", "9b (the parameter server over ranks)")
-    if cfg.sync != "bsp":
-        _not_ported(f"sync={cfg.sync!r}", "9c (SSP, ASP and SMA over ranks)")
-    if cfg.backup or cfg.detect:
-        _not_ported("backup workers" if cfg.backup else
-                    "straggler detection", "9d (backup workers, detection "
-                    "and elastic resizes across ranks)")
+    """The worker axis over ``group``: one worker per rank."""
     import torch.distributed as dist
     axis = DistAxis(group, dist.get_backend(group))
     if axis.size != cfg.num_workers:
@@ -345,7 +361,7 @@ class DeviceEngine(ElasticWorkerSet):
 
     ``group`` (a ``torch.distributed`` process group of ``num_workers``
     ranks, ``dist.group.WORLD`` for the default one) runs one worker per
-    rank: BSP allreduce only (module docstring)."""
+    rank (module docstring); the elastic interface raises there."""
 
     def __init__(self, cfg: DataParallelConfig, grad_fn: Callable,
                  layout: Optional[LeafLayout] = None, device="cuda",
@@ -494,11 +510,15 @@ class DeviceEngine(ElasticWorkerSet):
             # to the card would wait for it and charge it to worker 0)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            fetched = []
-            for w in range(K):
+            fetched, took = {}, []
+            for w in ax.ids:
                 t0 = time.perf_counter()
-                fetched.append(batches(t, w))
-                self.detector.observe(w, time.perf_counter() - t0)
+                fetched[w] = batches(t, w)
+                took.append(time.perf_counter() - t0)
+            # every process observes all K times, in worker order, so the
+            # drop sets agree
+            for w, seconds in enumerate(gather_values(ax, took)):
+                self.detector.observe(w, seconds)
             batches = lambda _t, w: fetched[w]   # noqa: E731
         sent: List[List[torch.Tensor]] = []
         losses = []
@@ -532,19 +552,22 @@ class DeviceEngine(ElasticWorkerSet):
             # (push, shard update, pull)
             if plan.in_schedule:
                 # encoded planes inside the schedule; the exchange consumes
-                # and renews every worker's EF, and a dropped worker keeps
-                # its old residual (its push never reached the server)
-                kept = ({w: list(st["ef"][w]) for w in drop}
+                # and renews every held worker's EF (a row each), and a
+                # dropped worker keeps its old residual (its push never
+                # reached the server)
+                kept = ({row: list(st["ef"][row])
+                         for row, w in enumerate(ax.ids) if w in drop}
                         if st["ef"] is not None else {})
                 if cfg.arch == "ps":
                     new, ef_new, sent_elems = plan.ps_exchange(
-                        params, sent, st["ef"], self._generator(t, K), lr)
+                        params, sent, st["ef"], self._generator(t, K), lr,
+                        axis=ax)
                 else:
                     avg, ef_new, sent_elems = plan.exchange(
                         sent, st["ef"], self._generator(t, K), axis=ax)
                 if ef_new is not None:
-                    for w, row in kept.items():
-                        ef_new[w] = row
+                    for row, old in kept.items():
+                        ef_new[row] = old
                     st["ef"] = ef_new
                 nz = int(sum(gather_values(ax, sent_elems.tolist())))
             elif cfg.arch == "ps":
@@ -553,7 +576,7 @@ class DeviceEngine(ElasticWorkerSet):
                         plan.leaf_shapes, lr, bucket_mb=cfg.bucket_mb,
                         order=cfg.order,
                         back_s_per_byte=cfg.back_s_per_byte, seed=cfg.seed)
-                new = self._ps_update(params, sent)
+                new = self._ps_update(params, sent, axis=ax)
             else:
                 avg = plan.reduce_grads(sent, axis=ax)
         with record_function("sgd_update"):
@@ -569,28 +592,32 @@ class DeviceEngine(ElasticWorkerSet):
     def _step_sma(self, st, batches, t):
         """CROSSBOW synchronous model averaging: the center is a
         ``CommPlan`` exchange of the replicas themselves (the gradient
-        paths' bucket fusion and issue order), taken before the step, and
-        each replica moves by ``r - lr g - mu (r - center)``."""
+        paths' bucket fusion and issue order) over the worker axis, taken
+        before the step, and each replica this process holds moves by
+        ``r - lr g - mu (r - center)``."""
         cfg = self.cfg
         K = cfg.num_workers
+        ax = self.axis
         lr, mu = cfg.lr, cfg.sma_mu
         reps = st["replicas"]
         layout = self._layout(reps[0])
         plan = self._ensure_plan(reps[0])
         with record_function("allreduce"):
             center = layout.update(
-                reps[0], plan.reduce_grads([layout.view(r) for r in reps]),
+                reps[0], plan.reduce_grads([layout.view(r) for r in reps],
+                                           axis=ax),
                 lambda p, z: z)
         losses = []
-        for w in range(K):
+        for row, w in enumerate(ax.ids):
             with record_function("forward_backward"):
-                loss, g = self.grad_fn(reps[w], batches(t, w))
+                loss, g = self.grad_fn(reps[row], batches(t, w))
             with record_function("sgd_update"):
-                reps[w] = tree_map(
+                reps[row] = tree_map(
                     lambda r, z, gg: r - lr * gg - mu * (r - z),
-                    reps[w], center, g)
+                    reps[row], center, g)
             losses.append(float(loss))
             del g
+        losses = gather_values(ax, losses)
         if cfg.wire == "measured":
             st["wire"] += plan.measured_step_tx_bytes("allreduce") * K
         else:
@@ -603,9 +630,10 @@ class DeviceEngine(ElasticWorkerSet):
     # --------------------------------------------------- ssp / asp stepping
     def _push_grad(self, st, w: int, pulled, batch, event: int):
         """Worker w's gradient leaves against its pulled parameters,
-        compressed with its EF (renewed here: only firing workers consume
-        their residual)."""
+        compressed with its EF row (renewed here: only firing workers
+        consume their residual)."""
         comp = self.cfg.compressor
+        row = self.axis.ids.index(w)
         with record_function("forward_backward"):
             loss, grads = self.grad_fn(pulled, batch)
         leaves = self._layout(pulled).leaves(grads, consume=True)
@@ -614,42 +642,65 @@ class DeviceEngine(ElasticWorkerSet):
             if comp.method == "none":
                 return loss, list(leaves)
             out, ef_new, _ = comp.roundtrip(
-                leaves, None if st["ef"] is None else st["ef"][w],
+                leaves, None if st["ef"] is None else st["ef"][row],
                 self._generator(event, w))
             if ef_new is not None:
-                st["ef"][w] = ef_new
+                st["ef"][row] = ef_new
         return loss, out
+
+    def _firer_leaves(self, params, leaves, w: int):
+        """Worker w's pushed leaves on every process, leaf by leaf: the
+        process that holds w broadcasts them (the others pass receive
+        buffers), so every replica applies the same bits."""
+        ax = self.axis
+        layout = self._layout(params)
+        for i, shape in enumerate(self._ensure_plan(params).leaf_shapes):
+            if leaves is not None:
+                x, leaves[i] = leaves[i], None
+            else:
+                x = torch.empty(shape, dtype=get_path(
+                    params, layout.parts[i][0]).dtype, device=self.device)
+            yield ax.broadcast(x, w)
+            del x
 
     def _apply(self, params, leaves, w: int):
         lr = self.cfg.lr
         with record_function("sgd_update"):
-            return self._layout(params).update(params, leaves,
-                                               lambda p, g: p - lr * g)
+            return self._layout(params).update(
+                params, self._firer_leaves(params, leaves, w),
+                lambda p, g: p - lr * g)
 
     def _ps_push(self, params, leaves, w: int):
         """The firing worker's push through the parameter server, leaf by
         leaf: every other worker contributes exact zeros (views, no
         copies), the reduce-scatter delivers each shard to its owner,
         which applies plain SGD (the raw sum: one pusher), and the pull
-        all-gathers the updated shards."""
-        n = self.cfg.num_workers
+        all-gathers the updated shards.  ``leaves`` is None where this
+        process does not hold w."""
+        ax = self.axis
+        n, k = ax.size, len(ax.ids)
         layout = self._layout(params)
         update = sgd_update_fn(self.cfg.lr)
         new = []
         with record_function("allreduce"):
-            for i in range(len(leaves)):
+            for i in range(len(layout.parts)):
                 p = layout.leaf(params, i)
-                g, L = pad_to_multiple(leaves[i].float(), n)
-                leaves[i] = None
-                chunks = g.reshape(n, -1)
-                zero = chunks.new_zeros(()).expand_as(chunks)
-                g_shard = psum_scatter([chunks if v == w else zero
-                                        for v in range(n)])
-                del g, chunks
-                p_shard = shard_of_flat(p.float().reshape(1, L).expand(n, L))
+                L = p.numel()
+                zero = torch.zeros((), device=p.device).expand(n, -(-L // n))
+                chunks = zero
+                if leaves is not None:
+                    g, _ = pad_to_multiple(leaves[i].float(), n)
+                    leaves[i] = None
+                    chunks = g.reshape(n, -1)
+                    del g
+                g_shard = ax.psum_scatter([chunks if v == w else zero
+                                           for v in ax.ids])
+                del chunks
+                p_shard = shard_of_flat(p.float().reshape(1, L).expand(k, L),
+                                        ax)
                 (new_shard,), _ = update([p_shard], [g_shard], None)
                 del p_shard, g_shard
-                new.append(all_gather_flat(new_shard, L)[0].reshape(
+                new.append(all_gather_flat(new_shard, L, ax)[0].reshape(
                     p.shape).to(p.dtype))
                 del p, new_shard
         return layout.update(params, new, lambda p, x: x)
@@ -661,7 +712,7 @@ class DeviceEngine(ElasticWorkerSet):
             push_grad=functools.partial(self._push_grad, st),
             apply_fn=self._ps_push if cfg.arch == "ps" else self._apply,
             event_wire=self.per_event_wire_bytes(st["params"]),
-            eff_periods=self.effective_periods())
+            eff_periods=self.effective_periods(), axis=self.axis)
 
     # -------------------------------------------------- engine protocol
     def init(self, params) -> Dict[str, Any]:
@@ -678,8 +729,8 @@ class DeviceEngine(ElasticWorkerSet):
         st: Dict[str, Any] = dict(params=params, ef=ef, wire=0)
         if cfg.sync in ("ssp", "asp"):
             st.update(
-                # per-worker pulled parameters are reference rebinds
-                pulled=[params] * K,
+                # the held workers' pulled parameters, reference rebinds
+                pulled=[params] * len(self.axis.ids),
                 pulled_ver=[0] * K,
                 server_ver=0,
                 tick=0,
@@ -690,7 +741,8 @@ class DeviceEngine(ElasticWorkerSet):
                 step_base=0)
         elif cfg.sync == "sma":
             del st["params"]
-            st["replicas"] = [params] * K    # updates are out of place
+            # the held workers' replicas; updates are out of place
+            st["replicas"] = [params] * len(self.axis.ids)
         return st
 
     def step(self, st, batches: Callable[[int, int], Any], t: int):
@@ -708,9 +760,12 @@ class DeviceEngine(ElasticWorkerSet):
 
     def finalize(self, st):
         if self.cfg.sync == "sma":
-            # replica average, like the simulator
-            return tree_map(lambda *xs: torch.stack(xs).mean(0),
-                            *st["replicas"])
+            # replica average, like the simulator: every replica in worker
+            # order, one mean over them on either axis
+            ax = self.axis
+            return tree_map(
+                lambda *xs: ax.all_gather(torch.stack(xs))[0].mean(0),
+                *st["replicas"])
         return st["params"]
 
     def wire_bytes(self) -> int:

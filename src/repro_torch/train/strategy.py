@@ -15,14 +15,14 @@ every one on its backend:
   device  ``train.data_parallel.DeviceEngine``: K logical workers on one
           device, every sync model and both architectures; or, given a
           ``torch.distributed`` process group (``build(..., group=)``,
-          ``Trainer(..., group=)``), one worker per rank for the BSP
-          allreduce cells.
+          ``Trainer(..., group=)``), one worker per rank for every
+          device cell.
 
 ``backend="auto"`` resolves to ``device``: by default the port's workers
 are logical, so one card holds any worker count (the reference falls
 back to ``sim`` when the process has fewer devices than workers).  A
 process group is the reference's one-worker-per-device layout; the sim
-backend, hybrid meshes and the cells that are not BSP allreduce refuse
+backend refuses one, and hybrid meshes and elastic plans raise under
 one, naming the ROADMAP item that will port them.  ``wire="measured"``
 needs the device backend.  ``bsp+backup:k`` drops the k slowest workers
 each round, ``+detect`` ranks them by measured step times, and

@@ -11,7 +11,9 @@ Tolerances: fp32 within 1e-4 (the summation order differs); bf16 within
 row's largest |c_in| (bin sums over rows up to 32000 long, in another
 order).  The training tests also check that gradients reach the
 attention projections through the flash kernel, and the reduced
-BENCH_pr10.json recipe's wire bytes and bucket count on the card.
+BENCH_pr10.json recipe's wire bytes and bucket count on the card.  The
+stochastic segment codecs' planes are the same bits whether a launch
+holds one worker's segment or four.
 """
 import dataclasses
 
@@ -482,6 +484,37 @@ def test_measured_terngrad_step_kernel_equals_plain(cuda):
     for a, b in zip(layout.leaves(out["auto"][0]),
                     layout.leaves(out["ref"][0])):
         assert torch.equal(a, b)
+
+
+# ------------------------------------- segment scales across worker counts
+def _phase26_chunks():
+    """The ring chunk lengths of chip_smoke.py phase 26's @4 cells:
+    full-width TinyLlama-1.1B at 2 layers, 4 MB buckets, 4 workers."""
+    from repro_torch.comm.plan import CommPlan
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), num_layers=2)
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=torch.float32, device="meta")
+    return CommPlan.plan(model.leaf_layout(params).shapes(params),
+                         n=4).chunk_lens()
+
+
+@pytest.mark.parametrize("method", ["terngrad", "qsgd"])
+def test_segment_scales_do_not_depend_on_worker_count(cuda, method):
+    """A process holding one worker encodes its [1, L] segment; the
+    logical axis encodes all four as [4, L].  Each segment's scale (and
+    so every plane) must be the same bits either way, at phase 26's
+    chunk lengths."""
+    from repro_torch.comm.codecs import LANE, make_codec
+    codec = make_codec(method)
+    for L in _phase26_chunks():
+        gen = torch.Generator(device=cuda).manual_seed(L)
+        x = _randn(gen, torch.float32, 4, L)
+        u = torch.rand((4, -(-L // LANE), LANE), generator=gen, device=cuda)
+        both = codec.encode(x, u=u)
+        for r in range(4):
+            alone = codec.encode(x[r:r + 1], u=u[r:r + 1])
+            for k, plane in both.items():
+                assert torch.equal(alone[k][0], plane[r]), (L, r, k)
 
 
 # ------------------------------------------------ onebit_compress and SSP

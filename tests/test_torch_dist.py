@@ -13,15 +13,18 @@ the rank functions, which import only torch and the port):
   onebit, dgc, terngrad, qsgd), ``make_allreduce`` and ``psum_scatter``
   over the 8 ranks and over sub-groups of 2, 3 and 4 ranks bit for bit
   against the logical axis (butterfly and tree refuse 3 workers on both);
-  then ``bsp/allreduce/onebit@8`` through the engine against the JAX
-  engine (losses within 1e-4 per step, wire bytes exact).
-* 4 ranks: ``bsp/allreduce/{none,onebit}@4`` modeled and
-  ``bsp/ring/{onebit,dgc,terngrad}@4`` measured through ``Trainer.fit``
-  against the logical engine (losses, parameters and wire bytes bit for
-  bit); ``make_sharded_train_step`` with AdamW and onebit against the
-  logical sharded step (metrics, parameters, each rank's EF row); and the
-  cells and methods a process group refuses, each naming its ROADMAP
-  item.
+  then ``bsp/allreduce/onebit@8`` and the parameter server's
+  ``bsp/ps/dgc:0.05@8`` through ``Trainer.fit`` against the JAX engine
+  (losses within 1e-4 per step, wire bytes exact).
+* 4 ranks: the engine cells of ``R.ENGINE_CELLS`` (BSP allreduce and
+  ring in both wire modes; the parameter server's ``bsp/ps`` cells;
+  SSP, ASP and SMA on both architectures; backup workers, and measured
+  detection with one sleeping worker) through the fit loop against the
+  logical engine: event histories (losses, staleness, firing worker,
+  drop sets), parameters, wire bytes and each rank's EF row bit for bit;
+  ``make_sharded_train_step`` with AdamW and onebit against the logical
+  sharded step (metrics, parameters, each rank's EF row); and the
+  methods a process group still refuses, each naming its ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -34,7 +37,7 @@ from test_torch_train import jax_runs, setup  # noqa: F401 (fixture)
 torch.set_num_threads(2)
 
 WORLD_A, WORLD_B = 8, 4
-JAX_SPEC = "bsp/allreduce/onebit@8"
+JAX_SPECS = ("bsp/allreduce/onebit@8", "bsp/ps/dgc:0.05@8")
 TIMEOUT_S = 240
 _CACHE = {}
 
@@ -44,7 +47,7 @@ def axis_runs(jax_runs):
     x, _ = jax_runs
     xt = torch.from_numpy(x)
     ranks = spawn(R.axis_rank, WORLD_A, "gloo", device="cpu",
-                  args=(xt, setup()["params"], JAX_SPEC),
+                  args=(xt, setup()["params"], JAX_SPECS),
                   timeout_s=TIMEOUT_S)
     return ranks, R.logical_cases(xt)
 
@@ -116,38 +119,50 @@ def test_dist_axis_matches_logical(axis_runs, k, key):
 
 
 # -------------------------------------------------------- engine cells
-def test_engine_over_8_ranks_matches_jax_engine(jax_runs, axis_runs):
+@pytest.mark.parametrize("spec", JAX_SPECS)
+def test_engine_over_8_ranks_matches_jax_engine(jax_runs, axis_runs, spec):
     _, ref = jax_runs
     ranks, _ = axis_runs
-    losses, leaves, wire = ranks[0]["engine"]
-    assert np.abs(np.array(losses) - ref[JAX_SPEC + "/losses"]).max() \
-        <= 1e-4
-    assert wire == int(ref[JAX_SPEC + "/wire"])
+    losses, leaves, wire = ranks[0]["engine"][spec]
+    assert len(losses) == R.ENGINE_STEPS
+    assert np.abs(np.array(losses) - ref[spec + "/losses"]).max() <= 1e-4
+    assert wire == int(ref[spec + "/wire"])
     for i, leaf in enumerate(leaves):
-        assert np.abs(leaf.numpy() - ref[f"{JAX_SPEC}/p{i}"]).max() <= 1e-4
+        assert np.abs(leaf.numpy() - ref[f"{spec}/p{i}"]).max() <= 1e-4
     # every rank holds the same replica, losses and bytes
     for r in ranks[1:]:
-        assert r["engine"][0] == losses and r["engine"][2] == wire
-        assert all(torch.equal(a, b) for a, b in zip(r["engine"][1],
-                                                     leaves))
+        got = r["engine"][spec]
+        assert got[0] == losses and got[2] == wire
+        assert all(torch.equal(a, b) for a, b in zip(got[1], leaves))
 
 
 def _logical_cell(spec, wire):
-    if spec not in _CACHE:
-        _CACHE[spec] = R.engine_cell(spec, wire, setup()["params"])
-    return _CACHE[spec]
+    if (spec, wire) not in _CACHE:
+        _CACHE[spec, wire] = R.engine_cell(spec, wire, setup()["params"])
+    return _CACHE[spec, wire]
 
 
 @pytest.mark.parametrize("spec,wire", R.ENGINE_CELLS)
 def test_engine_over_4_ranks_matches_logical_engine(engine_runs, spec,
                                                     wire):
-    losses, leaves, nbytes = _logical_cell(spec, wire)
-    assert len(losses) == R.ENGINE_STEPS
-    for r in engine_runs:
-        got_losses, got_leaves, got_bytes = r["cells"][spec]
-        assert got_losses == losses
+    hist, leaves, nbytes, ef = _logical_cell(spec, wire)
+    sync = spec.split("/")[0].split(":")[0].split("+")[0]
+    steps = R.DETECT["steps"] if "+detect" in spec else R.ENGINE_STEPS
+    assert len(hist) == steps * (4 if sync in ("ssp", "asp") else 1)
+    if sync == "ssp":
+        # the bound blocks a fast worker: some push is stale
+        assert max(h["max_staleness"] for h in hist) > 0
+    if "+detect" in spec:
+        # the scheduled drop set, then the measured straggler
+        assert [h["dropped"] for h in hist] == [[3], [3],
+                                                [R.DETECT["worker"]]]
+    for rank, r in enumerate(engine_runs):
+        got_hist, got_leaves, got_bytes, got_ef = r["cells"][spec, wire]
+        assert got_hist == hist
         assert got_bytes == nbytes
-        assert all(torch.equal(a, b) for a, b in zip(got_leaves, leaves))
+        assert got_leaves == leaves
+        # each rank carries its own worker's EF row
+        assert got_ef == ef[rank:rank + 1]
 
 
 def test_sharded_step_over_4_ranks_matches_logical(engine_runs):

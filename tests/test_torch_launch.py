@@ -499,13 +499,52 @@ def test_meta_counts():
 
 def test_meta_memory_counts_the_kernel_route():
     """Under meta_as_card the flash entries allocate only their outputs:
-    the prefill at S=4096 keeps no [B, H, S, S] scores."""
+    the prefill at S=4096 keeps no [B, H, S, S] scores (the count's
+    constant BLAS workspace aside)."""
+    from repro_torch.launch.cost import CARD_WORKSPACE_BYTES
     cfg = get_config("tinyllama-1.1b").reduced()
     shape = InputShape("p", 4096, 1, "prefill")
     m = dryrun.meta_memory(dataclasses.replace(cfg, num_layers=1), shape)
     scores = 1 * cfg.num_heads * 4096 * 4096 * 4
-    assert m["peak"] < scores / 4
+    assert m["peak"] - CARD_WORKSPACE_BYTES < scores / 4
     assert m["weights"] > 0
+
+
+@pytest.mark.parametrize("op", ["softmax_backward", "logsumexp"])
+def test_meta_memory_counts_the_card_transients(op):
+    """The ops whose CUDA kernels hold a temporary (measured on the card
+    by tools/torch_memory_probe.py) count it at the peak, above their
+    outputs: the softmax backward its output's bytes, logsumexp its
+    input's."""
+    from repro_torch.launch.cost import MetaMemory
+    with MetaMemory() as mm:
+        x = torch.empty(4, 256, device="meta")              # 4096 B
+        if op == "softmax_backward":
+            g = torch.empty(4, 256, device="meta")          # 4096 B
+            out = torch.ops.aten._softmax_backward_data(g, x, -1,
+                                                        torch.float32)
+            want = 3 * 4096 + 4096
+        else:
+            out = torch.logsumexp(x, -1)                    # 16 B
+            want = 4096 + 16 + 4096
+        assert mm.live == want - 4096       # the transient is gone
+        del out
+    assert mm.peak == want
+
+
+def test_memory_model_goes_through_its_counts():
+    """At a depth of 2 groups (the first fitted depth) the model is the
+    meta count at its two fitted batches exactly, the part that does not
+    grow with the batch in ``fixed``."""
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              num_layers=2)
+    shape = InputShape("t", 64, 1, "train")
+    mem = dryrun.memory_model(cfg, shape)
+    for b in dryrun.MEMORY_BATCHES:
+        assert mem["fixed"] + b * mem["row"] == \
+            dryrun.meta_memory(cfg, shape, b)["peak"]
+    assert 0 < mem["fixed"] and 0 < mem["row"]
+    assert (mem["fixed2"], mem["row2"]) == (mem["fixed"], mem["row"])
 
 
 def test_dryrun_cli_on_meta(tmp_path):

@@ -4,6 +4,9 @@ This module imports only torch and the port, and the same functions
 compute the logical axis's values in the test process, so both sides
 run one piece of code.
 """
+import hashlib
+import time
+
 import torch
 import torch.distributed as dist
 
@@ -24,6 +27,7 @@ from repro_torch.train import (Strategy, Trainer, TrainState,
                                make_bucketed_allreduce,
                                make_sharded_train_step, make_train_step,
                                train_loop, value_and_grad)
+from repro_torch.train.strategy import fit
 
 CODEC_TOPOLOGIES = ("ring", "butterfly", "tree", "fully_connected")
 CODEC_METHODS = ("onebit", "dgc", "terngrad", "qsgd")
@@ -34,19 +38,33 @@ ENGINE_CELLS = (("bsp/allreduce/none@4", "modeled"),
                 ("bsp/allreduce/onebit@4", "modeled"),
                 ("bsp/ring/onebit@4", "measured"),
                 ("bsp/ring/dgc@4", "measured"),
-                ("bsp/ring/terngrad@4", "measured"))
+                ("bsp/ring/terngrad@4", "measured"),
+                ("bsp/ps/none@4", "modeled"),
+                ("bsp/ps/onebit@4", "modeled"),
+                ("bsp/ps/onebit@4", "measured"),
+                ("bsp/ps/dgc@4", "measured"),
+                ("bsp/ps/qsgd@4", "measured"),
+                ("bsp/ps/terngrad@4", "modeled"),
+                ("bsp/ps/terngrad@4", "measured"),
+                ("ssp:2/allreduce/onebit@4", "modeled"),
+                ("ssp:2/ps/dgc@4", "modeled"),
+                ("asp/allreduce/none@4", "modeled"),
+                ("asp/ps/onebit@4", "modeled"),
+                ("sma/allreduce/none@4", "modeled"),
+                ("sma/allreduce/none@4", "measured"),
+                ("bsp+backup:1/allreduce/onebit@4", "modeled"),
+                ("bsp+backup:1/ring/onebit@4", "measured"),
+                ("bsp+backup:1+detect/allreduce/onebit@4", "modeled"))
 ENGINE_STEPS = 2
+# detection warms up over two observations per worker (the first is
+# discarded), so its drop set moves to the sleeping worker at step 2;
+# the sleep is ten times a scheduling stall of another worker's fetch
+DETECT = dict(steps=3, worker=1, sleep_s=0.5)
 SHARDED = dict(workers=4, steps=3, bucket_mb=0.25, lr=0.01,
                schedule=(3e-3, 1, 3))
 # the cells and methods a process group refuses, and the ROADMAP item
 # each names
 REFUSALS = {
-    "ps": ("bsp/ps/onebit@4", {}, "9b"),
-    "ssp": ("ssp:2/allreduce/none@4", {}, "9c"),
-    "asp": ("asp/allreduce/onebit@4", {}, "9c"),
-    "sma": ("sma/allreduce/none@4", {}, "9c"),
-    "backup": ("bsp+backup:1/allreduce/none@4", {}, "9d"),
-    "detect": ("bsp+detect/allreduce/none@4", {}, "9d"),
     "hybrid": ("bsp/ps/none@4:d4.z3.adamw", {}, "9e"),
     "sim": ("bsp/allreduce/none@4", {"backend": "sim"}, "device backend"),
     "plan": ("bsp/allreduce/none@4", {}, "9d"),
@@ -109,15 +127,49 @@ def _leaves(model, params):
     return [t.clone() for t in model.leaf_layout(params).leaves(params)]
 
 
+def digest(tensors) -> list:
+    """Each tensor's bytes as a hash: bit-for-bit equality, small enough
+    to come back from every rank for every cell."""
+    return [hashlib.sha256(t.contiguous().view(torch.uint8).numpy()
+                           .tobytes()).hexdigest()[:16] for t in tensors]
+
+
+class _SlowWorker:
+    """A batch source whose fetch sleeps for one worker: the straggler
+    that detection must find."""
+
+    def __init__(self, batches, worker: int, seconds: float):
+        self.batches, self.worker, self.seconds = batches, worker, seconds
+
+    def __call__(self, t, w):
+        if w == self.worker:
+            time.sleep(self.seconds)
+        return self.batches(t, w)
+
+
 def engine_cell(spec: str, wire: str, params, group=None, steps=None):
-    """``spec`` through ``Trainer.fit`` on the CPU, one worker per rank of
-    ``group`` or every worker logical: (losses, leaves, wire bytes)."""
+    """``spec`` through ``Strategy.build`` and the fit loop of
+    ``Trainer.fit`` on the CPU, one worker per rank of ``group`` or every
+    worker logical: (history, digests of the parameter leaves, wire
+    bytes, digests of each held worker's EF row, one list per row)."""
     model, grad_fn, batches = _model()
+    if "+detect" in spec:
+        batches = _SlowWorker(batches, DETECT["worker"], DETECT["sleep_s"])
+        steps = steps or DETECT["steps"]
     strat = Strategy.parse(spec, wire=wire, **RECIPE)
-    out, hist, mets = Trainer(strat, device="cpu", group=group).fit(
-        grad_fn, params, batches, steps or ENGINE_STEPS,
-        layout=model.leaf_layout(params))
-    return [h["loss"] for h in hist], _leaves(model, out), mets["wire_bytes"]
+    engine = strat.build(grad_fn, model.leaf_layout(params), device="cpu",
+                         group=group)
+    ef = []
+    finalize = engine.finalize
+
+    def keep_ef(st):
+        ef.extend(st["ef"] or [])
+        return finalize(st)
+
+    engine.finalize = keep_ef
+    out, hist, mets = fit(engine, params, batches, steps or ENGINE_STEPS)
+    return (hist, digest(_leaves(model, out)), mets["wire_bytes"],
+            [digest(row) for row in ef])
 
 
 def sharded_run(params, axis=None):
@@ -179,9 +231,20 @@ def _refusal(name: str, params, group) -> str:
 
 
 # ------------------------------------------------------------ the ranks
-def axis_rank(rank, world, dev, x, params, spec):
+def jax_cell(spec: str, params, group):
+    """An 8-worker cell of the JAX engine's through ``Trainer.fit`` over
+    ``group``: (losses, parameter leaves, wire bytes)."""
+    model, grad_fn, batches = _model()
+    strat = Strategy.parse(spec, **RECIPE)
+    out, hist, mets = Trainer(strat, device="cpu", group=group).fit(
+        grad_fn, params, batches, ENGINE_STEPS,
+        layout=model.leaf_layout(params))
+    return [h["loss"] for h in hist], _leaves(model, out), mets["wire_bytes"]
+
+
+def axis_rank(rank, world, dev, x, params, specs):
     """Spawn A: ``axis_cases`` on the world and on sub-groups of the first
-    2, 3 and 4 ranks, then ``spec`` (an 8-worker cell) through the engine
+    2, 3 and 4 ranks, then ``specs`` (8-worker cells) through the engine
     over the world."""
     out = {}
     for k in (world,) + SUBGROUPS:
@@ -189,7 +252,8 @@ def axis_rank(rank, world, dev, x, params, spec):
                  else dist.new_group(list(range(k))))
         if rank < k:
             out[k] = axis_cases(x[:k], DistAxis(group, "gloo"))
-    out["engine"] = engine_cell(spec, "modeled", params, dist.group.WORLD)
+    out["engine"] = {spec: jax_cell(spec, params, dist.group.WORLD)
+                     for spec in specs}
     return out
 
 
@@ -198,7 +262,7 @@ def engine_rank(rank, world, dev, params):
     refusals."""
     group = dist.group.WORLD
     ax = DistAxis(group, "gloo")
-    return {"cells": {spec: engine_cell(spec, wire, params, group)
+    return {"cells": {(spec, wire): engine_cell(spec, wire, params, group)
                       for spec, wire in ENGINE_CELLS},
             "sharded": sharded_run(params, ax),
             "refusals": {name: _refusal(name, params, group)

@@ -1,13 +1,19 @@
 """The worker axis over torch.distributed on the card, without the rest
 of chip_smoke.py:
 
-    python tools/torch_dist_probe.py [--nccl-pair] [--phase26]
+    python tools/torch_dist_probe.py [--nccl-pair] [--segments] [--phase26]
 
 1. With ``--nccl-pair``: NCCL with two ranks on one card
    (``launch.dist.spawn`` gives both ranks ``cuda:0`` on a one-card
    host): prints how NCCL answers an all-gather there, expected to be
    its refusal of two ranks of one communicator on the same device.
-2. With ``--phase26``: chip_smoke.py's phase 26 (``dist_phases``) at
+2. With ``--segments``: the stochastic codecs' per-worker scales at the
+   ring chunk lengths of phase 26's @4 cells, taken over a [4, L] tensor
+   (the logical axis's launch) and over each [1, L] row (a rank's): the
+   rows whose bits differ, for one reduction over dimension 1 (the
+   terngrad sigma's ``var_mean``, the qsgd norm's ``vector_norm``) and
+   for ``kernels.segments.per_segment``.
+3. With ``--phase26``: chip_smoke.py's phase 26 (``dist_phases``) at
    full-width TinyLlama-1.1B, with each rank's peak memory, step walls
    and staged bytes.
 
@@ -32,9 +38,44 @@ def nccl_pair_rank(rank, world, dev):
     return ax.all_gather(torch.full((1, 4), float(rank), device=dev))
 
 
+def segment_rows(dev) -> None:
+    """``--segments``: rows of a [4, L] reduction that differ from the same
+    row reduced as [1, L], per reduction and length."""
+    import dataclasses
+    from repro_torch.comm.plan import CommPlan
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segments import per_segment
+    from repro_torch.kernels.terngrad.ref import std0
+    from repro_torch.models import build_model
+
+    def norm(t, dim):
+        return torch.linalg.vector_norm(t, dim=dim)
+
+    model = build_model(dataclasses.replace(get_config("tinyllama-1.1b"),
+                                            num_layers=2))
+    params = model.init(seed=0, dtype=torch.float32, device="meta")
+    for L in CommPlan.plan(model.leaf_layout(params).shapes(params),
+                           n=4).chunk_lens():
+        gen = torch.Generator(device=dev).manual_seed(L)
+        x = torch.randn(4, L, generator=gen, device=dev)
+        for name, fn in (("std0", std0), ("l2 norm", norm)):
+            whole = fn(x, dim=1)
+            split = per_segment(fn, x)
+            one = [fn(x[r:r + 1], dim=1)[0] for r in range(4)]
+            alone = [per_segment(fn, x[r:r + 1])[0] for r in range(4)]
+            print(f"  L {L}, {name}: dim-1 reduction, rows differing "
+                  f"between [4, L] and [1, L]: "
+                  f"{sum(not torch.equal(whole[r], one[r]) for r in range(4))}"
+                  f" of 4 (largest {max(abs(whole[r] - one[r]).item() for r in range(4)):.3e}); "
+                  f"per_segment: "
+                  f"{sum(not torch.equal(split[r], alone[r]) for r in range(4))}"
+                  f" of 4", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nccl-pair", action="store_true")
+    ap.add_argument("--segments", action="store_true")
     ap.add_argument("--phase26", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -62,6 +103,8 @@ def main(argv=None) -> int:
             print("NCCL, 2 ranks on one card: refused after "
                   f"{time.perf_counter() - t0:.1f} s:\n  "
                   + "\n  ".join(lines[:2] + lines[-4:]))
+    if args.segments:
+        segment_rows(torch.device("cuda"))
     if args.phase26:
         import chip_smoke as C
         from repro_torch.configs import get_config
