@@ -401,9 +401,10 @@ worker (repro_torch.launch.dist.spawn; core.collectives.DistAxis):
              phase 7's batches, and bsp/ps/onebit@k measured, 2 steps,
              over k Gloo ranks on the one card (each rank's gradient on
              the card with the kernels, the hops staged through pinned
-             host memory): k = 2 at full width, with ssp:3/ps/onebit@2
-             (modeled, 1 step of 3 push events), and k = 4 at 2 layers
-             (four full-width ranks do not fit the card), the latter also
+             host memory): k = 2 at full width; k = 2 at 2 layers for
+             ssp:3/ps/onebit@2 (modeled, 1 step of 3 push events); and
+             k = 4 at 2 layers (four full-width ranks do not fit the
+             card), the latter also
              bsp/ring/{dgc,terngrad,qsgd}@4 measured (3 steps) and, 2
              steps each, bsp/ps/{dgc,qsgd}@4 measured, bsp/ps/none@4
              modeled, bsp/ps/terngrad@4 in both modes,
@@ -430,6 +431,36 @@ just before each cell and read just after; 26a-b make the kernels'
 "dist_trainer" launches.  dist_phases(cfg, dev, smi, ...) runs on the
 CPU too (Gloo in 26b), with get_config("tinyllama-1.1b").reduced(),
 torch.device("cpu"), seq=32 and a short tool_argv.
+
+Phase 27 is the elastic interface and the hybrid engine over Gloo ranks
+on the one card (one spawn of 8 ranks, each run on a group of its first
+ranks while the others wait), fp32 with TF32 off, each cell held to the
+logical engine run just before in this process:
+ 27a. elastic  Trainer(group=).fit(plan=) over 4 ranks at 2 layers, full
+             widths: ELASTIC_CRASH (bsp/allreduce/none@4,
+             crash:w1@4,resize:4@5, 6 steps, a snapshot every 3) and
+             bsp/allreduce/onebit@4 with restart@3 (6 steps): the same
+             recoveries, losses within DIST_TOL, wire bytes equal, the
+             final parameters' sha256 equal, and rank 0's snapshot
+             manifests (per-leaf content hashes) equal the logical run's.
+ 27b. restart  bsp/allreduce/onebit@2 with restart@2, 3 steps, full
+             depth over 2 ranks: the snapshot's GiB, each save and load's
+             seconds (rank 0 writes; every rank loads) and the peak per
+             rank; held to the logical engine's run of the spec without
+             the restart (it loses no step): losses within DIST_TOL, wire
+             bytes equal, the final parameters' sha256 equal (a restore
+             of the wrong parameters or EF rows moves them).
+ 27c. hybrid   HybridEngine(group=): bsp/ps/onebit@2:d2.z3.adamw at full
+             width over 2 ranks, 2 steps (step walls, staged GiB and peak
+             per rank beside the logical engine's); phase 18's
+             HYBRID_MESHES over 8 ranks and bsp/ps/dgc:0.05@4:d2.s2.z2
+             measured over 4, on make_tiny_transformer at TinyLlama's FFN
+             widths: losses within DIST_TOL, wire bytes equal.
+Counts are zeroed in each rank just before each cell and read just
+after; 27a-b make the kernels' "dist_elastic" launches and 27c their
+"dist_hybrid" launches.  elastic_hybrid_phases(cfg, dev, smi, ...) runs
+on the CPU too, with get_config("tinyllama-1.1b").reduced(),
+torch.device("cpu"), seq=32 and a small tiny.
 
 The last lines are the script's wall, the kernels JSON, the nvidia-smi
 line and the result.
@@ -596,12 +627,15 @@ MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
 # exchange's outputs at once, and 4 such ranks ran out of the card's 80 GB
 # (PERF.md, phase 26), so 2 ranks at full depth and 4 at 2 layers, where
 # the other codecs', the parameter server's, ASP's, SMA's and the backup
-# workers' cells run too.  A cell is (spec, wire, global steps; None =
-# TRAIN_STEPS).  The parameter server's and SMA's cells over ranks move
-# the whole model through Gloo's host staging every step, and an SSP/ASP
-# step is K push events that each do (DistAxis.psum_scatter gathers every
-# rank's full contribution), so those cells take fewer steps.  The NCCL cell at world size device_count(); the 100M trainer
-# over 2 ranks (its history logs steps 0 and 2).  fp32 with TF32 off: the
+# workers' cells run too; the SSP cell over 2 ranks runs at 2 layers
+# (at full depth its 3 events took 56.5 s of the script's time on an
+# H100 80GB HBM3 at 700 W; PERF.md, phase 26).  A cell
+# is (spec, wire, global steps; None = TRAIN_STEPS).  The parameter
+# server's and SMA's cells over ranks move the whole model through Gloo's
+# host staging every step, and an SSP/ASP step is K push events that
+# each do, so those cells take fewer steps.  The NCCL cell at world size
+# device_count(); the 100M trainer over 2 ranks (its history logs steps
+# 0 and 2).  fp32 with TF32 off: the
 # ranks launch the logical engine's kernels on their own rows at the
 # logical engine's shapes (each stochastic codec's scale from its own
 # segment, kernels.segments.per_segment), so the losses agree to DIST_TOL
@@ -621,7 +655,8 @@ DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured", None),
                     ("asp/allreduce/none@{k}", "modeled", 1),
                     ("sma/allreduce/none@{k}", "modeled", 2),
                     ("bsp+backup:1/ring/onebit@{k}", "measured", 2))
-DIST_RUNS = ((2, None, DIST_CELLS + DIST_FULL_CELLS),
+DIST_RUNS = ((2, None, DIST_CELLS),
+             (2, REDUCED_LAYERS, DIST_FULL_CELLS),
              (4, REDUCED_LAYERS, DIST_CELLS + DIST_CODEC_CELLS))
 # the kernel each (method, wire) cell must launch on every rank that
 # computes: the measured codecs' hop kernels, the modeled roundtrip's
@@ -637,6 +672,17 @@ DIST_NCCL_CELL = ("bsp/ring/onebit@{k}", "measured", None)
 DIST_TOL = 1e-5
 DIST_TOOL_ARGV = ["--strategy", "bsp/allreduce/onebit@2", "--steps", "3",
                   "--batch-size", "2", "--seq-len", "256"]
+# phase 27: the elastic interface and the hybrid engine over ranks.
+# Elastic cells (spec, plan, steps, snapshot cadence) at REDUCED_LAYERS
+# over 4 ranks, and the full-depth restart over 2; the hybrid cells
+# (spec, wire, steps): full width over 2 ranks, then the tiny transformer
+# at TinyLlama's FFN widths (HYBRID_TINY) on 8 and 4 ranks
+DIST_ELASTIC = (ELASTIC_CRASH, ELASTIC_RESTART + (6,))
+DIST_RESTART = ("bsp/allreduce/onebit@2", "restart@2", 3, 3)
+DIST_HYBRID_FULL = ("bsp/ps/onebit@2:d2.z3.adamw", "modeled", 2)
+DIST_HYBRID_TINY = tuple((spec, "modeled", HYBRID_TINY_STEPS)
+                         for spec, _, _ in HYBRID_MESHES) + (
+    ("bsp/ps/dgc:0.05@4:d2.s2.z2", "measured", HYBRID_TINY_STEPS),)
 
 
 def phase(name):
@@ -1990,6 +2036,343 @@ def dist_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
         [h["wire_bytes"] for h in hist[1]]
     assert all(rep["launches"]["onebit_encode_ef"] > 0 or not on_card
                for rep in reports)
+    return launches
+
+
+def _snapshot_hashes(ckpt_dir):
+    """Every committed snapshot in ``ckpt_dir``: its leaves' names, shapes,
+    dtypes and content hashes, and its meta, by directory name."""
+    out = {}
+    for name in sorted(os.listdir(ckpt_dir)):
+        path = os.path.join(ckpt_dir, name, "manifest.json")
+        if name.startswith("step_") and os.path.isfile(path):
+            with open(path) as f:
+                m = json.load(f)
+            out[name] = ([(r["name"], r["shape"], r["dtype"], r["hash"])
+                          for r in m["leaves"]], m["extra"])
+    return out
+
+
+def _tree_sha256(tree):
+    """One sha256 over a tree's leaves' bytes in leaf-path order."""
+    import hashlib
+
+    from repro_torch.core.tree import get_path, leaf_paths
+    h = hashlib.sha256()
+    for path in leaf_paths(tree):
+        leaf = get_path(tree, path).detach().reshape(-1).cpu()
+        h.update(leaf.view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _elastic_cell(cfg, dev, cell, seq, batch, lr, ckpt_dir, group=None,
+                  timed=False):
+    """One elastic cell ``(spec, plan, steps, snapshot cadence)`` through
+    ``Trainer(group=).fit(plan=)`` from seed-0 weights (every worker in
+    this process without ``group``).  Returns the losses, recoveries
+    (their walls dropped), wire bytes, final workers, the final
+    parameters' sha256, the snapshots' hashes (where this process wrote
+    them), peak memory, kernel launches and, when ``timed``, each
+    snapshot save's and load's seconds and the newest snapshot's
+    bytes."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.elastic import recovery
+    from repro_torch.models import build_model
+    from repro_torch.train import Strategy, Trainer, value_and_grad
+    spec, plan, steps, every = cell
+    on_card = dev.type == "cuda"
+    model = build_model(cfg)
+    grad_fn = value_and_grad(
+        lambda p, b: model.loss_fn(p, b, compute_dtype=torch.float32))
+    batches = make_lm_batches(LMDataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, batch_size=batch),
+                              device=dev)
+    params = model.init(seed=0, dtype=torch.float32, device=dev)
+    mods = _launch_modules()
+    saves, loads = [], []
+    originals = recovery.save_engine_state, recovery.restore_engine_state
+
+    def clocked(fn, into):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if on_card:
+                torch.cuda.synchronize(dev)
+            into.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    if timed:
+        recovery.save_engine_state = clocked(originals[0], saves)
+        recovery.restore_engine_state = clocked(originals[1], loads)
+    for mod in mods:
+        mod.reset_launches()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        final, hist, mets = Trainer(Strategy.parse(spec, lr=lr),
+                                    device=dev, group=group).fit(
+            grad_fn, params, batches, steps,
+            layout=model.leaf_layout(params), plan=plan,
+            checkpoint_dir=ckpt_dir, checkpoint_every=every)
+    finally:
+        recovery.save_engine_state, recovery.restore_engine_state = \
+            originals
+    writer = group is None or torch.distributed.get_rank(group) == 0
+    snaps = _snapshot_hashes(ckpt_dir) if writer and ckpt_dir else None
+    newest = max(snaps) if snaps else None
+    got = dict(losses=[h["loss"] for h in hist], wire=mets["wire_bytes"],
+               recoveries=[{k: v for k, v in r.items() if k != "wall_s"}
+                           for r in mets["recoveries"]],
+               final=mets["final_workers"], snaps=snaps,
+               digest=_tree_sha256(final),
+               peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+               launches={k: v for mod in mods
+                         for k, v in mod.LAUNCHES.items()},
+               saves=saves, loads=loads,
+               snap_bytes=sum(
+                   os.path.getsize(os.path.join(ckpt_dir, newest, f))
+                   for f in os.listdir(os.path.join(ckpt_dir, newest)))
+               if newest else 0)
+    del params, final
+    if on_card:
+        torch.cuda.empty_cache()
+    return got
+
+
+def _hybrid_cell(cfg, dev, cell, seq, batch, tiny, rows, group=None):
+    """One hybrid cell ``(spec, wire, steps)`` through ``Strategy.build``
+    and the shared fit loop: full-width ``cfg`` from seed-0 weights when
+    the spec has no tensor or stage axis, else ``make_tiny_transformer``
+    at ``tiny`` = (layers, d_model, d_ff) on ``rows`` seeded rows per data
+    slot.  Over ``group`` (one mesh device per rank) or logical.  Returns
+    the losses, wire bytes, step walls (ms), peak memory, bytes staged
+    through the host and kernel launches."""
+    from repro_torch.data import LMDataConfig, make_lm_batches
+    from repro_torch.models import build_model
+    from repro_torch.parallel import make_tiny_transformer
+    from repro_torch.train import Strategy, value_and_grad
+    from repro_torch.train.strategy import fit
+    spec, wire, steps = cell
+    on_card = dev.type == "cuda"
+    strat = Strategy.parse(spec, lr=HYBRID_TINY_LR, wire=wire)
+    if strat.mesh_spec.is_trivial:
+        model = build_model(cfg)
+        model_or_fn = value_and_grad(
+            lambda p, b: model.loss_fn(p, b, compute_dtype=torch.float32))
+        params = model.init(seed=0, dtype=torch.float32, device=dev)
+        layout = model.leaf_layout(params)
+        batches = make_lm_batches(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch),
+            device=dev)
+        strat = Strategy.parse(spec, lr=HYBRID_LR, wire=wire)
+    else:
+        layers, d_model, d_ff = tiny
+        params, model_or_fn = make_tiny_transformer(layers, d_model, d_ff,
+                                                    seed=0, device=dev)
+        layout = None
+        gen = torch.Generator(device=dev).manual_seed(1)
+        w_t = torch.randn(d_model, d_model, generator=gen, device=dev) \
+            / math.sqrt(d_model)
+        data = {}
+
+        def batches(t, w):
+            if (t, w) not in data:
+                g = torch.Generator(device=dev).manual_seed(1000 * t + w)
+                x = torch.randn(rows, d_model, generator=g, device=dev)
+                data[t, w] = {"x": x, "y": torch.tanh(x @ w_t)}
+            return data[t, w]
+    engine = strat.build(model_or_fn, layout, device=dev, group=group)
+    step, walls = engine.step, []
+
+    def timed_step(st, b, t):
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = step(st, b, t)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    engine.step = timed_step
+    mods = _launch_modules()
+    for mod in mods:
+        mod.reset_launches()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, hist, mets = fit(engine, params, batches, steps)
+    ranks = getattr(engine.inner, "ranks", None)
+    got = dict(losses=[h["loss"] for h in hist], wire=mets["wire_bytes"],
+               step_ms=walls,
+               peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+               staged=ranks.staged_bytes if ranks is not None else 0,
+               launches={k: v for mod in mods
+                         for k, v in mod.LAUNCHES.items()})
+    del params, engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return got
+
+
+def _elastic_hybrid_rank(rank, world, dev, runs, seq, batch, tiny, rows):
+    """One rank of phase 27: for each run ``(kind, k, cfg, cells, dir)``
+    the cells over the group of the first k ranks (kind "elastic": each
+    cell's snapshots under its own directory in ``dir``, "restart" the
+    same, timed; "hybrid"), while the other ranks wait at a barrier.
+    Returns each run's results (None outside its group)."""
+    import torch.distributed as dist
+    from repro_torch.launch.dist import (mesh_groups, prefix_group,
+                                         prefix_groups)
+    from repro_torch.train import Strategy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # every rank builds every run's groups in one order (a group is
+    # collective over the world; the runs' engines then find them built)
+    for kind, k, _, cells, _ in runs:
+        prefix_groups(range(k))
+        for cell in cells:
+            strat = Strategy.parse(cell[0])
+            m = strat.mesh_spec
+            if kind == "hybrid" and strat.is_hybrid:
+                mesh_groups(m.data, m.tensor, m.stage, ranks=range(k))
+    out = []
+    for kind, k, cfg, cells, root in runs:
+        group = prefix_group(k)
+        got = None
+        if group is not None:
+            got = {}
+            for i, cell in enumerate(cells):
+                if kind == "hybrid":
+                    got[cell[0]] = _hybrid_cell(cfg, dev, cell, seq, batch,
+                                                tiny, rows, group)
+                else:
+                    got[cell[0]] = _elastic_cell(
+                        cfg, dev, cell, seq, batch, REDUCED_LR,
+                        os.path.join(root, f"cell{i}"), group,
+                        timed=kind == "restart")
+        out.append(got)
+        dist.barrier()
+        if rank == 0 and root:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def elastic_hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
+                          tiny=HYBRID_TINY, rows=HYBRID_ROWS):
+    """Phase 27 (module docstring): the elastic interface and the hybrid
+    engine over Gloo ranks on ``dev``, each cell against the logical
+    engine run just before in this process.  Returns the kernels'
+    launches per path ("dist_elastic": 27a-b, "dist_hybrid": 27c),
+    summed over ranks."""
+    from repro_torch.launch.dist import spawn
+    on_card = dev.type == "cuda"
+    where = "cuda" if on_card else "cpu"
+    launches = {"dist_elastic": {}, "dist_hybrid": {}}
+    cfg2 = dataclasses.replace(cfg, num_layers=REDUCED_LAYERS)
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-p27-")
+    runs = [("elastic", 4, cfg2, DIST_ELASTIC,
+             os.path.join(scratch, "elastic")),
+            ("restart", 2, cfg, (DIST_RESTART,),
+             os.path.join(scratch, "restart")),
+            ("hybrid", 2, cfg, (DIST_HYBRID_FULL,), None),
+            ("hybrid", 8, cfg, DIST_HYBRID_TINY[:-1], None),
+            ("hybrid", 4, cfg, DIST_HYBRID_TINY[-1:], None)]
+
+    def add(path, counts):
+        for name, n in counts.items():
+            launches[path][name] = launches[path].get(name, 0) + n
+
+    t_phase = time.perf_counter()
+    phase("27 the elastic interface and the hybrid engine over ranks: the "
+          "logical references on " + str(dev) + "; snapshots in "
+          + scratch)
+    try:
+        refs = []
+        for kind, k, cfg_k, cells, root in runs:
+            got = {}
+            for i, cell in enumerate(cells):
+                if kind == "hybrid":
+                    got[cell[0]] = _hybrid_cell(cfg_k, dev, cell, seq, batch,
+                                                tiny, rows)
+                    continue
+                d = os.path.join(scratch, f"logical{i}")
+                if kind == "restart":
+                    # the same run without its restart, which loses no
+                    # step, and without snapshots: no I/O on this side
+                    cell, d = (cell[0], "") + cell[2:], None
+                got[cell[0]] = _elastic_cell(cfg_k, dev, cell, seq, batch,
+                                             REDUCED_LR, d)
+                if d is not None:
+                    shutil.rmtree(d, ignore_errors=True)
+            refs.append(got)
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        world = max(k for _, k, *_ in runs)
+        ranks = spawn(_elastic_hybrid_rank, world, "gloo", device=where,
+                      timeout_s=900, args=(runs, seq, batch, tiny, rows))
+        print(f"  logical references {t0 - t_phase:.1f} s; {world} ranks "
+              f"in {time.perf_counter() - t0:.1f} s (start and every run)")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for i, (kind, k, cfg_k, cells, _) in enumerate(runs):
+        label = {"elastic": "27a", "restart": "27b", "hybrid": "27c"}[kind]
+        phase(f"{label} {kind} over {k} Gloo rank(s): "
+              f"{[c[0] for c in cells]}, fp32")
+        for cell in cells:
+            spec = cell[0]
+            ref = refs[i][spec]
+            for r in range(k):
+                g = ranks[r][i][spec]
+                path = "dist_hybrid" if kind == "hybrid" else "dist_elastic"
+                add(path, g["launches"])
+                diffs = [abs(a - b) for a, b in zip(g["losses"],
+                                                    ref["losses"])]
+                line = (f"  rank {r} {spec}: losses {g['losses']}, wire "
+                        f"{g['wire']} B (logical {ref['wire']}); |rank - "
+                        f"logical| {[f'{d:.2e}' for d in diffs]} (tol "
+                        f"{DIST_TOL}; bitwise "
+                        f"{g['losses'] == ref['losses']}); peak "
+                        f"{g['peak'] / 2**30:.2f} GiB (logical "
+                        f"{ref['peak'] / 2**30:.2f})")
+                if kind == "restart":
+                    line += (f"; recoveries {g['recoveries']}; saves "
+                             f"{[f'{x:.2f}' for x in g['saves']]} s, loads "
+                             f"{[f'{x:.2f}' for x in g['loads']]} s"
+                             + (f"; snapshot {g['snap_bytes'] / 2**30:.3f} "
+                                "GiB" if r == 0 else "")
+                             + f"; final parameters' sha256 equal "
+                             f"{g['digest'] == ref['digest']}")
+                    assert [x["kind"] for x in g["recoveries"]] == \
+                        ["restart"] and g["recoveries"][0]["lost_steps"] == 0
+                    assert len(g["loads"]) == 1 and \
+                        (g["snap_bytes"] > 0 or r > 0)
+                elif kind == "hybrid":
+                    line += (f"; step walls "
+                             f"{[f'{x:.1f}' for x in g['step_ms']]} ms "
+                             f"(logical "
+                             f"{[f'{x:.1f}' for x in ref['step_ms']]}); "
+                             f"staged {g['staged'] / 2**30:.3f} GiB")
+                else:
+                    line += (f"; recoveries {g['recoveries']}; final "
+                             f"parameters' sha256 equal "
+                             f"{g['digest'] == ref['digest']}")
+                print(line + f"; launches {g['launches']}; card {smi}")
+                assert len(diffs) == len(ref["losses"]) > 0
+                assert max(diffs) <= DIST_TOL
+                assert g["wire"] == ref["wire"]
+                if kind != "hybrid":
+                    assert g["digest"] == ref["digest"]
+                if kind == "elastic":
+                    assert g["recoveries"] == ref["recoveries"]
+                    assert g["final"] == ref["final"] == 4
+                    # rank 0 writes the snapshots: file for file the
+                    # logical run's (per-leaf content hashes)
+                    assert g["snaps"] == (ref["snaps"] if r == 0 else None)
+    print(f"  phase 27 wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3598,6 +3981,11 @@ def main() -> int:
     dist_launches = dist_phases(cfg, dev, smi)
     print(f"launches of phase 26 {dist_launches}")
 
+    # --------------------------- 27 the elastic interface and hybrid ranks
+    torch.cuda.empty_cache()
+    p27_launches = elastic_hybrid_phases(cfg, dev, smi)
+    print(f"launches of phase 27 {p27_launches}")
+
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
     sources = {"flash_attention": (src + "flash_attention.cu",
@@ -3634,7 +4022,9 @@ def main() -> int:
                          for path, got in recurrent_launches.items()},
                       "dryrun": dryrun_launches.get(name, 0),
                       **{path: got.get(name, 0)
-                         for path, got in dist_launches.items()}}
+                         for path, got in dist_launches.items()},
+                      **{path: got.get(name, 0)
+                         for path, got in p27_launches.items()}}
                for name in sources}
     # the flash kernels at the slice's new shapes (phase 4's lines)
     shapes = {"flash_attention": ("flash_attention_hd256",
@@ -3673,6 +4063,10 @@ def main() -> int:
         assert by_path["flash_attention"][path] > 0
         assert by_path["onebit_encode_ef"][path] > 0
     assert all(by_path[name]["dist"] > 0 for name in DIST_KERNEL.values())
+    for path in ("dist_elastic", "dist_hybrid"):
+        assert by_path["flash_attention"][path] > 0
+        assert by_path["onebit_encode_ef"][path] > 0
+    assert by_path["topk_compress"]["dist_hybrid"] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

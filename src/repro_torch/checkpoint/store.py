@@ -40,6 +40,7 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +49,7 @@ import torch
 from repro_torch.core.tree import get_path, leaf_paths
 
 _VOID2 = np.dtype("V2")
+_WRITERS = 4              # shard files written at once
 
 
 def _leaf_items(tree) -> List[Tuple[str, Any]]:
@@ -77,7 +79,8 @@ def _leaf_hash(arr: np.ndarray, dtype: str) -> str:
     h = hashlib.sha256()
     h.update(dtype.encode())
     h.update(str(arr.shape).encode())
-    h.update(np.ascontiguousarray(arr).tobytes())
+    # the array's own bytes (no copy of a contiguous leaf)
+    h.update(memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B"))
     return h.hexdigest()
 
 
@@ -105,6 +108,19 @@ def _write_checkpoint(path: str, tree, step: int, shard_bytes: int,
                       hash_leaves: bool = False) -> Dict:
     os.makedirs(path, exist_ok=True)
     prev_shards = _prev_shard_map(prev_dir)
+    # leaves hash and shards are written on worker threads (sha256, the
+    # npz writer's CRC and the file writes release the GIL): a record has
+    # its hash before anything reads it, at most WRITERS shards are in
+    # flight, and the manifest waits for every shard
+    pool = ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1)))
+    writes: List[Any] = []
+
+    def resolve(recs):
+        for rec in recs:
+            fut = rec.pop("_hash", None)
+            if fut is not None:
+                rec["hash"] = fut.result()
+
     manifest: Dict[str, Any] = {"step": step, "leaves": [], "shards": 0,
                                 "linked_shards": 0}
     if extra is not None:
@@ -122,6 +138,8 @@ def _write_checkpoint(path: str, tree, step: int, shard_bytes: int,
         # content hashes) matches the previous checkpoint's shard of the
         # same index, link the old file instead of re-serializing it
         prev = prev_shards.get(shard_idx)
+        if prev is not None:
+            resolve(shard_recs)
         same = (prev is not None and len(prev) == len(shard_recs)
                 and all(p.get("hash") and r.get("hash")
                         and p["key"] == r["key"]
@@ -135,24 +153,33 @@ def _write_checkpoint(path: str, tree, step: int, shard_bytes: int,
                           os.path.join(path, fname))
             manifest["linked_shards"] += 1
         else:
-            np.savez(os.path.join(path, fname), **shard)
+            while len(writes) >= _WRITERS:
+                writes.pop(0).result()
+            writes.append(pool.submit(np.savez, os.path.join(path, fname),
+                                      **shard))
+        resolve(shard_recs)
         shard_idx += 1
         shard, shard_recs, shard_size = {}, [], 0
 
-    for name, leaf in _leaf_items(tree):
-        arr, dtype = _host_array(leaf)
-        key = name.replace("/", "__")
-        if shard_size + arr.nbytes > shard_bytes:
-            flush()
-        shard[key] = arr
-        shard_size += arr.nbytes
-        rec = {"name": name, "key": key, "shard": shard_idx,
-               "shape": list(arr.shape), "dtype": dtype}
-        if hash_leaves:
-            rec["hash"] = _leaf_hash(arr, dtype)
-        shard_recs.append(rec)
-        manifest["leaves"].append(rec)
-    flush()
+    try:
+        for name, leaf in _leaf_items(tree):
+            arr, dtype = _host_array(leaf)
+            key = name.replace("/", "__")
+            if shard_size + arr.nbytes > shard_bytes:
+                flush()
+            shard[key] = arr
+            shard_size += arr.nbytes
+            rec = {"name": name, "key": key, "shard": shard_idx,
+                   "shape": list(arr.shape), "dtype": dtype}
+            if hash_leaves:
+                rec["_hash"] = pool.submit(_leaf_hash, arr, dtype)
+            shard_recs.append(rec)
+            manifest["leaves"].append(rec)
+        flush()
+        for w in writes:
+            w.result()
+    finally:
+        pool.shutdown()
     manifest["shards"] = shard_idx
     # manifest last: its presence is the per-directory commit marker
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -238,11 +265,15 @@ def _rebuild(like, prefix: Tuple, leaves: Dict[str, torch.Tensor]):
 def load_checkpoint(path: str, like):
     """Restore into the structure of ``like``: (tree, step).  Each leaf is
     a tensor of the stored dtype on the device of ``like``'s leaf at the
-    same path."""
+    same path.  Where ``like`` holds None (an empty subtree) nothing is
+    read, and the result holds None."""
     manifest = read_manifest(path)
+    wanted = {"/".join(map(str, p)) for p in leaf_paths(like)
+              if get_path(like, p) is not None}
     by_shard: Dict[int, List[dict]] = {}
     for rec in manifest["leaves"]:
-        by_shard.setdefault(rec["shard"], []).append(rec)
+        if rec["name"] in wanted:
+            by_shard.setdefault(rec["shard"], []).append(rec)
     leaves: Dict[str, torch.Tensor] = {}
     for si, recs in by_shard.items():
         with np.load(os.path.join(path, f"shard_{si}.npz")) as z:

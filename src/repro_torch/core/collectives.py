@@ -14,7 +14,14 @@ process holds:
   ``DistAxis(group, backend)``  one worker per ``torch.distributed`` rank
                             (``ids`` = [rank]); ``ppermute`` is one
                             ``batch_isend_irecv`` per hop, ``all_gather``
-                            the backend's gather.
+                            the backend's gather, ``psum_scatter`` one
+                            all-to-all of every worker's chunks.  The
+                            group may be a sub-group of the world (a
+                            mesh's data, tensor or stage line, or the
+                            active workers after a resize:
+                            ``launch.dist.subgroup``); ``sendrecv`` hands
+                            one tensor on and takes one in (a pipeline
+                            tick's hop, a resize's row).
 
 Both take the reference's hop order, ``broadcast`` hands one worker's
 tensor to every worker unchanged, and ``psum`` / ``psum_scatter`` add
@@ -23,13 +30,14 @@ summation order is the backend's), so every worker's sums are rounded as
 on the reference and equal bit for bit across the two axes.  Gloo's
 point-to-point ops take only CPU tensors: with ``backend="gloo"`` and
 tensors on the card, ``DistAxis`` stages each one through pinned host
-memory and counts the bytes it stages (``staged_bytes``).  NCCL takes the
-card's tensors directly.  The module functions below are the logical
+memory and counts the bytes it stages (``staged_bytes``); ``recv_bytes``
+counts what each rank receives from the backend, on any device.  NCCL
+takes the card's tensors directly.  The module functions below are the logical
 axis's, kept for the callers that stack workers themselves.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -147,6 +155,7 @@ class DistAxis:
         self.device = (torch.device("cuda", torch.cuda.current_device())
                        if backend == "nccl" else torch.device("cpu"))
         self.staged_bytes = 0
+        self.recv_bytes = 0
 
     @property
     def holds_all(self) -> bool:
@@ -180,6 +189,7 @@ class DistAxis:
 
     def _back(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """A received buffer as a tensor like ``like`` (device, dtype)."""
+        self.recv_bytes += buf.numel() * buf.element_size()
         if buf.device != like.device:
             self.staged_bytes += buf.numel() * buf.element_size()
             buf = buf.to(like.device)
@@ -241,12 +251,54 @@ class DistAxis:
 
     def psum_scatter(self, x) -> torch.Tensor:
         """``x[0]`` is this worker's ``[n, m]`` contribution; returns the
-        worker-order sum of chunk ``rank``, [1, m]."""
-        rows = self.all_gather(x[0][None])[0]     # [n workers, n, m]
-        acc = rows[0, self.rank].clone()
+        worker-order sum of chunk ``rank``, [1, m].  One all-to-all hands
+        chunk j of every worker to worker j, so a rank receives n chunks
+        (not the n x n of an all-gather), and sums them in worker order."""
+        mine = x[0]
+        src = self._wire(mine.reshape(self.size, -1))
+        out = self._buffer(mine, tuple(src.shape))
+        self._dist.all_to_all_single(out, src, group=self.group)
+        rows = self._back(out, mine)             # [n workers, m]
+        acc = rows[0].clone()
         for w in range(1, self.size):
-            acc += rows[w, self.rank]
-        return acc[None]
+            acc += rows[w]
+        return acc.reshape(mine.shape[1:])[None]
+
+    def sendrecv(self, x: Optional[torch.Tensor], dst: Optional[int],
+                 like: Optional[torch.Tensor], src: Optional[int]
+                 ) -> Optional[torch.Tensor]:
+        """One point-to-point step in one ``batch_isend_irecv``: send
+        ``x`` to worker ``dst`` and receive a tensor shaped and typed like
+        ``like`` from worker ``src`` (either side may be None).  The
+        pairs must match across the ranks that call it.  Returns the
+        received tensor on ``like``'s device, or None."""
+        ops, buf = [], None
+        if dst is not None:
+            ops.append(self._dist.P2POp(self._dist.isend, self._wire(x),
+                                        self._peer(dst), self.group))
+        if src is not None:
+            buf = self._buffer(like, like.shape)
+            ops.append(self._dist.P2POp(self._dist.irecv, buf,
+                                        self._peer(src), self.group))
+        if ops:
+            for req in self._dist.batch_isend_irecv(ops):
+                req.wait()
+        return None if buf is None else self._back(buf, like)
+
+    def gather(self, x: torch.Tensor, dst: int = 0
+               ) -> Optional[torch.Tensor]:
+        """Every worker's ``x`` [...] on worker ``dst`` as [n, ...] in
+        worker order (host memory under gloo), None on the others."""
+        src = self._wire(x)
+        out = None
+        if self.rank == dst:
+            out = self._buffer(x, (self.size,) + tuple(x.shape))
+            self.recv_bytes += out.numel() * out.element_size()
+        self._dist.gather(src, None if out is None else list(out.unbind(0)),
+                          dst=self._peer(dst), group=self.group)
+        if out is not None and x.dtype == torch.bool:
+            out = out.view(torch.bool)
+        return out
 
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """Worker ``src``'s ``x`` on every rank, bit for bit: the source

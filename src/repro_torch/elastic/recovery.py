@@ -31,6 +31,16 @@ being pure in (seed, step, worker)) in the sharded npz store, bookkeeping
 ``extra`` blob.  Checkpoints are atomic (store.py), so a crash mid-save
 leaves the previous checkpoint intact.  Leaves restore onto the device of
 the engine's own state.
+
+Over a ``torch.distributed`` process group (``fit_elastic(...,
+group=)``) every rank reads the same plan and runs the same events in
+the same order: a crash drops a worker from the active set (no process
+is killed), a resize grows it back, and the engine moves the rows
+(``DeviceEngine``).  Only the snapshot writer (rank 0) writes, from the
+rows its engine gathered; every rank waits on a barrier until each
+write is durable, so no rank rolls back to a snapshot another cannot
+see yet, and every rank restores from the same files, keeping its own
+rows.
 """
 from __future__ import annotations
 
@@ -75,11 +85,15 @@ def save_engine_state(path: str, engine, state, step: int,
     every leaf still happens here, synchronously (the engines and
     optimizers may update their tensors in place), so the captured
     arrays are the state at call time no matter how far the training
-    loop has advanced by the time the write lands.  The snapshot does not count as
+    loop has advanced by the time the write lands.  Over a process group
+    every rank calls it (the export gathers) and the engine's snapshot
+    writer alone writes.  The snapshot does not count as
     committed until the returned thread is joined — atomicity
     (store.py's rename commit) guarantees a reader meanwhile sees either
     the previous checkpoint or nothing, never a torn one."""
     arrays, meta = engine.export_state(state)
+    if not getattr(engine, "snapshot_writer", True):
+        return None           # another rank of the group writes it
     meta = dict(meta, step=int(step), history_len=int(history_len),
                 **(extra or {}))
     if background:
@@ -114,7 +128,9 @@ def restore_engine_state(path: str, engine, params_like
     if meta["num_workers"] != _engine_workers(engine):
         probe = engine.reshard(probe, meta["num_workers"],
                                step=meta["step"])
-    template, _ = engine.export_state(probe)
+    template, _ = getattr(engine, "snapshot_template",
+                          engine.export_state)(probe)
+    del probe
     arrays, _step = load_checkpoint(path, template)
     state = engine.import_state(arrays, meta)
     return state, meta
@@ -186,7 +202,8 @@ def fit_elastic(strategy, grad_fn: Callable, params,
                 checkpoint_dir: Optional[str] = None,
                 checkpoint_every: int = 5, layout=None, device="cuda",
                 resume: bool = False,
-                preempt_signals: Optional[Tuple[int, ...]] = None):
+                preempt_signals: Optional[Tuple[int, ...]] = None,
+                group=None):
     """Drive ``strategy``'s engine for ``steps`` global steps under an
     elastic event plan.  Returns (params, history, metrics) like
     ``Trainer.fit``; metrics additionally carry ``recoveries`` (one
@@ -203,7 +220,8 @@ def fit_elastic(strategy, grad_fn: Callable, params,
     restores the newest committed checkpoint in ``checkpoint_dir``
     (reporting ``metrics["resumed_from"]``) and finishes the remaining
     steps; plan events scheduled before the resume point are treated as
-    already fired.  ``layout`` and ``device`` are ``Strategy.build``'s."""
+    already fired.  ``layout``, ``device`` and ``group`` are
+    ``Strategy.build``'s (module docstring for a process group)."""
     if isinstance(plan, str):
         plan = EventPlan.parse(plan)
     elif not isinstance(plan, EventPlan):
@@ -214,7 +232,7 @@ def fit_elastic(strategy, grad_fn: Callable, params,
                          "from")
     if checkpoint_every < 1:
         raise ValueError("checkpoint_every must be >= 1")
-    engine = strategy.build(grad_fn, layout, device)
+    engine = strategy.build(grad_fn, layout, device, group)
     eb = ElasticBatches(batches, n_streams=_engine_streams(engine),
                         seed=strategy.seed)
     run = plan.start()
@@ -246,6 +264,10 @@ def fit_elastic(strategy, grad_fn: Callable, params,
     def join_writes():
         while pending_writes:
             pending_writes.pop().join()
+        if group is not None:
+            # the writer's snapshot is durable before any rank goes on
+            import torch.distributed as dist
+            dist.barrier(group=group)
 
     def commit(step: int, state, hist_len: int, full: bool = False,
                background: bool = False):
@@ -271,6 +293,8 @@ def fit_elastic(strategy, grad_fn: Callable, params,
                                    background=background)
         if th is not None:
             pending_writes.append(th)
+        if not background:
+            join_writes()      # under a group: the barrier after the write
         written.add(step)
 
     t = 0
@@ -299,7 +323,10 @@ def fit_elastic(strategy, grad_fn: Callable, params,
     # at the loop boundary so the in-flight step completes first
     preempted: List[int] = []
     installed: List[Tuple[int, Any]] = []
-    if ckpt and threading.current_thread() is threading.main_thread():
+    # (per process: under a group one rank's signal would leave the
+    # others waiting in the next collective, so none is installed there)
+    if ckpt and group is None and \
+            threading.current_thread() is threading.main_thread():
         sigs = ((signal.SIGTERM,) if preempt_signals is None
                 else preempt_signals)
         for sig in sigs:

@@ -25,9 +25,19 @@ stages the card's tensors through host memory) and NCCL at world size
 ``device_count()``; the caller names the backend, and nothing falls back
 from one to the other.  Every group takes a timeout in seconds, so a hung
 collective fails the run instead of stalling it.
+
+Sub-groups (``subgroup``, ``prefix_group``, ``mesh_groups``) are built
+by ``dist.new_group``, which every rank of the world must call in the
+same order, members or not; each is built once per process and then
+reused.  An engine builds its groups at its construction or a resize, on
+the ranks of its own group: when that group is not the whole world, the
+other ranks build the same groups beforehand (``prefix_groups``,
+``mesh_groups(..., ranks=)``), so no rank waits on a group another never
+asks for.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -35,11 +45,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.collectives import DIST_BACKENDS
+from repro_torch.launch.mesh import make_hybrid_mesh
 
 DEFAULT_TIMEOUT_S = 300
 
@@ -179,3 +191,95 @@ def spawn(fn: Callable, world: int, backend: str,
             if p.is_alive():
                 p.kill()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ sub-groups
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def _ranks_of(parent) -> List[int]:
+    """The global ranks of ``parent`` (the world when None), in its
+    rank order."""
+    import torch.distributed as dist
+    if parent is None:
+        return list(range(dist.get_world_size()))
+    return list(dist.get_process_group_ranks(parent))
+
+
+def subgroup(ranks: Sequence[int]):
+    """The process group of the global ``ranks``, built on first use and
+    cached; None on a rank outside them.  Building one is collective over
+    the whole world: every rank calls it with the same ranks at the same
+    point, members or not (``dist.new_group``; the world itself is
+    returned as is)."""
+    import torch.distributed as dist
+    glob = tuple(int(r) for r in ranks)
+    if glob == tuple(range(dist.get_world_size())):
+        return dist.group.WORLD
+    if glob not in _GROUPS:
+        _GROUPS[glob] = dist.new_group(list(glob))
+    return _GROUPS[glob] if dist.get_rank() in glob else None
+
+
+def prefix_group(m: int, parent=None):
+    """The group of the first ``m`` ranks of ``parent`` (the world by
+    default): the active workers after a resize to ``m`` (worker j on
+    rank j, as the reference rebuilds its mesh over the first m live
+    devices).  None on a rank past ``m``.  Collective as ``subgroup``:
+    ranks outside ``parent`` build it beforehand (``prefix_groups``)."""
+    return subgroup(_ranks_of(parent)[:m])
+
+
+def prefix_groups(ranks: Sequence[int]) -> None:
+    """Build the prefix groups of the global ``ranks`` (every size up to
+    all of them) on this rank: what every rank of the world calls before
+    an engine over those ranks resizes while other ranks sit it out."""
+    for m in range(1, len(ranks) + 1):
+        subgroup(list(ranks)[:m])
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """One rank's place in a data x tensor x stage mesh of ranks:
+    ``coord`` (d, t, s) and the groups of its three lines (the ranks that
+    differ from it in that coordinate only, in coordinate order)."""
+    coord: Tuple[int, int, int]
+    data: Any
+    tensor: Any
+    stage: Any
+
+
+def mesh_groups(data: int, tensor: int, stage: int, parent=None,
+                ranks: Optional[Sequence[int]] = None
+                ) -> Optional[MeshGroups]:
+    """Every line group of the mesh over ``parent``'s ranks (or the
+    global ``ranks``), built in one fixed order (data lines, then tensor
+    lines, then stage lines), and this rank's coordinate and lines; None
+    on a rank outside the mesh.  Collective as ``subgroup``: when the mesh
+    does not span the world, every other rank calls it first with
+    ``ranks=``."""
+    glob = list(ranks) if ranks is not None else _ranks_of(parent)
+    if len(glob) != data * tensor * stage:
+        raise ValueError(f"mesh {data}x{tensor}x{stage} over "
+                         f"{len(glob)} ranks")
+    # rank order is the reference's device order,
+    # Mesh(np.array(devs).reshape(d, t, s)) (launch.mesh)
+    grid = make_hybrid_mesh(data, tensor, stage, glob).devices
+    lines = {}
+    for axis, sel in (("data", lambda a, b: grid[:, a, b]),
+                      ("tensor", lambda a, b: grid[a, :, b]),
+                      ("stage", lambda a, b: grid[a, b, :])):
+        n_a, n_b = [x for i, x in enumerate(grid.shape)
+                    if i != ("data", "tensor", "stage").index(axis)]
+        for a in range(n_a):
+            for b in range(n_b):
+                g = subgroup(sel(a, b).tolist())
+                if g is not None:
+                    lines[axis] = g
+    import torch.distributed as dist
+    where = np.argwhere(grid == dist.get_rank())
+    if not len(where):
+        return None
+    d, t, s = (int(i) for i in where[0])
+    return MeshGroups((d, t, s), lines["data"], lines["tensor"],
+                      lines["stage"])

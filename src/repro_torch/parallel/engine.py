@@ -6,10 +6,11 @@ package's ``parallel/engine.py``).
 survey's §3.2 into one step:
 
   stage axis    ``core.pipeline``'s GPipe or interleaved-1F1B micro-batch
-                schedule: each stage device holds a contiguous chunk of
-                layers, activations hop stage to stage, and autograd runs
-                the reverse pipeline (the graph is never cut between
-                stages).
+                schedule (``pipeline_step``): each stage device holds a
+                contiguous chunk of layers, activations hop stage to stage,
+                and the backward walks the ticks in reverse, each device
+                back-propagating its own calls (the graph cut at every
+                hop).
   tensor axis   ``core.parallelism``'s role rules made explicit: each leaf
                 is cut on its role dimension (column-parallel on the output
                 dim, row-parallel on the input dim) and the StagedModel
@@ -52,9 +53,33 @@ the simulator's staleness schedule per data slot and sma keeps a replica
 per data slot; both need stage=1, zero=0, sgd and fp32.
 
 Random draws (the stochastic codecs) come from ``torch.Generator``s
-seeded from (seed, step, device); the reference folds every axis index
-into one JAX key, so only the deterministic methods (``none``,
-``onebit``, ``dgc``) are draw for draw comparable with it.
+seeded from (seed, step, device), and a measured exchange draws from one
+generator per (stage, tensor) block of the data axis; the reference
+folds every axis index into one JAX key, so only the deterministic
+methods (``none``, ``onebit``, ``dgc``) are draw for draw comparable
+with it.
+
+**Ranks.**  ``HybridEngine(..., group=)`` runs one device per rank of a
+``torch.distributed`` group of ``data * tensor * stage`` ranks, rank r
+at the reference's device order (``launch.dist.mesh_groups``: the
+``[d, t, s]`` reshape of the ranks).  A rank holds its own device's
+state only: its (stage, tensor) block of every parameter leaf (z0-z2),
+its ``[1, 1, 1, m]`` shard of every bucket (z3 parameters, z1-z3
+moments) and its EF block, every tensor with the leading dims of size 1
+where the logical engine stacks its devices.  The stage axis runs
+``core.pipeline.pipeline_step`` with activations and cotangents
+handed between stage ranks; the tensor axis runs the Megatron operators
+over the tensor line (``parallel.staged.tensor_axis``); the data axis
+exchanges over the data line (``CommPlan`` with ``axis=``, the ZeRO
+update with the line's reduce-scatter and all-gather).  The logical
+engine runs the same cut-graph pipeline and the same per-device order of
+operations, so both give the same bits.  The losses, dgc's sparse counts
+and ``finalize``'s parameters are gathered over the world.  The data-axis
+ssp / asp / sma cells hold the full parameters on every rank (a slot's
+push is its whole gradient, gathered over its tensor line) and replay
+the schedule over the data line.  The hybrid engine's own elastic
+interface (``reshard``, ``export_state``, ``import_state``) raises under
+a group: ROADMAP queue A item 9e.
 """
 from __future__ import annotations
 
@@ -72,18 +97,20 @@ from repro_torch.comm.plan import (CommPlan, fuse, modeled_event_bytes,
 from repro_torch.comm.transport import (compressed_allreduce,
                                         compressed_reduce_scatter,
                                         schedule_tx_bytes)
+from repro_torch.core.collectives import DistAxis, gather_values
 from repro_torch.core.compression import EF_METHODS, Compressor
 from repro_torch.core.parameter_server import shard_of_flat
-from repro_torch.core.pipeline import (bubble_fraction, gpipe_forward,
-                                       gpipe_ticks, onefb_bubble_fraction,
-                                       onefb_forward, onefb_ticks)
+from repro_torch.core.pipeline import (bubble_fraction, gpipe_ticks,
+                                       onefb_bubble_fraction, onefb_ticks,
+                                       pipeline_step)
 from repro_torch.core.precision import policy_for
 from repro_torch.core.sync import default_periods, event_generator
 from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
 from repro_torch.launch.mesh import make_hybrid_mesh
 from repro_torch.obs.trace import get_recorder
 from repro_torch.parallel.mesh_plan import MeshPlan, MeshSpec, plan_mesh
-from repro_torch.parallel.staged import StagedModel, is_staged_model
+from repro_torch.parallel.staged import (StagedModel, is_staged_model,
+                                         tensor_axis)
 from repro_torch.parallel.zero import (flatten_bucket, init_opt_state,
                                        make_optimizer_step,
                                        make_zero_bucket_update,
@@ -92,6 +119,35 @@ from repro_torch.parallel.zero import (flatten_bucket, init_opt_state,
 from repro_torch.train.data_parallel import async_replay_step
 
 ASYNC_SYNCS = ("ssp", "asp")
+
+
+class MeshRanks:
+    """One rank's device of a hybrid mesh over a process group: its
+    ``(d, t, s)`` coordinate and a ``DistAxis`` over the whole group
+    (``world``) and over each of its three lines."""
+
+    def __init__(self, mesh: MeshSpec, group):
+        import torch.distributed as dist
+        from repro_torch.launch.dist import mesh_groups
+        backend = dist.get_backend(group)
+        lines = mesh_groups(mesh.data, mesh.tensor, mesh.stage, group)
+        self.coord = lines.coord
+        self.world = DistAxis(group, backend)
+        self.data = DistAxis(lines.data, backend)
+        self.tensor = DistAxis(lines.tensor, backend)
+        self.stage = DistAxis(lines.stage, backend)
+
+    @property
+    def staged_bytes(self) -> int:
+        return sum(ax.staged_bytes for ax in (self.world, self.data,
+                                              self.tensor, self.stage))
+
+
+def _refuse_elastic(what: str):
+    raise NotImplementedError(
+        f"the hybrid engine's {what} over a process group is not ported "
+        "yet (ROADMAP queue A item 9e (the hybrid engine's elastic "
+        "interface))")
 
 
 def emit_pipeline_trace(rec, stages: int, micro: int, *,
@@ -176,10 +232,13 @@ class HybridEngine:
     its tree onto the reference's leaves, as for ``DeviceEngine``) or a
     ``StagedModel`` with stage-stacked params (any mesh).
     ``batches(t, w)`` is keyed by *data-parallel slot* w in [0,
-    mesh.data): the tensor and stage axes share the slot's batch."""
+    mesh.data): the tensor and stage axes share the slot's batch.
+    ``group``: one device per rank of this process group (module
+    docstring)."""
 
     def __init__(self, cfg: HybridConfig, model,
-                 layout: Optional[LeafLayout] = None, device="cuda"):
+                 layout: Optional[LeafLayout] = None, device="cuda",
+                 group=None):
         if cfg.zero not in (0, 1, 2, 3):
             raise ValueError(f"zero={cfg.zero} (want 0..3)")
         if cfg.optimizer not in ("sgd", "adamw"):
@@ -239,6 +298,14 @@ class HybridEngine:
         self._wire_total = 0
         self._skeleton = None
         self._full_shapes: List[Tuple[int, ...]] = []
+        self.ranks: Optional[MeshRanks] = None
+        if group is not None:
+            import torch.distributed as dist
+            if dist.get_world_size(group) != cfg.mesh.size:
+                raise ValueError(
+                    f"mesh {cfg.mesh.spec()} needs {cfg.mesh.size} ranks, "
+                    f"the process group has {dist.get_world_size(group)}")
+            self.ranks = MeshRanks(cfg.mesh, group)
 
     # ------------------------------------------------------------ helpers
     @property
@@ -287,6 +354,31 @@ class HybridEngine:
     def _generator(self, t: int, idx: int) -> torch.Generator:
         return event_generator(self.cfg.seed, t, idx, self.device)
 
+    def _exchange_generator(self, t: int, s: int, tt: int
+                            ) -> torch.Generator:
+        """The measured data-axis exchange's draws of block (s, tt)."""
+        return self._generator(
+            t, self.cfg.mesh.size + s * self.cfg.mesh.tensor + tt)
+
+    # ------------------------------------------------ what a process holds
+    @property
+    def _slots(self) -> List[int]:
+        """The data slots this process computes."""
+        if self.ranks is not None:
+            return [self.ranks.coord[0]]
+        return list(range(self.cfg.mesh.data))
+
+    def _loc(self, w: int, s: int, t: int) -> Tuple[int, int, int]:
+        """Where device (w, t, s)'s row sits in the [D, S, T, ...] state
+        tensors this process holds (each dim of size 1 on a rank)."""
+        if self.ranks is not None:
+            return 0, 0, 0
+        return w, s, t
+
+    @property
+    def _data_axis(self):
+        return None if self.ranks is None else self.ranks.data
+
     # ------------------------------------------- 1f1b virtual-stage layout
     def _stage_perm(self, n_rows: int) -> np.ndarray:
         """Row permutation of a globally stacked leaf for interleaved 1F1B:
@@ -318,7 +410,15 @@ class HybridEngine:
 
     # -------------------------------------------------- device blocks
     def _block(self, leaf: torch.Tensor, i: int, s: int, t: int):
-        """Device (s, t)'s block of stacked leaf ``i`` (a view): a
+        """Device (s, t)'s block of leaf ``i`` of the leaves this process
+        holds: a view of the full leaf, or on a rank (which holds its
+        block only) the leaf itself."""
+        if self.ranks is not None:
+            return leaf
+        return self._cut(leaf, i, s, t)
+
+    def _cut(self, leaf: torch.Tensor, i: int, s: int, t: int):
+        """Device (s, t)'s block of full stacked leaf ``i`` (a view): a
         contiguous chunk of layers along dim 0 and a role-dim slice along
         the tensor axis."""
         x = leaf
@@ -332,20 +432,22 @@ class HybridEngine:
         return x
 
     def _grid(self):
+        """The (stage, tensor) blocks this process holds."""
+        if self.ranks is not None:
+            _, t, s = self.ranks.coord
+            return [(s, t)]
         S, T = self.cfg.mesh.stage, self.cfg.mesh.tensor
         return [(s, t) for s in range(S) for t in range(T)]
 
-    def _locals(self, leaves) -> Dict[Tuple[int, int], List[torch.Tensor]]:
-        """Every device's (s, t) block list of full ``leaves``; the leaves
-        themselves when the mesh has one (s, t) block."""
-        if self.cfg.mesh.is_trivial:
-            return {(0, 0): leaves}
-        return {st: [self._block(x, i, *st) for i, x in enumerate(leaves)]
-                for st in self._grid()}
-
     def _assemble(self, blocks) -> List[torch.Tensor]:
-        """Full leaves from every device's (s, t) block list (inverse of
-        ``_locals``)."""
+        """The leaves this process holds from its devices' (s, t) block
+        lists: full leaves on the logical mesh, a rank's own block."""
+        if self.ranks is not None or self.cfg.mesh.is_trivial:
+            return next(iter(blocks.values()))
+        return self._assemble_full(blocks)
+
+    def _assemble_full(self, blocks) -> List[torch.Tensor]:
+        """Full leaves from every device's (s, t) block list."""
         if self.cfg.mesh.is_trivial:
             return blocks[(0, 0)]
         ref = blocks[(0, 0)]
@@ -353,8 +455,28 @@ class HybridEngine:
                 for i, shape in enumerate(self._full_shapes)]
         for st, lst in blocks.items():
             for i, x in enumerate(lst):
-                self._block(full[i], i, *st).copy_(x)
+                self._cut(full[i], i, *st).copy_(x)
         return full
+
+    def _gather_full(self, block_leaves, line: str) -> List[torch.Tensor]:
+        """Full leaves on a rank from every device's block of them,
+        gathered over the rank's tensor line (``line="tensor"``: the
+        devices of one slot at stage 1) or the world (every (s, t) block,
+        from data slot 0's devices)."""
+        R, mesh = self.ranks, self.cfg.mesh
+        ax = R.tensor if line == "tensor" else R.world
+        rows = [ax.all_gather(x[None])[0] for x in block_leaves]
+        blocks = {}
+        for s in range(mesh.stage):
+            for t in range(mesh.tensor):
+                if line == "tensor":
+                    if s != R.coord[2]:
+                        continue
+                    r = t
+                else:
+                    r = int(self.mesh.devices[0, t, s])
+                blocks[(s, t)] = [x[r] for x in rows]
+        return self._assemble_full(blocks)
 
     def _bucket_flat(self, leaves, b: int, s: int, t: int) -> torch.Tensor:
         """Flat (s, t)-local bucket vector of full ``leaves``, padded to
@@ -367,9 +489,17 @@ class HybridEngine:
                                               % plan.mesh.data))
 
     def _shard_array(self, leaves, b: int) -> torch.Tensor:
-        """[D, S, T, m] per-device flat shards of bucket ``b``."""
+        """[D, S, T, m] per-device flat shards of bucket ``b`` ([1, 1, 1,
+        m] on a rank: its own)."""
         cfg, plan = self.cfg, self.plan
         d, t, s = cfg.mesh.data, cfg.mesh.tensor, cfg.mesh.stage
+        if self.ranks is not None:
+            out = torch.zeros((1, 1, 1, plan.shard_sizes[b]),
+                              dtype=torch.float32, device=self.device)
+            si, ti = self._grid()[0]
+            out[0, 0, 0] = self._bucket_flat(leaves, b, si, ti).reshape(
+                d, -1)[self.ranks.coord[0]]
+            return out
         out = torch.zeros((d, s, t, plan.shard_sizes[b]),
                           dtype=torch.float32, device=self.device)
         for si, ti in self._grid():
@@ -384,9 +514,13 @@ class HybridEngine:
         plan = self.plan
         blocks = {}
         for st in self._grid():
+            _, si, ti = self._loc(0, *st)
             out: List[Any] = [None] * len(plan.local_shapes)
             for x, b in zip(shards, plan.order):
-                flat = x[:, st[0], st[1]].reshape(-1)[:plan.bucket_sizes[b]]
+                x = x[:, si, ti]
+                if self.ranks is not None:     # ZeRO-3's gather
+                    x = self.ranks.data.all_gather(x)[0]
+                flat = x.reshape(-1)[:plan.bucket_sizes[b]]
                 scatter_flat(flat, plan.buckets[b], plan.local_shapes, out)
             blocks[st] = out
         return self._assemble(blocks)
@@ -401,6 +535,7 @@ class HybridEngine:
         params = self._permute_stacked(params)
         st: Dict[str, Any] = dict(wire=0)
         D = cfg.mesh.data
+        k = len(self._slots)
         if cfg.sync in ASYNC_SYNCS:
             # async over the data axis: per-slot pulled copies of the FULL
             # stacked params (reference rebinds, like the flat engines);
@@ -408,22 +543,29 @@ class HybridEngine:
             # is its assembled full gradient
             st.update(
                 params=params, opt=None,
-                ef=([torch.zeros((D,) + s, device=self.device)
+                ef=([torch.zeros((k,) + s, device=self.device)
                      for s in self._full_shapes]
                     if self._ef_active else None),
-                pulled=[params] * D, pulled_ver=[0] * D, server_ver=0,
+                pulled=[params] * k, pulled_ver=[0] * D, server_ver=0,
                 tick=0, updates=0, batch_idx=[0] * D,
                 batch_cache=[None] * D, updates_base=0, step_base=0)
             return st
         if cfg.sync == "sma":
-            st["replicas"] = [params] * D    # updates are out of place
+            st["replicas"] = [params] * k    # updates are out of place
             return st
+        if self.ranks is not None:
+            # a rank holds its own device's block of every leaf
+            (s, t), = self._grid()
+            params = self._tree([self._cut(x, i, s, t).clone()
+                                 for i, x in enumerate(
+                                     self.layout.leaves(params))])
         leaves = self.layout.view(params)
         if cfg.zero == 3:
             st["params"] = [self._shard_array(leaves, b) for b in plan.order]
         else:
             # the optimizers update in place: the engine's own copy
-            st["params"] = tree_map(torch.clone, params)
+            st["params"] = (params if self.ranks is not None
+                            else tree_map(torch.clone, params))
         if cfg.optimizer == "adamw":
             if cfg.zero == 0:
                 st["opt"] = init_opt_state("adamw", st["params"],
@@ -433,20 +575,27 @@ class HybridEngine:
                 # with the p/g bucket lists of the step
                 mdt = getattr(torch, cfg.moments)
                 st["opt"] = {
-                    k: [torch.zeros((D, cfg.mesh.stage, cfg.mesh.tensor,
-                                     plan.shard_sizes[b]), dtype=mdt,
-                                    device=self.device) for b in plan.order]
-                    for k in ("m", "v")}
+                    key: [torch.zeros(self._lead() + (plan.shard_sizes[b],),
+                                      dtype=mdt, device=self.device)
+                          for b in plan.order]
+                    for key in ("m", "v")}
                 st["opt"]["t"] = 0
         else:
             st["opt"] = None
         if self._ef_active:
-            S, T = cfg.mesh.stage, cfg.mesh.tensor
-            st["ef"] = [torch.zeros((D, S, T) + s, device=self.device)
+            st["ef"] = [torch.zeros(self._lead() + s, device=self.device)
                         for s in plan.local_shapes]
         else:
             st["ef"] = None
         return st
+
+    def _lead(self) -> Tuple[int, int, int]:
+        """The leading [D, S, T] dims of the per-device state tensors
+        this process holds ([1, 1, 1] on a rank)."""
+        if self.ranks is not None:
+            return (1, 1, 1)
+        m = self.cfg.mesh
+        return (m.data, m.stage, m.tensor)
 
     # ---------------------------------------------------------------- step
     def _comm_plan(self) -> CommPlan:
@@ -489,18 +638,20 @@ class HybridEngine:
         return int(total)
 
     def _stage_loss_and_grads(self, leaves, batch):
-        """One data slot's loss and full stacked gradient leaves through
-        the pipeline schedule over its S stage devices, each with its T
-        tensor ranks as dimension 0 of its blocks and activations.  The
-        loss exists once, at the last stage (the reference masks every
-        other stage's copy to 0 and broadcasts it with an identity
-        transpose: the same cotangents)."""
+        """One data slot's loss and gradient blocks through the pipeline
+        schedule over its stage devices (``core.pipeline.pipeline_step``,
+        the graph cut at every hop), each with its tensor ranks as
+        dimension 0 of its blocks and activations.  ``leaves`` are the
+        leaves this process holds (full, or a rank's block).  Returns
+        (the loss, or None where the last stage is another rank's;
+        ``{(s, t): gradient blocks}`` of the devices held).  Every tensor
+        rank of the last stage takes the loss of its own (identical) copy
+        of the output, as the reference's masked psum does."""
         cfg, plan, model = self.cfg, self.plan, self.model
         S, T = cfg.mesh.stage, cfg.mesh.tensor
+        R = self.ranks
         policy = self._policy
         bf16 = policy.compute_dtype != "float32"
-        req = [x.detach().requires_grad_() for x in leaves]
-        pl = [x.to(policy.cdt) for x in req] if bf16 else req
         x = model.inputs(batch)
         if bf16:
             x = x.to(policy.cdt)
@@ -513,48 +664,72 @@ class HybridEngine:
         if not self._act_cell:
             self._act_cell.append(mb * int(np.prod(x.shape[1:]))
                                   * x.element_size())
+        rows = 1 if R is not None else T        # tensor rows held
         if T > 1:
-            x = x[None].expand((T,) + tuple(x.shape))
+            x = x[None].expand((rows,) + tuple(x.shape))
             xm = [x[:, k * mb:(k + 1) * mb] for k in range(micro)]
         else:
             xm = [x[k * mb:(k + 1) * mb] for k in range(micro)]
 
-        def stage_tree(s):
-            # [layers, T, *block] per leaf when tensor-sharded: row j is
-            # layer j with its T ranks' blocks on dim 0 of the layer
+        # each stage device's parameters: leaves of their own, [layers,
+        # T, *block] per leaf when tensor-sharded (row j is layer j with
+        # its tensor ranks' blocks on dim 0 of the layer); under bf16
+        # compute the leaves are the bf16 copies, whose gradients sum
+        # over the micro-batches in bf16 as the reference's cast's do
+        grid = self._grid()
+        held = sorted({s for s, _ in grid})
+        dev: Dict[int, List[torch.Tensor]] = {}
+        for s in held:
+            ts = [t for s2, t in grid if s2 == s]
             if T > 1:
-                blocks = [torch.stack([self._block(p, i, s, t)
-                                       for t in range(T)], dim=1)
-                          for i, p in enumerate(pl)]
+                blocks = [torch.stack([self._block(p, i, s, t) for t in ts],
+                                      dim=1) for i, p in enumerate(leaves)]
             else:
-                blocks = [self._block(p, i, s, 0) for i, p in enumerate(pl)]
-            return self._tree(blocks)
+                blocks = [self._block(p, i, s, 0)
+                          for i, p in enumerate(leaves)]
+            dev[s] = [(x.to(policy.cdt) if bf16 else x).detach()
+                      .requires_grad_() for x in blocks]
+            del blocks
+        n_local = plan.local_shapes[0][0] if self.staged else 1
+        per_chunk = n_local // self._v
 
-        def run_layers(sp, xx):
-            n = self.layout.leaf(sp, 0).shape[0]
-            for j in range(n):
+        def call(s, c, xx):
+            sp = self._tree(dev[s])
+            for j in range(c * per_chunk, (c + 1) * per_chunk):
                 xx = model.stage_fn(tree_map(lambda leaf: leaf[j], sp), xx,
                                     tensor_parallel=T > 1)
             return xx
 
-        stages = [stage_tree(s) for s in range(S)]
-        if cfg.schedule == "1f1b":
-            outs = onefb_forward(run_layers, stages, xm, interleave=self._v)
-        else:
-            outs = gpipe_forward(run_layers, stages, xm)
-        if T > 1:
-            y = outs.transpose(0, 1).reshape((T, bsz) + tuple(x.shape[2:]))
-            rows = [model.readout(y[r], batch).float() for r in range(T)]
-            loss, total = rows[0], torch.stack(rows).sum()
-        else:
-            y = outs.reshape((bsz,) + tuple(x.shape[1:]))
-            loss = total = model.readout(y, batch).float()
-        total.backward()
-        return loss.detach(), [torch.zeros_like(p) if p.grad is None
-                               else p.grad for p in req]
+        def loss_fn(ys):
+            outs = torch.stack(ys)
+            if T > 1:
+                y = outs.transpose(0, 1).reshape((rows, bsz)
+                                                 + tuple(outs.shape[3:]))
+                per_rank = [model.readout(yr, batch).float()
+                            for yr in y.unbind(0)]
+                return per_rank[0], torch.stack(per_rank).sum()
+            y = outs.reshape((bsz,) + tuple(outs.shape[2:]))
+            loss = model.readout(y, batch).float()
+            return loss, loss
+
+        with tensor_axis(None if R is None else R.tensor):
+            loss = pipeline_step(call, held, xm, loss_fn, stages=S,
+                                 schedule=cfg.schedule, interleave=self._v,
+                                 axis=None if R is None else R.stage)
+        # contiguous blocks: a device's reductions (the codecs' scales)
+        # then see the same layout on either axis
+        out = {}
+        for s, t in grid:
+            r = [t2 for s2, t2 in grid if s2 == s].index(t)
+            out[(s, t)] = [torch.zeros_like(p[:, r] if T > 1 else p,
+                                            dtype=torch.float32)
+                           if p.grad is None else
+                           (p.grad[:, r] if T > 1 else p.grad).float()
+                           .contiguous() for p in dev[s]]
+        return None if loss is None else loss.detach(), out
 
     def _loss_and_grads(self, params, batch):
-        """(loss, full gradient leaves in layout order) of one data slot
+        """(loss or None, ``{(s, t): gradient blocks}``) of one data slot
         at the parameter tree ``params`` (already cast for compute when
         the model is a bare grad_fn)."""
         if self.staged:
@@ -563,18 +738,19 @@ class HybridEngine:
         loss, grads = self.grad_fn(params, batch)
         # under bf16 compute the gradients of the bf16 copy are widened:
         # the fp32 master weights are what the optimizer updates
-        return loss, [g.float() for g in
-                      self.layout.leaves(grads, consume=True)]
+        return loss, {(0, 0): [g.float() for g in
+                               self.layout.leaves(grads, consume=True)]}
 
     def _bsp_body(self, st, per, t):
-        """The BSP step's work on ``st`` (in place).  Returns (the data
-        slots' losses, dgc's sparse elements sent)."""
-        cfg, plan = self.cfg, self.plan
+        """The BSP step's work on ``st`` (in place).  Returns (the held
+        data slots' losses, None where another rank holds a slot's last
+        stage; dgc's sparse elements this process sent)."""
+        cfg = self.cfg
         comp = cfg.compressor
-        D = cfg.mesh.data
         comm = self._comm_plan()
         gain = comp.ef_gain if comp.method == "onebit" else 1.0
         bf16_reduce = self._policy.reduce_dtype != "float32"
+        dax = self._data_axis
         if cfg.zero == 3:
             params = self._tree(self._materialize(st["params"]))
         else:
@@ -583,61 +759,62 @@ class HybridEngine:
         if not self.staged and self._policy.compute_dtype != "float32":
             # bf16 compute, fp32 masters: one cast serves every data slot
             compute = self._policy.cast_for_compute(params)
-        losses, grads = [], []
-        for w in range(D):
+        losses, local = [], []          # local[row][(s, t)] -> blocks
+        for w in self._slots:
             with record_function("forward_backward"):
                 loss, g = self._loss_and_grads(compute, per[w])
             if bf16_reduce:
                 # round the push to the bf16 wire words the measured
                 # accounting counts (the exchange re-widens to fp32)
-                g = [x.to(self._policy.rdt) for x in g]
-            losses.append(float(loss))
-            grads.append(g)
+                g = {k: [x.to(self._policy.rdt) for x in v]
+                     for k, v in g.items()}
+            losses.append(None if loss is None else float(loss))
+            local.append(g)
             del g
-        del compute
-        local = [self._locals(g) for g in grads]    # [w][(s, t)] -> blocks
-        del grads
+        del compute, params
         ef = st["ef"]
-        gen = self._generator(t, cfg.mesh.size)
+        gens = {st_: self._exchange_generator(t, *st_)
+                for st_ in self._grid()}
         sent = 0
         if not comm.in_schedule and comp.method != "none":
             # modeled: each device compresses its own blocks with its EF
             with record_function("stack_and_compress"):
-                for w in range(D):
+                for row, w in enumerate(self._slots):
                     for s, tt in self._grid():
-                        e = (None if ef is None else
-                             [x[w, s, tt] for x in ef])
+                        ix = self._loc(w, s, tt)
+                        e = (None if ef is None else [x[ix] for x in ef])
                         out, e_new, _ = comp.roundtrip(
-                            local[w][(s, tt)], e, self._generator(
+                            local[row][(s, tt)], e, self._generator(
                                 t, int(self.mesh.devices[w, tt, s])))
-                        local[w][(s, tt)] = out
+                        local[row][(s, tt)] = out
                         if e_new is not None:
                             for x, y in zip(ef, e_new):
-                                x[w, s, tt].copy_(y)
+                                x[ix].copy_(y)
                         del out, e_new
         if cfg.zero == 0:
             avg = {}
             with record_function("allreduce"):
                 for st_ in self._grid():
-                    lists = [local[w][st_] for w in range(D)]
+                    lists = [g[st_] for g in local]
                     if comm.in_schedule:
                         e = (None if ef is None else
-                             [[x[w, st_[0], st_[1]] for x in ef]
-                              for w in range(D)])
-                        avg[st_], e_new, nz = comm.exchange(lists, e, gen)
+                             [[x[self._loc(w, *st_)] for x in ef]
+                              for w in self._slots])
+                        avg[st_], e_new, nz = comm.exchange(
+                            lists, e, gens[st_], axis=dax)
                         if e_new is not None:
-                            for w in range(D):
-                                for x, y in zip(ef, e_new[w]):
-                                    x[w, st_[0], st_[1]].copy_(y)
+                            for row, w in enumerate(self._slots):
+                                for x, y in zip(ef, e_new[row]):
+                                    x[self._loc(w, *st_)].copy_(y)
                         sent += int(nz.sum())
                     else:
-                        avg[st_] = comm.reduce_grads(lists)
+                        avg[st_] = comm.reduce_grads(lists, axis=dax)
                     del lists
             del local
             with record_function("sgd_update"):
                 self._apply_z0(st, self._assemble(avg))
             return losses, sent
-        return losses, self._zero_step(st, params, local, gen, gain)
+        return losses, self._zero_step(st, local, gens, gain)
 
     def _apply_z0(self, st, avg: List[torch.Tensor]):
         cfg = self.cfg
@@ -650,23 +827,26 @@ class HybridEngine:
         step = make_optimizer_step(cfg.optimizer, cfg.lr, cfg.moments)
         st["params"], st["opt"] = step(st["params"], grads, st["opt"])
 
-    def _zero_step(self, st, params, local, gen, gain: float) -> int:
-        """The z1-z3 bucket update of every (s, t) block (one optimizer
-        step over all their shards).  Returns dgc's sparse elements."""
+    def _zero_step(self, st, local, gens, gain: float) -> int:
+        """The z1-z3 bucket update of every (s, t) block held (one
+        optimizer step over all their shards).  Returns dgc's sparse
+        elements sent."""
         cfg, plan = self.cfg, self.plan
-        D = cfg.mesh.data
+        dax = self._data_axis
         comm = self._comm_plan()
         codec = codec_for(cfg.compressor)
         ef = st["ef"]
         grid = self._grid()
+        slots = self._slots
         combos = [(b, s, t) for b in plan.order for s, t in grid]
         if ef is not None and comm.in_schedule:
             # compensated input c_in = g + gain * e, per device block
-            for w in range(D):
+            for row, w in enumerate(slots):
                 for s, t in grid:
-                    local[w][(s, t)] = [
-                        g.float() + gain * x[w, s, t]
-                        for g, x in zip(local[w][(s, t)], ef)]
+                    ix = self._loc(w, s, t)
+                    local[row][(s, t)] = [
+                        g.float() + gain * x[ix]
+                        for g, x in zip(local[row][(s, t)], ef)]
         resids: List[torch.Tensor] = []
         sent = [0]
 
@@ -674,35 +854,38 @@ class HybridEngine:
             # each [D, n_b] bucket is fused when the update reaches it
             # and its blocks are dropped from the slots' lists
             for b, s, t in combos:
-                yield fuse([local[w][(s, t)] for w in range(D)],
-                           plan.buckets[b], plan.local_shapes,
-                           plan.bucket_sizes[b])
+                yield fuse([g[(s, t)] for g in local], plan.buckets[b],
+                           plan.local_shapes, plan.bucket_sizes[b])
 
-        def grad_reduce(padded, _j):
+        def grad_reduce(padded, j):
+            _, s, t = combos[j]
             if cfg.zero == 1:
                 red, res, nz = compressed_allreduce(padded, "ring", codec,
-                                                    gen)
-                shard = shard_of_flat(red)
+                                                    gens[(s, t)], axis=dax)
+                shard = shard_of_flat(red, dax)
             else:
-                shard, res, nz = compressed_reduce_scatter(padded, codec,
-                                                           gen)
+                shard, res, nz = compressed_reduce_scatter(
+                    padded, codec, gens[(s, t)], axis=dax)
             resids.append(res)
             sent[0] += int(nz.sum())
             return shard
 
+        locs = [self._loc(0, s, t)[1:] for s, t in grid]
         if cfg.zero == 3:
-            p_buckets = [x[:, s, t] for x in st["params"] for s, t in grid]
+            p_buckets = [x[:, si, ti] for x in st["params"]
+                         for si, ti in locs]
         else:
-            leaves = self.layout.view(params)
+            leaves = self.layout.view(st["params"])
             p_buckets = (self._bucket_flat(leaves, b, s, t)[
                 :plan.bucket_sizes[b]] for b, s, t in combos)
         opt = st["opt"]
         if opt is not None:
-            opt = {k: [x[:, s, t] for x in opt[k] for s, t in grid]
+            opt = {k: [x[:, si, ti] for x in opt[k] for si, ti in locs]
                    for k in ("m", "v")}
             opt["t"] = st["opt"]["t"]
         update = make_zero_bucket_update(plan, cfg.zero, cfg.optimizer,
-                                         cfg.lr, moment_dtype=cfg.moments)
+                                         cfg.lr, moment_dtype=cfg.moments,
+                                         axis=dax)
         with record_function("allreduce"):
             new, opt_new = update(
                 p_buckets, g_buckets(), opt,
@@ -713,8 +896,8 @@ class HybridEngine:
                 st["opt"]["t"] = opt_new["t"]
             if cfg.zero == 3:
                 for j, x in enumerate(new):
-                    pos, (s, t) = j // len(grid), grid[j % len(grid)]
-                    st["params"][pos][:, s, t].copy_(x)
+                    pos, (si, ti) = j // len(grid), locs[j % len(grid)]
+                    st["params"][pos][:, si, ti].copy_(x)
             else:
                 blocks = {st_: [None] * len(plan.local_shapes)
                           for st_ in grid}
@@ -726,15 +909,16 @@ class HybridEngine:
                     st["params"], full, lambda p, x: x.to(p.dtype))
             if ef is not None and comm.in_schedule:
                 for (b, s, t), res in zip(combos, resids):
-                    for w in range(D):
+                    for row, w in enumerate(slots):
                         out: List[Any] = [None] * len(plan.local_shapes)
-                        scatter_flat(res[w, :plan.bucket_sizes[b]],
+                        scatter_flat(res[row, :plan.bucket_sizes[b]],
                                      plan.buckets[b], plan.local_shapes,
                                      out)
+                        ix = self._loc(w, s, t)
                         for i in plan.buckets[b]:
                             # telescoping EF: (g+e) - (g+gain*e) + hop
                             # residual
-                            e = ef[i][w, s, t]
+                            e = ef[i][ix]
                             e.mul_(1.0 - gain).add_(out[i].float())
         return sent[0]
 
@@ -750,10 +934,9 @@ class HybridEngine:
         cfg = self.cfg
         if self._measured_tx is None:
             self._measured_tx = self._measured_step_tx_bytes()
-        D = cfg.mesh.data
-        per = [batches(t, w) for w in range(D)]
+        per = {w: batches(t, w) for w in self._slots}
         if self.staged and cfg.mesh.stage > 1:
-            bsz = int(self.model.inputs(per[0]).shape[0])
+            bsz = int(self.model.inputs(per[self._slots[0]]).shape[0])
             if bsz % self.plan.micro:
                 raise ValueError(
                     f"batch size {bsz} not divisible into "
@@ -768,6 +951,8 @@ class HybridEngine:
                     torch.cuda.synchronize(self.device)
         else:
             losses, sent = self._bsp_body(st, per, t)
+        losses, sent = self._gather_step(losses, sent)
+        D = cfg.mesh.data
         if rec.enabled:
             if D > 1 and cfg.zero == 0:
                 # z0 runs the CommPlan schedule on the data axis; z1-3
@@ -796,6 +981,22 @@ class HybridEngine:
                   max_staleness=0)
         return st, [ev]
 
+    def _gather_step(self, losses, sent: int):
+        """Every data slot's loss and the whole mesh's dgc elements: as
+        computed on the logical mesh, gathered over the world from each
+        slot's last stage (tensor rank 0) on ranks."""
+        R = self.ranks
+        if R is None:
+            return losses, sent
+        # float64 carries the fp32 losses and the counts exactly
+        x = torch.tensor([[losses[0] or 0.0, float(sent)]],
+                         dtype=torch.float64, device=R.world.device)
+        rows = R.world.all_gather(x)[0].tolist()
+        S = self.cfg.mesh.stage
+        return ([rows[int(self.mesh.devices[w, 0, S - 1])][0]
+                 for w in range(self.cfg.mesh.data)],
+                int(sum(r[1] for r in rows)))
+
     def step(self, st, batches: Callable[[int, int], Any], t: int):
         sync = self.cfg.sync
         if sync == "bsp":
@@ -810,13 +1011,28 @@ class HybridEngine:
         return st, ev
 
     def finalize(self, st):
-        if self.cfg.sync == "sma":
-            return tree_map(lambda *xs: torch.stack(xs).mean(0),
+        cfg = self.cfg
+        if cfg.sync == "sma":
+            return tree_map(lambda *xs: self._data_rows(xs).mean(0),
                             *st["replicas"])
-        if self.cfg.zero == 3:
-            full = self._tree(self._materialize(st["params"]))
-            return self._permute_stacked(full, inverse=True)
-        return self._permute_stacked(st["params"], inverse=True)
+        if cfg.sync in ASYNC_SYNCS:
+            return self._permute_stacked(st["params"], inverse=True)
+        if cfg.zero == 3:
+            params = self._tree(self._materialize(st["params"]))
+        else:
+            params = st["params"]
+        if self.ranks is not None and not cfg.mesh.is_trivial:
+            # every (s, t) block, gathered over the world
+            params = self._tree(self._gather_full(
+                list(self.layout.leaves(params)), "world"))
+        return self._permute_stacked(params, inverse=True)
+
+    def _data_rows(self, xs) -> torch.Tensor:
+        """Every data slot's tensor [D, ...] in slot order, from the
+        slots' tensors this process holds (gathered over the data line on
+        a rank)."""
+        x = torch.stack(xs)
+        return x if self.ranks is None else self.ranks.data.all_gather(x)[0]
 
     def wire_bytes(self) -> int:
         return self._wire_total
@@ -831,17 +1047,26 @@ class HybridEngine:
     def _slot_loss_and_grads(self, pulled, batch):
         """One data slot's loss and full gradient leaves at stage=1:
         tensor-sharded compute inside the slot (its T ranks on dimension 0
-        of the blocks); each rank's cotangent covers its role-dim block,
-        and the blocks' gradients land in their slices of the full leaves
-        (the reference's tensor-axis psum)."""
+        of the blocks, or one tensor rank per process); the blocks'
+        gradients land in their slices of the full leaves (the
+        reference's tensor-axis psum; gathered over the tensor line on a
+        rank)."""
         if not self.staged:
             loss, g = self.grad_fn(pulled, batch)
             return loss, list(self.layout.leaves(g, consume=True))
-        return self._stage_loss_and_grads(list(self.layout.leaves(pulled)),
-                                          batch)
+        leaves = list(self.layout.leaves(pulled))
+        if self.ranks is not None:
+            (s, t), = self._grid()
+            leaves = [self._cut(x, i, s, t) for i, x in enumerate(leaves)]
+        loss, blocks = self._stage_loss_and_grads(leaves, batch)
+        if self.ranks is not None:
+            return loss, self._gather_full(next(iter(blocks.values())),
+                                           "tensor")
+        return loss, self._assemble_full(blocks)
 
     def _push_grad(self, st, w: int, pulled, batch, event: int):
         comp = self.cfg.compressor
+        row = self._slots.index(w)
         with record_function("forward_backward"):
             loss, g = self._slot_loss_and_grads(pulled, batch)
         if comp.method == "none":
@@ -849,15 +1074,22 @@ class HybridEngine:
         with record_function("stack_and_compress"):
             ef = st["ef"]
             out, ef_new, _ = comp.roundtrip(
-                g, None if ef is None else [x[w] for x in ef],
+                g, None if ef is None else [x[row] for x in ef],
                 self._generator(event, w))
             if ef_new is not None:
                 for x, y in zip(ef, ef_new):
-                    x[w].copy_(y)
+                    x[row].copy_(y)
         return loss, out
 
     def _apply(self, params, leaves, w: int):
         lr = self.cfg.lr
+        if self.ranks is not None:
+            # the firing slot's ranks hand their push to every slot
+            dax = self.ranks.data
+            leaves = [dax.broadcast(
+                leaves[i] if leaves is not None else
+                torch.empty(shape, device=self.device), w)
+                for i, shape in enumerate(self._full_shapes)]
         with record_function("sgd_update"):
             return self.layout.update(params, leaves,
                                       lambda p, g: p - lr * g)
@@ -877,7 +1109,7 @@ class HybridEngine:
             st, batches, t, bound, K=cfg.mesh.data,
             push_grad=functools.partial(self._push_grad, st),
             apply_fn=self._apply, event_wire=self._full_event_bytes(),
-            eff_periods=self.effective_periods())
+            eff_periods=self.effective_periods(), axis=self._data_axis)
 
     def _step_sma(self, st, batches, t):
         cfg = self.cfg
@@ -885,19 +1117,21 @@ class HybridEngine:
         lr, mu = cfg.lr, cfg.sma_mu
         reps = st["replicas"]
         center = tree_map(lambda *xs: functools.reduce(
-            torch.add, xs[1:], xs[0]) / D, *reps)
+            torch.add, list(self._data_rows(xs).unbind(0))) / D, *reps)
         losses = []
-        for w in range(D):
+        for row, w in enumerate(self._slots):
             with record_function("forward_backward"):
-                loss, g = self._slot_loss_and_grads(reps[w],
+                loss, g = self._slot_loss_and_grads(reps[row],
                                                     batches(t, w))
             g = self._tree(g)
             with record_function("sgd_update"):
-                reps[w] = tree_map(
+                reps[row] = tree_map(
                     lambda r, z, gg: r - lr * gg - mu * (r - z),
-                    reps[w], center, g)
+                    reps[row], center, g)
             losses.append(float(loss))
             del g
+        if self.ranks is not None:
+            losses = gather_values(self.ranks.data, losses)
         st["wire"] += self._full_event_bytes() * D
         return st, [dict(step=t, loss=float(np.mean(np.asarray(
             losses, np.float32))), max_staleness=0)]
@@ -907,11 +1141,15 @@ class HybridEngine:
         """Measured persistent bytes per logical device, from the state
         tensors each divided by the devices it is shared over (module
         docstring): ``parallel.zero.state_bytes_per_device`` plus the
-        AdamW step count."""
+        AdamW step count.  On a rank, the bytes its own tensors hold (the
+        data-axis async and sma cells keep full parameters there)."""
         cfg = self.cfg
         D, T, S = cfg.mesh.data, cfg.mesh.tensor, cfg.mesh.stage
         stacked_div = (S * T) if self.staged else 1
         shard_div = D * S * T
+        if self.ranks is not None:
+            # a rank's tensors are its device's own
+            stacked_div = shard_div = 1
 
         def nbytes(tree, div):
             tensors = (get_path(tree, p) for p in leaf_paths(tree))
@@ -1001,6 +1239,8 @@ class HybridEngine:
         rebuilding the *data* axis (tensor x stage geometry is a property
         of the model and survives).  ZeRO shards are re-cut over the new
         data axis; survivor data slots keep their EF residuals."""
+        if self.ranks is not None:
+            _refuse_elastic("reshard")
         cfg, plan = self.cfg, self.plan
         if cfg.sync != "bsp":
             raise ValueError(
@@ -1062,6 +1302,8 @@ class HybridEngine:
 
     def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         cfg = self.cfg
+        if self.ranks is not None:
+            _refuse_elastic("export_state")
         if cfg.sync != "bsp":
             raise ValueError(
                 f"sync={cfg.sync!r} hybrid cells do not snapshot yet; "
@@ -1081,6 +1323,8 @@ class HybridEngine:
 
     def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
         cfg = self.cfg
+        if self.ranks is not None:
+            _refuse_elastic("import_state")
         if meta["num_workers"] != cfg.mesh.size:
             raise ValueError(
                 f"snapshot has {meta['num_workers']} devices, engine has "

@@ -15,7 +15,11 @@ collectives of the column -> row parallel pair:
 
 On the port's logical devices the tensor axis is dimension 0 of a tensor
 (row t is tensor rank t's value, as ``core.collectives``' worker axis),
-and both operators are ``torch.autograd.Function``s over it.  Written as
+and both operators are ``torch.autograd.Function``s over it.  When each
+tensor rank is a process (``tensor_axis(axis)`` around the forward, with
+the tensor line's ``DistAxis``), a rank's tensors carry its own row only
+([1, ...]); each operator gathers the T rows over the line and sums them
+in rank order, so the bits are the logical axis's.  Written as
 a plain sum over the rows, ``tensor_reduce``'s backward would be another
 sum and hand every rank T times its cotangent: the over-count the
 reference pins with ``custom_vjp`` (its psum transposes to a psum).
@@ -30,6 +34,7 @@ is validated against.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable
@@ -40,22 +45,46 @@ import torch.nn.functional as F
 from repro_torch.core.tree import get_path, leaf_paths, tree_map
 
 
+_AXIS: list = [None]       # the tensor line of the forward in progress
+
+
+@contextlib.contextmanager
+def tensor_axis(axis):
+    """Run the forward inside with ``axis`` (a ``DistAxis`` of the tensor
+    line, or None for the logical axis) as the tensor axis of
+    ``tensor_copy`` / ``tensor_reduce``; each call keeps it for its
+    backward."""
+    prev, _AXIS[0] = _AXIS[0], axis
+    try:
+        yield
+    finally:
+        _AXIS[0] = prev
+
+
+def _rows(axis, x: torch.Tensor) -> torch.Tensor:
+    """Every tensor rank's row of ``x``: ``x`` itself on the logical
+    axis, the line's gather of each rank's ``[1, ...]`` over ranks."""
+    return x if axis is None else axis.all_gather(x)[0]
+
+
 class _TensorCopy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
+        ctx.axis = _AXIS[0]
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g.sum(0, keepdim=True).expand_as(g)
+        return _rows(ctx.axis, g).sum(0, keepdim=True).expand_as(g)
 
 
 class _TensorReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        acc = x[0].clone()
-        for r in range(1, x.shape[0]):     # rank order, as core.collectives
-            acc += x[r]
+        rows = _rows(_AXIS[0], x)
+        acc = rows[0].clone()
+        for r in range(1, rows.shape[0]):  # rank order, as core.collectives
+            acc += rows[r]
         return acc[None].expand_as(x).contiguous()
 
     @staticmethod
@@ -156,9 +185,18 @@ def make_tiny_transformer(stages: int, d_model: int = 8, d_ff: int = 16,
     def stage_fn(sp, x, tensor_parallel=False):
         xin = x
         if tensor_parallel:
+            # [T, mb, d] batches of the T ranks' blocks (one on a rank):
+            # bmm computes each batch entry the same whatever T is (matmul
+            # treats a batch of one as a plain mm), and GELU runs row by
+            # row (the CPU's vector kernels round a short tail otherwise)
             x = tensor_copy(x)
-        h = F.gelu(x @ sp["w_up"], approximate="tanh")   # column-parallel
-        y = h @ sp["w_down"]                 # row-parallel: partial product
+            a = torch.bmm(x, sp["w_up"])                  # column-parallel
+            h = torch.stack([F.gelu(r, approximate="tanh")
+                             for r in a.unbind(0)])
+            y = torch.bmm(h, sp["w_down"])   # row-parallel: partial product
+        else:
+            h = F.gelu(x @ sp["w_up"], approximate="tanh")
+            y = h @ sp["w_down"]
         if tensor_parallel:
             y = tensor_reduce(y)
         return xin + y

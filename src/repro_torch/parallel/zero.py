@@ -31,7 +31,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import psum
+from repro_torch.core.collectives import axis_of
 from repro_torch.core.parameter_server import (all_gather_flat,
                                                reduce_scatter_flat,
                                                shard_of_flat)
@@ -83,8 +83,8 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def make_zero_bucket_update(plan: MeshPlan, zero: int, optimizer: str,
-                            lr: float, moment_dtype: str = "float32"
-                            ) -> Callable:
+                            lr: float, moment_dtype: str = "float32",
+                            axis=None) -> Callable:
     """Build the per-step ZeRO-1/2/3 update over ``plan``'s buckets.
 
     Returns ``update(p_buckets, g_buckets, opt, grad_reduce=None) ->
@@ -102,7 +102,13 @@ def make_zero_bucket_update(plan: MeshPlan, zero: int, optimizer: str,
     replaces the full-precision psum / reduce-scatter with a caller's
     exchange: the hook the hybrid engine routes the gradient push through
     the compressed-payload schedules of ``comm`` with, under
-    ``wire="measured"`` (parameters still travel exact)."""
+    ``wire="measured"`` (parameters still travel exact).
+
+    ``axis`` is the data axis (``core.collectives``): every data rank a
+    row by default; with a ``DistAxis`` of the data line each process
+    holds its rank's row of every ``[D, ...]`` tensor above (``[1,
+    ...]``), the gradient reduce-scatter is the line's ``psum_scatter``
+    and the parameter all-gather the line's ``all_gather``."""
     if zero not in (1, 2, 3):
         raise ValueError(f"zero={zero} (bucket update is for levels 1-3)")
     opt_step = make_optimizer_step(optimizer, lr, moment_dtype)
@@ -118,23 +124,25 @@ def make_zero_bucket_update(plan: MeshPlan, zero: int, optimizer: str,
             elif zero == 1:
                 # full allreduce, then slice my shard (grads materialize
                 # everywhere: ZeRO-1 only shards the optimizer state)
-                g_shards.append(shard_of_flat(psum(padded)))
+                ax = axis_of(padded, axis)
+                g_shards.append(shard_of_flat(ax.psum(padded), ax))
             else:
-                g_shards.append(reduce_scatter_flat(padded))
+                g_shards.append(reduce_scatter_flat(padded, axis))
             del padded
         for g in g_shards:
             g.div_(n_data)             # each shard is the reduce's own
         if zero == 3:
             p_shards = list(p_buckets)
         else:
+            k = n_data if axis is None else len(axis.ids)
             p_shards = [shard_of_flat(
-                _pad_rows(p, n_data)[None].expand(n_data, -1))
+                _pad_rows(p, n_data)[None].expand(k, -1), axis)
                 for p in p_buckets]
         new_shards, new_opt = opt_step(p_shards, g_shards, opt)
         del g_shards
         if zero == 3:
             return new_shards, new_opt
-        return [all_gather_flat(s, n_b)[0]
+        return [all_gather_flat(s, n_b, axis)[0]
                 for s, n_b in zip(new_shards, sizes)], new_opt
 
     return update

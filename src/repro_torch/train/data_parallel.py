@@ -48,7 +48,8 @@ with weight 0 and the participants with K/(K-k); a dropped worker's EF
 residual is kept on both wire modes.  ``reshard``, ``export_state`` and
 ``import_state`` are the elastic interface (``elastic.recovery``).  The
 workers are logical, so a resize needs no more devices (the reference
-checks its device count).
+checks its device count; over a process group the group's rank count
+bounds it).
 
 Each phase runs under a ``torch.profiler.record_function`` range
 (``forward_backward``, ``stack_and_compress``, ``allreduce`` for the
@@ -75,8 +76,23 @@ rank keeps its own worker's pulled parameters.  Under SMA a rank holds
 its own replica.  With backup workers every rank derives the same drop
 set; with detection each rank times its own worker's batch fetch and
 every rank's detector observes the K times gathered in worker order.
-The elastic interface (``reshard``, ``export_state``, ``import_state``)
-raises there: ROADMAP queue A item 9d.
+
+The elastic interface runs over the group too.  Worker j runs on rank j,
+as the reference rebuilds its mesh over the first M live devices: a
+resize to M workers moves the engine onto the group of the first M ranks
+(``launch.dist.prefix_group``), each survivor's EF row (or SMA replica)
+travels from its old rank to its new one, a grown rank starts with zero
+EF and receives the parameters (SMA: the old workers' center) by
+broadcast, and a rank past M idles: it takes no part in the step's
+collectives, receives each step's events and wire count from rank 0, and
+still joins every resize and snapshot.  Before each resize rank 0's
+schedule (periods, slowdowns, detector, async clocks) is broadcast, so
+an idle rank's copy never goes stale.  ``export_state`` gathers every
+worker's rows to rank 0, which returns the logical engine's ``(arrays,
+meta)``; the other ranks return the same tree with their own rows and
+None for the rest (``snapshot_template``: a restore reads no other
+rank's rows), and ``snapshot_writer`` is true on rank 0 only.
+``import_state`` keeps the rank's own rows.
 """
 from __future__ import annotations
 
@@ -100,7 +116,8 @@ from repro_torch.core.parameter_server import (all_gather_flat, make_ps_step,
                                                shard_of_flat)
 from repro_torch.core.sync import (ElasticWorkerSet, default_periods,
                                    event_generator, firing_schedule)
-from repro_torch.core.tree import LeafLayout, get_path, leaf_paths, tree_map
+from repro_torch.core.tree import (LeafLayout, get_path, leaf_paths,
+                                   set_path, tree_map)
 from repro_torch.elastic.backup import participation_weights
 from repro_torch.obs.trace import NullRecorder, get_recorder
 from repro_torch.train.train_loop import fold_in
@@ -345,9 +362,14 @@ def _dist_axis(cfg: DataParallelConfig, group) -> DistAxis:
     return axis
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} over a process group is not ported "
-                              f"yet (ROADMAP queue A item {item})")
+def broadcast_object(world: DistAxis, obj, src: int = 0):
+    """``obj`` (any picklable value) of ``world``'s worker ``src`` on
+    every rank of it."""
+    box = [obj]
+    world._dist.broadcast_object_list(box, src=world._peer(src),
+                                      group=world.group)
+    return box[0]
+
 
 
 class DeviceEngine(ElasticWorkerSet):
@@ -361,7 +383,7 @@ class DeviceEngine(ElasticWorkerSet):
 
     ``group`` (a ``torch.distributed`` process group of ``num_workers``
     ranks, ``dist.group.WORLD`` for the default one) runs one worker per
-    rank (module docstring); the elastic interface raises there."""
+    rank (module docstring), resizable up to the group's size."""
 
     def __init__(self, cfg: DataParallelConfig, grad_fn: Callable,
                  layout: Optional[LeafLayout] = None, device="cuda",
@@ -384,8 +406,10 @@ class DeviceEngine(ElasticWorkerSet):
                              "(async modes have no round to drop from)")
         if cfg.backup >= cfg.num_workers:
             raise ValueError("backup k must leave at least one worker")
-        self._group_axis = (None if group is None
-                            else _dist_axis(cfg, group))
+        # over a group: every rank of it (``_world``) and the active
+        # workers' axis (the first num_workers ranks; None on an idle rank)
+        self._world = None if group is None else _dist_axis(cfg, group)
+        self._group_axis = self._world
         self.cfg = cfg
         self.grad_fn = grad_fn
         self.layout = layout
@@ -406,13 +430,30 @@ class DeviceEngine(ElasticWorkerSet):
 
     @property
     def axis(self):
-        """The worker axis: one worker per rank of the process group, or
-        every worker (their current number) in this process."""
-        return self._group_axis or LogicalAxis(self.cfg.num_workers)
+        """The worker axis: one worker per active rank of the process
+        group (None on an idle rank), or every worker (their current
+        number) in this process."""
+        if self._world is not None:
+            return self._group_axis
+        return LogicalAxis(self.cfg.num_workers)
 
-    def _local_only(self, what: str, item: str):
-        if self._group_axis is not None:
-            _not_ported(what, item)
+    @property
+    def _held(self) -> List[int]:
+        """The workers this process holds: all of them, its rank's, or
+        none on an idle rank."""
+        ax = self.axis
+        return [] if ax is None else ax.ids
+
+    @property
+    def _has_idle(self) -> bool:
+        return (self._world is not None
+                and self.cfg.num_workers < self._world.size)
+
+    @property
+    def snapshot_writer(self) -> bool:
+        """Whether this process writes the engine's snapshots: rank 0 of
+        a group, or the one process of the logical axis."""
+        return self._world is None or self._world.rank == 0
 
     # ------------------------------------------------------------- planning
     def _layout(self, params) -> LeafLayout:
@@ -715,22 +756,31 @@ class DeviceEngine(ElasticWorkerSet):
             eff_periods=self.effective_periods(), axis=self.axis)
 
     # -------------------------------------------------- engine protocol
+    def _like(self):
+        """Empty tensors shaped like the parameters: the receive buffers
+        of a rank that holds no current copy."""
+        return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype,
+                                              device=self.device),
+                        self._param_meta)
+
     def init(self, params) -> Dict[str, Any]:
         cfg = self.cfg
         K = cfg.num_workers
         params = tree_map(lambda x: x.to(self.device), params)
+        self._param_meta = tree_map(lambda x: x.to("meta"), params)
+        held = self._held
         ef = None
         if self._ef_active:
             # one residual per worker this process holds
             shapes = self._layout(params).shapes(params)
             ef = [cfg.compressor.init_state(
                 torch.empty(s, device=self.device) for s in shapes)
-                for _ in self.axis.ids]
+                for _ in held]
         st: Dict[str, Any] = dict(params=params, ef=ef, wire=0)
         if cfg.sync in ("ssp", "asp"):
             st.update(
                 # the held workers' pulled parameters, reference rebinds
-                pulled=[params] * len(self.axis.ids),
+                pulled=[params] * len(held),
                 pulled_ver=[0] * K,
                 server_ver=0,
                 tick=0,
@@ -742,12 +792,15 @@ class DeviceEngine(ElasticWorkerSet):
         elif cfg.sync == "sma":
             del st["params"]
             # the held workers' replicas; updates are out of place
-            st["replicas"] = [params] * len(self.axis.ids)
+            st["replicas"] = [params] * len(held)
         return st
 
     def step(self, st, batches: Callable[[int, int], Any], t: int):
         sync = self.cfg.sync
-        if sync == "bsp":
+        ev = None
+        if self.axis is None:
+            pass                       # an idle rank: rank 0 sends below
+        elif sync == "bsp":
             st, ev = self._step_bsp(st, batches, t)
         elif sync == "ssp":
             st, ev = self._step_async(st, batches, t, self.cfg.staleness)
@@ -755,18 +808,27 @@ class DeviceEngine(ElasticWorkerSet):
             st, ev = self._step_async(st, batches, t, None)
         else:
             st, ev = self._step_sma(st, batches, t)
+        if self._has_idle:
+            ev, st["wire"], self._dropped = broadcast_object(
+                self._world, (ev, st["wire"], self._dropped))
         self._wire_total = st["wire"]
         return st, ev
 
     def finalize(self, st):
+        ax = self.axis
         if self.cfg.sync == "sma":
             # replica average, like the simulator: every replica in worker
             # order, one mean over them on either axis
-            ax = self.axis
-            return tree_map(
+            out = (None if ax is None else tree_map(
                 lambda *xs: ax.all_gather(torch.stack(xs))[0].mean(0),
-                *st["replicas"])
-        return st["params"]
+                *st["replicas"]))
+        else:
+            out = st["params"]
+        if self._has_idle:
+            # an idle rank's copy is stale: rank 0's on every rank
+            out = tree_map(lambda x: self._world.broadcast(x, 0),
+                           out if out is not None else self._like())
+        return out
 
     def wire_bytes(self) -> int:
         return self._wire_total
@@ -787,8 +849,10 @@ class DeviceEngine(ElasticWorkerSet):
         their EF tensors (no copy) and batch clocks; grown slots start with
         zero residuals at the batch frontier (ssp/asp) or at the
         pre-reshard center (sma).  The comm plan depends on the worker
-        count and is re-planned at the next step."""
-        self._local_only("reshard", "9d (elastic resizes across ranks)")
+        count and is re-planned at the next step.  Over a process group
+        every rank calls it (module docstring)."""
+        if self._world is not None:
+            return self._reshard_ranks(st, new_workers, step, lost)
         ef = st["ef"]
         slots, grown = self._reshard_workers(new_workers, lost)
         self._plan, self._ps_update = None, None
@@ -804,38 +868,149 @@ class DeviceEngine(ElasticWorkerSet):
             st["replicas"] = [reps[s] for s in slots] + [center] * grown
         return st
 
+    def _move_row(self, row, like, slots: List[int]):
+        """Worker j's row of the resized set on rank j: rank ``slots[j]``
+        sends its old row (a tree of tensors) to rank j, leaf by leaf;
+        ``like`` (a tree of the same structure) shapes the receive
+        buffers.  Returns this rank's new row, or None when it neither
+        keeps nor receives one."""
+        W, me = self._world, self._world.rank
+        dst = next((j for j, s in enumerate(slots) if s == me and j != me),
+                   None)
+        src = slots[me] if me < len(slots) and slots[me] != me else None
+        keep = me < len(slots) and slots[me] == me
+        out = tree_map(lambda x: x, like)
+        for p in leaf_paths(like):
+            got = W.sendrecv(None if dst is None else get_path(row, p), dst,
+                             None if src is None else get_path(like, p), src)
+            set_path(out, p, get_path(row, p) if keep else got)
+        return out if (keep or src is not None) else None
+
+    def _reshard_ranks(self, st, M: int, step: int, lost: Tuple[int, ...]):
+        """``reshard`` over a process group: the slot rule of the logical
+        engine, with worker j on rank j (module docstring)."""
+        from repro_torch.launch.dist import prefix_group
+        W, cfg = self._world, self.cfg
+        me, N, sync = W.rank, cfg.num_workers, cfg.sync
+        if M > W.size:
+            raise ValueError(f"resize to {M} workers needs {M} ranks, the "
+                             f"process group has {W.size}")
+        # rank 0's schedule and clocks on every rank (an idle rank's are
+        # stale), then the same slot rule everywhere
+        meta = broadcast_object(W, self._snapshot_meta("device", sync, st))
+        self._load_snapshot_meta(meta, sync, st)
+        center = None
+        if sync == "sma" and me < N:
+            # the old workers' mean, in worker order, before they move
+            ax = self.axis
+            center = tree_map(
+                lambda *xs: ax.all_gather(torch.stack(xs))[0].mean(0),
+                *st["replicas"])
+        slots, grown = self._reshard_workers(M, lost)
+        self._plan, self._ps_update = None, None
+        if st["ef"] is not None:
+            like = self._ef_like()
+            row = self._move_row(st["ef"][0] if st["ef"] else None, like,
+                                 slots)
+            if row is None and me < M:          # a grown slot
+                row = [torch.zeros_like(x) for x in like]
+            st["ef"] = [row] if me < M else []
+        if sync == "sma":
+            row = self._move_row(st["replicas"][0] if st["replicas"]
+                                 else None, self._like(), slots)
+            if grown:
+                # a grown slot starts at the old workers' center
+                center = tree_map(lambda x: W.broadcast(x, 0),
+                                  center if center is not None
+                                  else self._like())
+            st["replicas"] = ([] if me >= M else
+                              [center if row is None else row])
+        elif M > N:
+            # the ranks that join hold no current parameters
+            st["params"] = tree_map(lambda x: W.broadcast(x, 0),
+                                    st["params"])
+        # every rank builds the group (collective), its members use it
+        group = prefix_group(M, W.group)
+        self._group_axis = None if group is None else DistAxis(group,
+                                                               W.backend)
+        if sync in ("ssp", "asp"):
+            self._rebase_async(st, slots, grown, step)
+            st["pulled"] = [st["params"]] * len(self._held)
+            st["batch_cache"] = [None] * M
+        self._wire_total = st["wire"]
+        return st
+
+    def _ef_like(self) -> List[torch.Tensor]:
+        """Empty tensors shaped like one worker's EF row."""
+        like = self._like()
+        return [torch.empty(s, device=self.device)
+                for s in self._layout(like).shapes(like)]
+
+    def _rows(self, rows, gather: bool):
+        """The snapshot's per-worker list from this process's rows (a
+        tree each): every worker's on the logical axis; over a group,
+        every worker's gathered to rank 0 (host tensors there) when
+        ``gather``, else (and on the other ranks) the rank's own row with
+        None for the others (a restore then reads this rank's rows
+        only)."""
+        if self._world is None:
+            return rows
+        M, me = self.cfg.num_workers, self._world.rank
+        own = rows[0] if rows else None
+        if gather and own is not None:
+            got = tree_map(lambda x: self.axis.gather(x, 0), own)
+            if me == 0:
+                return [tree_map(lambda g: g[j], got) for j in range(M)]
+        return [own if j == me else None for j in range(M)]
+
+    def _export(self, st, gather: bool):
+        sync = self.cfg.sync
+        ef = st["ef"]
+        arrays: Dict[str, Any] = {
+            "ef": None if ef is None else self._rows(ef, gather)}
+        if sync == "sma":
+            arrays["replicas"] = self._rows(st["replicas"], gather)
+        else:
+            arrays["params"] = st["params"]
+        if sync in ("ssp", "asp"):
+            arrays["pulled"] = self._rows(st["pulled"], gather)
+        return arrays, self._snapshot_meta("device", sync, st)
+
     def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """Split the run-state into (tensor tree, JSON-able meta) for
         ``checkpoint.store``: the inverse of ``import_state``.  The batch
         cache is dropped (batches are a pure function of (batch index,
         worker)); ``ef`` is a list per worker of the reference's leaves,
-        where the reference stacks a worker axis."""
-        self._local_only("export_state", "9d (elastic snapshots across "
-                         "ranks)")
-        sync = self.cfg.sync
-        arrays: Dict[str, Any] = {"ef": st["ef"]}
-        if sync == "sma":
-            arrays["replicas"] = st["replicas"]
-        else:
-            arrays["params"] = st["params"]
-        if sync in ("ssp", "asp"):
-            arrays["pulled"] = st["pulled"]
-        return arrays, self._snapshot_meta("device", sync, st)
+        where the reference stacks a worker axis.  Over a group every
+        rank calls it, and rank 0's is the whole snapshot (module
+        docstring)."""
+        return self._export(st, gather=True)
+
+    def snapshot_template(self, st):
+        """``export_state``'s tree without the gather: the structure a
+        restore loads into (each row onto its stand-in's device)."""
+        return self._export(st, gather=False)
 
     def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
         """Rebuild the run-state from an ``export_state`` snapshot.  The
-        engine must already be configured at ``meta['num_workers']``."""
-        self._local_only("import_state", "9d (elastic snapshots across "
-                         "ranks)")
+        engine must already be configured at ``meta['num_workers']``;
+        over a group each rank keeps its own worker's rows."""
         sync = self.cfg.sync
-        st: Dict[str, Any] = dict(ef=arrays["ef"])
+
+        def dev(tree):
+            return tree_map(lambda x: x.to(self.device), tree)
+
+        held = self._held
+        ef = arrays["ef"]
+        st: Dict[str, Any] = dict(
+            ef=None if ef is None else [dev(ef[w]) for w in held])
         self._load_snapshot_meta(meta, sync, st)
         if sync == "sma":
-            st["replicas"] = arrays["replicas"]
+            st["replicas"] = [dev(arrays["replicas"][w]) for w in held]
         else:
-            st["params"] = arrays["params"]
+            st["params"] = dev(arrays["params"])
         if sync in ("ssp", "asp"):
-            st.update(pulled=arrays["pulled"],
+            st.update(pulled=[dev(arrays["pulled"][w]) for w in held],
                       batch_cache=[None] * self.cfg.num_workers)
         self._wire_total = st["wire"]
         return st
@@ -847,7 +1022,7 @@ class DeviceEngine(ElasticWorkerSet):
                        else st["params"])
         params = _tree_bytes(params_like)
         ef = (sum(x.numel() * x.element_size() for e in st["ef"] for x in e)
-              // len(st["ef"]) if st.get("ef") is not None else 0)
+              // len(st["ef"]) if st.get("ef") else 0)
         return {"params": params, "opt": 0, "ef": ef, "total": params}
 
     def run(self, params, batches: Callable[[int, int], Any], steps: int):

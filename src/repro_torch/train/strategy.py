@@ -21,13 +21,12 @@ every one on its backend:
 ``backend="auto"`` resolves to ``device``: by default the port's workers
 are logical, so one card holds any worker count (the reference falls
 back to ``sim`` when the process has fewer devices than workers).  A
-process group is the reference's one-worker-per-device layout; the sim
-backend refuses one, and hybrid meshes and elastic plans raise under
-one, naming the ROADMAP item that will port them.  ``wire="measured"``
-needs the device backend.  ``bsp+backup:k`` drops the k slowest workers
-each round, ``+detect`` ranks them by measured step times, and
-``Trainer.fit(plan=...)`` runs under an elastic event plan
-(``elastic.recovery.fit_elastic``).
+process group is the reference's one-worker-per-device layout (one
+device of a hybrid mesh per rank, too); the sim backend refuses one.
+``wire="measured"`` needs the device backend.  ``bsp+backup:k`` drops
+the k slowest workers each round, ``+detect`` ranks them by measured
+step times, and ``Trainer.fit(plan=...)`` runs under an elastic event
+plan (``elastic.recovery.fit_elastic``), over a process group too.
 
 A mesh suffix after the worker count shapes the logical devices into a
 data x tensor x stage mesh with optional ZeRO state sharding, a pipeline
@@ -461,6 +460,18 @@ class Engine:
     def export_state(self, state):
         return self.inner.export_state(state)
 
+    def snapshot_template(self, state):
+        """The tree a restore loads into (``export_state``'s, without a
+        process group's gather where the backend has one)."""
+        fn = getattr(self.inner, "snapshot_template", self.inner.export_state)
+        return fn(state)
+
+    @property
+    def snapshot_writer(self) -> bool:
+        """Whether this process writes the snapshots (rank 0 of a process
+        group, or the only process)."""
+        return getattr(self.inner, "snapshot_writer", True)
+
     def import_state(self, arrays, meta):
         return self.inner.import_state(arrays, meta)
 
@@ -509,11 +520,6 @@ class DeviceBackend(Engine):
 
     def _make_inner(self, s: Strategy, grad_fn, layout, device, group):
         if s.is_hybrid:
-            if group is not None:
-                raise NotImplementedError(
-                    "hybrid meshes (tensor and stage axes, ZeRO, AdamW, "
-                    "precisions) over a process group are not ported yet "
-                    "(ROADMAP queue A item 9e)")
             from repro_torch.parallel.engine import HybridConfig, HybridEngine
             return HybridEngine(
                 HybridConfig(
@@ -525,7 +531,7 @@ class DeviceBackend(Engine):
                     sma_mu=s.sma_mu, wire=s.wire, seed=s.seed,
                     schedule=s.schedule, interleave=s.interleave,
                     precision=s.precision, moments=s.moments),
-                grad_fn, layout, device)
+                grad_fn, layout, device, group)
         grad_fn = _as_grad_fn(grad_fn)
         return DeviceEngine(
             DataParallelConfig(
@@ -575,7 +581,8 @@ class Trainer:
     crashes, resizes, restarts and straggler events in the same
     process.  ``group`` runs one worker per rank of a ``torch.distributed``
     process group (``Strategy.build``); every rank calls ``fit`` and gets
-    the same parameters and history."""
+    the same parameters and history, under a plan too (rank 0 writes the
+    snapshots)."""
 
     def __init__(self, strategy: Strategy, device="cuda", group=None):
         self.strategy = strategy
@@ -588,15 +595,12 @@ class Trainer:
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 5):
         if plan is not None:
-            if self.group is not None:
-                raise NotImplementedError(
-                    "elastic plans over a process group are not ported yet "
-                    "(ROADMAP queue A item 9d)")
             from repro_torch.elastic.recovery import fit_elastic
             return fit_elastic(self.strategy, grad_fn, params, batches,
                                steps, plan, checkpoint_dir=checkpoint_dir,
                                checkpoint_every=checkpoint_every,
-                               layout=layout, device=self.device)
+                               layout=layout, device=self.device,
+                               group=self.group)
         engine = self.strategy.build(grad_fn, layout, self.device,
                                      self.group)
         return fit(engine, params, batches, steps)

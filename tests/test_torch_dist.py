@@ -2,8 +2,8 @@
 (``core.collectives.DistAxis``, ``launch.dist.spawn``), Gloo on the CPU,
 against the logical axis and the JAX reference.
 
-Two spawns of a few seconds each (``tests/torch_dist_ranks.py`` holds
-the rank functions, which import only torch and the port):
+Three spawns of seconds each (``tests/torch_dist_ranks.py`` holds the
+rank functions, which import only torch and the port):
 
 * 8 ranks: every exact schedule over the 8-rank group on
   ``test_torch_train.py``'s ``x`` [8, 1003] against the JAX schedules of
@@ -16,6 +16,8 @@ the rank functions, which import only torch and the port):
   then ``bsp/allreduce/onebit@8`` and the parameter server's
   ``bsp/ps/dgc:0.05@8`` through ``Trainer.fit`` against the JAX engine
   (losses within 1e-4 per step, wire bytes exact).
+  The all-to-all ``psum_scatter`` receives 1/n of what an all-gather
+  of the same contributions does.
 * 4 ranks: the engine cells of ``R.ENGINE_CELLS`` (BSP allreduce and
   ring in both wire modes; the parameter server's ``bsp/ps`` cells;
   SSP, ASP and SMA on both architectures; backup workers, and measured
@@ -23,8 +25,16 @@ the rank functions, which import only torch and the port):
   logical engine: event histories (losses, staleness, firing worker,
   drop sets), parameters, wire bytes and each rank's EF row bit for bit;
   ``make_sharded_train_step`` with AdamW and onebit against the logical
-  sharded step (metrics, parameters, each rank's EF row); and the
-  methods a process group still refuses, each naming its ROADMAP item.
+  sharded step (metrics, parameters, each rank's EF row).
+* 4 ranks again, the elastic interface: ``Trainer(group=).fit(plan=)``
+  on the cells of ``R.ELASTIC_CELLS`` (a crash and a regrow, a restart,
+  the ssp:2/ring/onebit@4 acceptance plan, resizes 4 -> 2 -> 4 on SMA
+  and on measured ``bsp/ps/onebit@4``) against the logical engine:
+  histories, recoveries, parameters, wire bytes and EF rows bit for
+  bit, and rank 0's snapshots file for file the logical run's
+  (manifests with their content hashes); and what a process group still
+  refuses, each naming its ROADMAP item (the simulator, the hybrid
+  engine's elastic interface).
 """
 import numpy as np
 import pytest
@@ -57,6 +67,14 @@ def engine_runs():
     params = setup()["params"]
     return spawn(R.engine_rank, WORLD_B, "gloo", device="cpu",
                  args=(params,), timeout_s=TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def elastic_runs(tmp_path_factory):
+    params = setup()["params"]
+    root = str(tmp_path_factory.mktemp("elastic_ranks"))
+    return spawn(R.elastic_rank, WORLD_B, "gloo", device="cpu",
+                 args=(params, root), timeout_s=TIMEOUT_S)
 
 
 def _rows(ranks, k, key):
@@ -116,6 +134,14 @@ def test_dist_axis_matches_logical(axis_runs, k, key):
     if isinstance(want, str):           # butterfly and tree at 3 workers
         assert "power-of-two" in want
     assert _equal(got, want)
+
+
+@pytest.mark.parametrize("k", (WORLD_A,) + R.SUBGROUPS)
+def test_psum_scatter_receives_one_nth_of_an_all_gather(axis_runs, k):
+    ranks, _ = axis_runs
+    for r in range(k):
+        got, gathered = ranks[r][k]["recv_bytes"]
+        assert got > 0 and got * k == gathered
 
 
 # -------------------------------------------------------- engine cells
@@ -179,12 +205,53 @@ def test_sharded_step_over_4_ranks_matches_logical(engine_runs):
                    for a, b in zip(got_ef, ef))
 
 
+# ---------------------------------------------------- elastic interface
+_ELASTIC = {}
+
+
+def _logical_elastic(cell, root):
+    if cell not in _ELASTIC:
+        _ELASTIC[cell] = R.elastic_cell(*cell, setup()["params"],
+                                        str(root / f"logical{len(_ELASTIC)}"))
+    return _ELASTIC[cell]
+
+
+@pytest.mark.parametrize("cell", R.ELASTIC_CELLS,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in
+                              R.ELASTIC_CELLS])
+def test_elastic_over_4_ranks_matches_logical(elastic_runs, cell,
+                                              tmp_path_factory):
+    hist, leaves, nbytes, ef, recs, final, snaps = _logical_elastic(
+        cell, tmp_path_factory.mktemp("elastic_logical"))
+    spec, _, plan, steps, _ = cell
+    # one event a step, or one a worker's push (ssp: 3 workers a step
+    # between the crash and the regrow)
+    assert len(hist) >= steps and final == 4
+    kinds = [r["kind"] for r in recs]
+    assert kinds == (["crash"] if "crash" in plan else
+                     ["restart"] if "restart" in plan else [])
+    # the snapshots carry content hashes, so equal manifests are equal
+    # payloads
+    assert snaps and all(rec.get("hash") for m in snaps.values()
+                         for rec in m["leaves"])
+    for rank, r in enumerate(elastic_runs):
+        got = r["cells"][cell[:3]]
+        assert got[0] == hist
+        assert got[1] == leaves
+        assert got[2] == nbytes
+        # each rank ends with its own worker's EF row
+        assert got[3] == ef[rank:rank + 1]
+        assert got[4] == recs and got[5] == final
+        # rank 0 writes every snapshot, the others none
+        assert got[6] == (snaps if rank == 0 else None)
+
+
 @pytest.mark.parametrize("name", list(R.REFUSALS))
-def test_group_refuses_unported_cells(engine_runs, name):
+def test_group_refuses_unported_cells(elastic_runs, name):
     want = R.REFUSALS[name][2]
-    for r in engine_runs:
-        msg = r["refusals"][name]
-        assert msg != "no error" and want in msg, msg
-        if want.startswith("9"):
-            assert msg.startswith("NotImplementedError") and \
-                f"ROADMAP queue A item {want}" in msg, msg
+    for r in elastic_runs:
+        for msg in r["refusals"][name].split("\n"):
+            assert msg != "no error" and want in msg, msg
+            if want.startswith("9"):
+                assert msg.startswith("NotImplementedError") and \
+                    f"ROADMAP queue A item {want}" in msg, msg

@@ -22,6 +22,14 @@ package's, on the CPU.
   deterministic columns exact, ``loss_last`` equal to its 4 printed
   digits; params and batches drawn by JAX under the non-partitionable
   threefry, as the rows were recorded.
+* ``HybridEngine(group=)``, one mesh device per rank of 8 Gloo ranks
+  on the CPU (one module-scoped ``launch.dist.spawn``; the rank
+  functions are ``tests/torch_dist_ranks.py``'s): every ``SPECS`` and
+  ``EXTRA_SPECS`` cell, and 1F1B at v1 on the 4-layer model, bit for bit
+  the logical engine's (history, parameters, wire bytes, the state a
+  device holds), the 4-worker cells on the group of the first 4 ranks;
+  ``bsp/ps/onebit@8:d2.t2.s2.z3`` and ``bsp/ring/none@8:d2.t2.s2.m8.1f1b``
+  over the ranks against the JAX engine's runs within 1e-5.
 
 One module-scoped ``run_multidevice`` subprocess (8 virtual devices)
 computes every reference number and saves the inputs it used.
@@ -37,6 +45,7 @@ import pytest
 import torch
 
 import repro.parallel as J
+import torch_dist_ranks as R
 from conftest import run_multidevice
 from repro.core.pipeline import (bubble_fraction, gpipe_ticks,
                                  onefb_bubble_fraction, onefb_ticks)
@@ -45,6 +54,7 @@ from repro.train import Strategy as JaxStrategy
 from repro_torch import parallel as P
 from repro_torch.core import pipeline as PL
 from repro_torch.core.parallelism import model_axis_dim, param_specs
+from repro_torch.launch.dist import spawn
 from repro_torch.parallel import (HybridEngine, stacked_loss,
                                   make_tiny_transformer)
 from repro_torch.parallel.staged import tensor_copy, tensor_reduce
@@ -940,3 +950,61 @@ def test_bench_pr10_hybrid_rows(ref):
             opt = got["state_opt_bytes_per_dev"]
             assert a["params"] == got["state_param_bytes_per_dev"]
             assert a["opt"] == (opt - 4 if opt else 0)
+
+
+# ------------------------------------------- the mesh over process ranks
+def _rank_inputs(ref):
+    """The cells' inputs: the acceptance model's params and its batches
+    (4 slots of 8 rows per step), and the schedule cells' 4-layer model
+    with its one 16-row batch."""
+    x4, y4 = (torch.from_numpy(ref["sched/" + k][None, None].copy())
+              for k in ("X", "Y"))
+    return {"tiny2": (_tree(ref, "init"), torch.from_numpy(ref["batch/x"]),
+                      torch.from_numpy(ref["batch/y"])),
+            "tiny4": (_tree(ref, "sched/init"), x4, y4)}
+
+
+@pytest.fixture(scope="module")
+def rank_runs(ref):
+    return spawn(R.hybrid_rank, 8, "gloo", device="cpu",
+                 args=(_rank_inputs(ref), R.HYBRID_CELLS), timeout_s=240)
+
+
+def _cell_size(spec):
+    return int(spec.split("@")[1].split(":")[0])
+
+
+@pytest.mark.parametrize("cell", R.HYBRID_CELLS,
+                         ids=["-".join(c) for c in R.HYBRID_CELLS])
+def test_mesh_over_ranks_matches_logical(ref, rank_runs, cell):
+    hist, params, nbytes, state = R.hybrid_cell(*cell, _rank_inputs(ref))
+    assert len(hist) == R.HYBRID["steps"] * (
+        2 if cell[0].split("/")[0].split(":")[0] in ("ssp", "asp") else 1)
+    for r in range(_cell_size(cell[0])):
+        got = rank_runs[r][cell]
+        assert got[0] == hist
+        assert all(torch.equal(got[1][k], params[k]) for k in params)
+        assert got[2] == nbytes
+        if cell[0].startswith("bsp"):
+            # what a rank holds is what the logical mesh charges a device
+            assert got[3] == state
+    # ranks past a 4-device mesh sit the cell out
+    assert all(cell not in r for r in rank_runs[_cell_size(cell[0]):])
+
+
+JAX_RANK_CELLS = {("bsp/ps/onebit@8:d2.t2.s2.z3", "measured", "tiny2"):
+                  "extra/bsp/ps/onebit@8:d2.t2.s2.z3/measured",
+                  ("bsp/ring/none@8:d2.t2.s2.m8.1f1b", "modeled", "tiny4"):
+                  "bsp/ring/none@8:d2.t2.s2.m8.1f1b"}
+
+
+@pytest.mark.parametrize("cell", list(JAX_RANK_CELLS),
+                         ids=[c[0] for c in JAX_RANK_CELLS])
+def test_mesh_over_ranks_matches_jax(ref, rank_runs, cell):
+    tag = JAX_RANK_CELLS[cell]
+    for r in rank_runs:
+        hist, params, nbytes, _ = r[cell]
+        assert _ldiff(hist, ref[tag + "/losses"]) <= 1e-5
+        assert _pdiff(params, ref, tag) <= 1e-5
+        if tag.startswith("extra/"):
+            assert nbytes == int(ref[tag + "/wire"])

@@ -5,6 +5,8 @@ compute the logical axis's values in the test process, so both sides
 run one piece of code.
 """
 import hashlib
+import json
+import os
 import time
 
 import torch
@@ -62,15 +64,19 @@ ENGINE_STEPS = 2
 DETECT = dict(steps=3, worker=1, sleep_s=0.5)
 SHARDED = dict(workers=4, steps=3, bucket_mb=0.25, lr=0.01,
                schedule=(3e-3, 1, 3))
+# the elastic cells over 4 ranks: (spec, wire, plan, steps, snapshot
+# cadence); the third is the ssp:2/ring/onebit@4 acceptance plan
+ELASTIC_CELLS = (
+    ("bsp/allreduce/none@4", "modeled", "crash:w1@4,resize:4@5", 6, 3),
+    ("bsp/allreduce/onebit@4", "modeled", "restart@3", 6, 3),
+    ("ssp:2/ring/onebit@4", "modeled", "crash:w2@5,resize:4@10", 12, 3),
+    ("sma/allreduce/none@4", "modeled", "resize:2@2,resize:4@4", 6, 3),
+    ("bsp/ps/onebit@4", "measured", "resize:2@2,resize:4@4", 6, 3))
 # the cells and methods a process group refuses, and the ROADMAP item
 # each names
 REFUSALS = {
-    "hybrid": ("bsp/ps/none@4:d4.z3.adamw", {}, "9e"),
     "sim": ("bsp/allreduce/none@4", {"backend": "sim"}, "device backend"),
-    "plan": ("bsp/allreduce/none@4", {}, "9d"),
-    "reshard": ("bsp/allreduce/none@4", {}, "9d"),
-    "export_state": ("bsp/allreduce/none@4", {}, "9d"),
-    "import_state": ("bsp/allreduce/none@4", {}, "9d"),
+    "hybrid_elastic": ("bsp/ring/none@4:d2.t2", {}, "9e"),
 }
 
 
@@ -108,8 +114,17 @@ def axis_cases(x: torch.Tensor, ax) -> dict:
                 "b": mine[:, 15:22].to(torch.float64)}
         for topo in SCHEDULES:
             out["allreduce/" + topo] = make_allreduce(topo, axis=ax)(tree)
-    out["psum_scatter"] = ax.psum_scatter(
-        padded(x)[ax.ids].reshape(len(ax.ids), n, -1))
+    contrib = padded(x)[ax.ids].reshape(len(ax.ids), n, -1)
+    if isinstance(ax, DistAxis):
+        # what a rank receives: the all-to-all's n chunks against the
+        # all-gather of every worker's whole contribution
+        before = ax.recv_bytes
+        out["psum_scatter"] = ax.psum_scatter(contrib)
+        mid = ax.recv_bytes
+        ax.all_gather(contrib)
+        out["recv_bytes"] = (mid - before, ax.recv_bytes - mid)
+    else:
+        out["psum_scatter"] = ax.psum_scatter(contrib)
     return out
 
 
@@ -203,31 +218,100 @@ def sharded_run(params, axis=None):
     return hist, _leaves(model, state["params"]), state["ef"]
 
 
+class _KeepEF:
+    """A Strategy whose engines keep the EF rows they finalize with (the
+    rows this process holds), for ``Trainer.fit`` runs that build the
+    engine themselves."""
+
+    def __init__(self, strat):
+        self.strat, self.ef = strat, []
+
+    def __getattr__(self, name):
+        return getattr(self.strat, name)
+
+    def build(self, *args, **kw):
+        engine = self.strat.build(*args, **kw)
+        finalize = engine.finalize
+
+        def keep_ef(st):
+            self.ef.extend(st["ef"] or [])
+            return finalize(st)
+
+        engine.finalize = keep_ef
+        return engine
+
+
+def manifests(ckpt_dir: str) -> dict:
+    """Every committed snapshot's manifest in ``ckpt_dir``, by name."""
+    out = {}
+    for name in sorted(os.listdir(ckpt_dir)):
+        path = os.path.join(ckpt_dir, name, "manifest.json")
+        if name.startswith("step_") and os.path.isfile(path):
+            with open(path) as f:
+                out[name] = json.load(f)
+    return out
+
+
+def elastic_cell(spec: str, wire: str, plan: str, steps: int, every: int,
+                 params, ckpt_dir: str, group=None):
+    """``Trainer.fit(plan=)`` of ``spec`` on the CPU, over ``group`` or
+    logical: (history, digests of the parameters, wire bytes, digests of
+    each held worker's final EF row, the recoveries without their walls,
+    the final worker count, the snapshots' manifests; these last on the
+    writer only)."""
+    model, grad_fn, batches = _model()
+    strat = _KeepEF(Strategy.parse(spec, wire=wire, **RECIPE))
+    out, hist, mets = Trainer(strat, device="cpu", group=group).fit(
+        grad_fn, params, batches, steps, layout=model.leaf_layout(params),
+        plan=plan, checkpoint_dir=ckpt_dir, checkpoint_every=every)
+    recs = [{k: v for k, v in r.items() if k != "wall_s"}
+            for r in mets["recoveries"]]
+    writer = group is None or dist.get_rank(group) == 0
+    return (hist, digest(_leaves(model, out)), mets["wire_bytes"],
+            [digest(row) for row in strat.ef], recs, mets["final_workers"],
+            manifests(ckpt_dir) if writer else None)
+
+
+def elastic_rank(rank, world, dev, params, ckpt_root):
+    """Spawn C: the elastic cells over the 4-rank world, each writing its
+    snapshots (rank 0) under ``ckpt_root``."""
+    group = dist.group.WORLD
+    return {"cells": {cell[:3]: elastic_cell(
+        *cell, params, os.path.join(ckpt_root, f"cell{i}"), group)
+        for i, cell in enumerate(ELASTIC_CELLS)},
+        "refusals": {name: _refusal(name, params, group)
+                     for name in REFUSALS}}
+
+
 def _refusal(name: str, params, group) -> str:
     """The error a process group gets for one unported cell or method
-    (its text), or "no error"."""
+    (its text), or "no error": the simulator's refusal of a group, and
+    the hybrid engine's elastic interface (``reshard``, ``export_state``
+    and ``import_state``, a line each)."""
     spec, kw, _ = REFUSALS[name]
     model, grad_fn, batches = _model()
     layout = model.leaf_layout(params)
     strat = Strategy.parse(spec, **kw, **RECIPE)
-    try:
-        if name == "plan":
-            Trainer(strat, device="cpu", group=group).fit(
-                grad_fn, params, batches, 2, layout=layout,
-                plan="crash:w1@1")
-        else:
-            engine = strat.build(grad_fn, layout, device="cpu", group=group)
-            if name in ("reshard", "export_state", "import_state"):
-                st = engine.init(params)
-                if name == "reshard":
-                    engine.reshard(st, 2)
-                elif name == "export_state":
-                    engine.export_state(st)
-                else:
-                    engine.import_state({"ef": None, "params": params}, {})
-    except (NotImplementedError, ValueError) as e:
-        return f"{type(e).__name__}: {e}"
-    return "no error"
+    if name == "sim":
+        try:
+            strat.build(grad_fn, layout, device="cpu", group=group)
+        except (NotImplementedError, ValueError) as e:
+            return f"{type(e).__name__}: {e}"
+        return "no error"
+    from repro_torch.parallel import make_tiny_transformer
+    tparams, tiny = make_tiny_transformer(2, 8, 16, device="cpu")
+    engine = strat.build(tiny, device="cpu", group=group)
+    st = engine.init(tparams)
+    msgs = []
+    for call in (lambda: engine.reshard(st, 2),
+                 lambda: engine.export_state(st),
+                 lambda: engine.import_state({}, {})):
+        try:
+            call()
+            msgs.append("no error")
+        except (NotImplementedError, ValueError) as e:
+            msgs.append(f"{type(e).__name__}: {e}")
+    return "\n".join(msgs)
 
 
 # ------------------------------------------------------------ the ranks
@@ -258,18 +342,89 @@ def axis_rank(rank, world, dev, x, params, specs):
 
 
 def engine_rank(rank, world, dev, params):
-    """Spawn B: the 4-rank engine cells, the sharded step and the
-    refusals."""
+    """Spawn B: the 4-rank engine cells and the sharded step."""
     group = dist.group.WORLD
     ax = DistAxis(group, "gloo")
     return {"cells": {(spec, wire): engine_cell(spec, wire, params, group)
                       for spec, wire in ENGINE_CELLS},
-            "sharded": sharded_run(params, ax),
-            "refusals": {name: _refusal(name, params, group)
-                         for name in REFUSALS}}
+            "sharded": sharded_run(params, ax)}
 
 
 def logical_cases(x: torch.Tensor) -> dict:
     """The logical axis's side of ``axis_rank``'s exchanges."""
     return {k: axis_cases(x[:k], LogicalAxis(k))
             for k in (x.shape[0],) + SUBGROUPS}
+
+
+# ------------------------------------------------------ the hybrid mesh
+HYBRID = dict(lr=0.05, bucket_mb=1e-4, steps=3)
+# (spec, wire, model): every cell of test_torch_hybrid.py's SPECS and
+# EXTRA_SPECS; "tiny4" is the 4-layer model of its schedule cells (1F1B
+# at v2 needs two layers per stage), with one batch for every slot
+HYBRID_CELLS = (
+    ("bsp/ring/onebit@8:d2.t2.s2", "modeled", "tiny2"),
+    ("bsp/ps/none@4:d4.z3.adamw", "modeled", "tiny2"),
+    ("bsp/allreduce/none@4:d4.t1.s1", "modeled", "tiny2"),
+    ("bsp/ring/none@8:d2.t2.s2.m8.1f1b", "modeled", "tiny4"),
+    ("bsp/ps/none@8:z2.qmom.adamw", "modeled", "tiny2"),
+    ("ssp:2/ring/onebit@4:d2.t2", "modeled", "tiny2"),
+    ("bsp/tree/dgc:0.05@8:d4.s2.bf16r", "modeled", "tiny2"),
+    ("bsp/ring/onebit@8:d2.t2.s2", "measured", "tiny2"),
+    ("bsp/ps/onebit@8:d2.t2.s2.z1.adamw", "measured", "tiny2"),
+    ("bsp/ps/onebit@8:d2.t2.s2.z3", "measured", "tiny2"),
+    ("bsp/ps/dgc:0.05@4:d2.s2.z2", "measured", "tiny2"),
+    ("bsp/ps/none@8:d2.t2.s2.z1.adamw", "modeled", "tiny2"),
+    ("bsp/ps/none@8:d2.t2.s2.z2.adamw", "modeled", "tiny2"),
+    ("bsp/ps/none@4:d4.z2.qmom.adamw", "modeled", "tiny2"),
+    ("bsp/ring/none@8:d2.t2.s2.bf16r", "modeled", "tiny2"),
+    ("bsp/ring/none@8:d2.t2.s2.m4.1f1b.v1.bf16", "modeled", "tiny2"),
+    ("asp/ring/none@4:d2.t2", "modeled", "tiny2"),
+    ("sma/ring/none@4:d2.t2", "modeled", "tiny2"),
+    ("bsp/ring/none@8:d2.t2.s2.m8.1f1b.v1", "modeled", "tiny4"))
+
+
+def hybrid_cell(spec: str, wire: str, model_key: str, inputs, group=None):
+    """One hybrid cell through ``Strategy.build(...).run`` on the CPU,
+    over ``group`` (one mesh device per rank) or logical: (history,
+    final parameters, wire bytes, the state bytes a device holds after
+    ``init``).  ``inputs[model_key]`` is (params, batch arrays x, y
+    [steps, slots, B, d]); slot w reads slots' arrays at w mod their
+    count."""
+    from repro_torch.parallel import make_tiny_transformer
+    params, xs, ys = inputs[model_key]
+    layers = next(iter(params.values())).shape[0]
+    _, model = make_tiny_transformer(layers, 8, 16, device="cpu")
+
+    def batches(t, w):
+        t, w = t % xs.shape[0], w % xs.shape[1]
+        return {"x": xs[t, w], "y": ys[t, w]}
+
+    strat = Strategy.parse(spec, lr=HYBRID["lr"],
+                           bucket_mb=HYBRID["bucket_mb"], backend="device",
+                           wire=wire)
+    engine = strat.build(model, device="cpu", group=group)
+    state = (engine.inner.per_device_state_bytes(engine.init(params))
+             if hasattr(engine.inner, "per_device_state_bytes") else None)
+    p, hist, nbytes = engine.run(params, batches, HYBRID["steps"])
+    return hist, p, nbytes, state
+
+
+def hybrid_rank(rank, world, dev, inputs, cells):
+    """Spawn D: the hybrid cells over the world or the group of its
+    first 4 ranks (ranks past a cell's mesh sit it out)."""
+    from repro_torch.launch.dist import mesh_groups, prefix_group
+    groups = {world: dist.group.WORLD, 4: prefix_group(4)}
+    # every rank builds the 4-rank meshes' groups, as the ranks that run
+    # them do, in the same order
+    for spec, _, _ in cells:
+        strat = Strategy.parse(spec)
+        m = strat.mesh_spec
+        if strat.is_hybrid and m.size < world:
+            mesh_groups(m.data, m.tensor, m.stage, ranks=range(m.size))
+    out = {}
+    for spec, wire, key in cells:
+        n = int(spec.split("@")[1].split(":")[0])
+        if groups[n] is not None:
+            out[spec, wire, key] = hybrid_cell(spec, wire, key, inputs,
+                                               groups[n])
+    return out

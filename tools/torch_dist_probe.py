@@ -2,6 +2,7 @@
 of chip_smoke.py:
 
     python tools/torch_dist_probe.py [--nccl-pair] [--segments] [--phase26]
+        [--phase27]
 
 1. With ``--nccl-pair``: NCCL with two ranks on one card
    (``launch.dist.spawn`` gives both ranks ``cuda:0`` on a one-card
@@ -16,6 +17,9 @@ of chip_smoke.py:
 3. With ``--phase26``: chip_smoke.py's phase 26 (``dist_phases``) at
    full-width TinyLlama-1.1B, with each rank's peak memory, step walls
    and staged bytes.
+4. With ``--phase27``: chip_smoke.py's phase 27 (``elastic_hybrid_phases``:
+   the elastic interface and the hybrid engine over ranks) at full-width
+   TinyLlama-1.1B.
 
 Needs a card; exits non-zero without one.
 """
@@ -77,6 +81,7 @@ def main(argv=None) -> int:
     ap.add_argument("--nccl-pair", action="store_true")
     ap.add_argument("--segments", action="store_true")
     ap.add_argument("--phase26", action="store_true")
+    ap.add_argument("--phase27", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_dist_probe: no CUDA device", file=sys.stderr)
@@ -112,6 +117,14 @@ def main(argv=None) -> int:
         launches = C.dist_phases(get_config("tinyllama-1.1b"),
                                  torch.device("cuda"), smi)
         print(f"phase 26 in {time.perf_counter() - t0:.1f} s; launches "
+              f"{launches}")
+    if args.phase27:
+        import chip_smoke as C
+        from repro_torch.configs import get_config
+        t0 = time.perf_counter()
+        launches = C.elastic_hybrid_phases(get_config("tinyllama-1.1b"),
+                                           torch.device("cuda"), smi)
+        print(f"phase 27 in {time.perf_counter() - t0:.1f} s; launches "
               f"{launches}")
     return 0
 
