@@ -254,7 +254,9 @@ the kernels' "hybrid" launches.
              the bf16 tp=1 run's own distance from fp32 (the tp=2 run
              rounds each rank's partial product to bf16 before the sum; a
              different rounding order moves the logits no further than
-             bf16 rounding does).
+             bf16 rounding does).  Each run's decode iterations are
+             timed (synchronized); the tp=2 run's tokens and first decode
+             step's logits are what phase 28a holds its ranks to.
  20. MoE +    deepseek-v2-lite-16b at full width: (a) 2 layers (the dense
       MLA     layer 0 and one MoE layer), every published width, fp32,
              capacity_factor = num_experts (no drops in either mode):
@@ -401,7 +403,7 @@ worker (repro_torch.launch.dist.spawn; core.collectives.DistAxis):
              phase 7's batches, and bsp/ps/onebit@k measured, 2 steps,
              over k Gloo ranks on the one card (each rank's gradient on
              the card with the kernels, the hops staged through pinned
-             host memory): k = 2 at full width; k = 2 at 2 layers for
+             host memory): k = 2 at 2 layers, full widths, with
              ssp:3/ps/onebit@2 (modeled, 1 step of 3 push events); and
              k = 4 at 2 layers (four full-width ranks do not fit the
              card), the latter also
@@ -458,9 +460,43 @@ logical engine run just before in this process:
              widths: losses within DIST_TOL, wire bytes equal.
 Counts are zeroed in each rank just before each cell and read just
 after; 27a-b make the kernels' "dist_elastic" launches and 27c their
-"dist_hybrid" launches.  elastic_hybrid_phases(cfg, dev, smi, ...) runs
-on the CPU too, with get_config("tinyllama-1.1b").reduced(),
-torch.device("cpu"), seq=32 and a small tiny.
+"dist_hybrid" launches.
+
+Phase 28 runs in phase 27's spawn, as two more runs on groups of its
+first ranks (no process start of its own):
+ 28a. tp       ServeEngine(group=) at tp=2 over 2 Gloo ranks, one tensor
+      serve    rank per process: full-width TinyLlama-1.1B in bf16 from
+             seed-0 weights on phase 19's traffic (phase 5's), after its
+             warm-up.  Each rank keeps its own shard of the sharded
+             weights beside the whole ones (prefill) and its own KV
+             heads, runs flash_attention (bf16 prefill) once per layer
+             per prefill group and flash_decode (16 heads on 2 KV heads)
+             once per layer per decode iteration, and all-gathers the
+             row-parallel partials through Gloo.  Held: every rank's
+             greedy tokens equal phase 19's logical tp=2 stream bit for
+             bit.  Printed: the first decode step's max |rank - logical|
+             logits, agreement with the tp=1 stream, each rank's median
+             decode-iteration ms and tokens/s beside phase 19's logical
+             tp=2 and tp=1 runs, peak, cache and weight GiB and the bytes
+             staged through the host per decode iteration.  NCCL refuses
+             two ranks on one card (PERF.md, phase 26), so NCCL at tp=2
+             waits for a second card.
+ 28b. hybrid   Trainer(group=).fit(plan=) over 4 Gloo ranks on
+      elastic  make_tiny_transformer at TinyLlama's FFN widths, 2 layers
+             (HYBRID_ELASTIC_TINY), fp32, TF32 off: bsp/ps/onebit@4:d4.z3
+             with restart@2 and bsp/ps/none@4:d2.s2.z2.adamw with
+             crash:w1@3,resize:4@4 (the mesh shrinks to one data slot on
+             ranks 0-1 while ranks 2-3 wait, then grows back), each
+             against the logical engine's run just before: losses within
+             DIST_TOL (bit for bit expected), wire bytes, recoveries, the
+             final parameters' sha256 and rank 0's snapshot manifests
+             equal; the other ranks write nothing.
+Counts are zeroed in each rank just before each run and read just after;
+28a makes the kernels' "dist_tp" launches and 28b their
+"dist_hybrid_elastic" launches.  elastic_hybrid_phases(cfg, dev, smi,
+tp_ref, ...) runs on the CPU too, with get_config("tinyllama-1.1b")
+.reduced(), torch.device("cpu"), "cpu", the tp_ref of family_phases'
+CPU rehearsal, seq=32, a small tiny and tiny_elastic.
 
 The last lines are the script's wall, the kernels JSON, the nvidia-smi
 line and the result.
@@ -625,11 +661,12 @@ MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
 # 7's cells over Gloo ranks on the one card, as (ranks, layers; None =
 # full depth): a full-width rank holds its replica, gradient, EF and the
 # exchange's outputs at once, and 4 such ranks ran out of the card's 80 GB
-# (PERF.md, phase 26), so 2 ranks at full depth and 4 at 2 layers, where
-# the other codecs', the parameter server's, ASP's, SMA's and the backup
-# workers' cells run too; the SSP cell over 2 ranks runs at 2 layers
-# (at full depth its 3 events took 56.5 s of the script's time on an
-# H100 80GB HBM3 at 700 W; PERF.md, phase 26).  A cell
+# (PERF.md, phase 26), so 4 ranks at 2 layers, where the other codecs',
+# the parameter server's, ASP's, SMA's and the backup workers' cells run
+# too; 2 ranks run at 2 layers as well (at full depth their cells took
+# ~45 s of the script's time on an H100 80GB HBM3 at 700 W, the SSP
+# cell's 3 events 56.5 s before; PERF.md, phases 26 and 28; phases 27c
+# and 28a keep 2 full-width ranks).  A cell
 # is (spec, wire, global steps; None = TRAIN_STEPS).  The parameter
 # server's and SMA's cells over ranks move the whole model through Gloo's
 # host staging every step, and an SSP/ASP step is K push events that
@@ -643,7 +680,7 @@ MEASURED_RUNS = (("bsp/ring/onebit@4", "measured", 3),
 DIST_CELLS = (("bsp/ring/onebit@{k}", "measured", None),
               ("bsp/allreduce/onebit@{k}", "modeled", None),
               ("bsp/ps/onebit@{k}", "measured", 2))
-DIST_FULL_CELLS = (("ssp:3/ps/onebit@{k}", "modeled", 1),)
+DIST_SSP_CELLS = (("ssp:3/ps/onebit@{k}", "modeled", 1),)
 DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured", None),
                     ("bsp/ring/terngrad@{k}", "measured", None),
                     ("bsp/ring/qsgd@{k}", "measured", None),
@@ -655,8 +692,7 @@ DIST_CODEC_CELLS = (("bsp/ring/dgc@{k}", "measured", None),
                     ("asp/allreduce/none@{k}", "modeled", 1),
                     ("sma/allreduce/none@{k}", "modeled", 2),
                     ("bsp+backup:1/ring/onebit@{k}", "measured", 2))
-DIST_RUNS = ((2, None, DIST_CELLS),
-             (2, REDUCED_LAYERS, DIST_FULL_CELLS),
+DIST_RUNS = ((2, REDUCED_LAYERS, DIST_CELLS + DIST_SSP_CELLS),
              (4, REDUCED_LAYERS, DIST_CELLS + DIST_CODEC_CELLS))
 # the kernel each (method, wire) cell must launch on every rank that
 # computes: the measured codecs' hop kernels, the modeled roundtrip's
@@ -683,6 +719,14 @@ DIST_HYBRID_FULL = ("bsp/ps/onebit@2:d2.z3.adamw", "modeled", 2)
 DIST_HYBRID_TINY = tuple((spec, "modeled", HYBRID_TINY_STEPS)
                          for spec, _, _ in HYBRID_MESHES) + (
     ("bsp/ps/dgc:0.05@4:d2.s2.z2", "measured", HYBRID_TINY_STEPS),)
+# phase 28b: the hybrid engine's elastic interface over 4 ranks on the
+# tiny transformer at TinyLlama's FFN widths, 2 layers (one per stage of
+# d2.s2; each snapshot is written twice, by the ranks and the logical
+# run), as (spec, plan, steps, snapshot cadence, lr)
+HYBRID_ELASTIC_TINY = (2, 2048, 5632)
+DIST_HYBRID_ELASTIC = (
+    ("bsp/ps/onebit@4:d4.z3", "restart@2", 4, 2, HYBRID_TINY_LR),
+    ("bsp/ps/none@4:d2.s2.z2.adamw", "crash:w1@3,resize:4@4", 5, 2, 1e-3))
 
 
 def phase(name):
@@ -1299,16 +1343,51 @@ def hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
     print(f"card {smi}")
 
 
+def _record_decode(eng, dev, vocab):
+    """Wrap a ServeEngine's decode iterations and ``transformer.
+    decode_step`` (the tensor-parallel path's): returns (each decode
+    iteration's ms, synchronized; the first step's logits [B, vocab] on
+    the host once they exist; the wrapped ``decode_step``, which the
+    caller puts back)."""
+    from repro_torch.models import transformer as T
+    walls, first = [], []
+    step = T.decode_step
+    decode = eng._decode_iteration
+
+    def timed():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        decode()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    def capture(*args, **kw):
+        lg, caches = step(*args, **kw)
+        if not first:
+            first.append(lg[:, 0, :vocab].float().cpu())
+        return lg, caches
+
+    eng._decode_iteration = timed
+    T.decode_step = capture
+    return walls, first, step
+
+
 def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
                   n_requests=16, slots=8, page=16, forced=FORCED_STEPS,
-                  mla_seq=MLA_SEQ, vision=VISION):
+                  mla_seq=MLA_SEQ, vision=VISION, only_tp=False):
     """Phases 19-21 (module docstring) on ``dev``: tensor-parallel decode
     of ``tiny`` at tp=2, ``deepseek`` (MoE + MLA) and ``qwen`` (M-RoPE,
     biases, the vision stub) through ``ServeEngine`` on phase 5's traffic
     (``n_requests`` prompts of ``prompt`` tokens, ``new`` new tokens,
     ``slots`` slots, pages of ``page``).  The CPU rehearses them at the
     configs' ``.reduced()`` and a short traffic.  Returns each phase's
-    launches of the flash kernels."""
+    launches of the flash kernels, and what phase 28a holds its ranks to
+    (phase 19's traffic, its logical tp=2 tokens and first decode step's
+    logits, the tp=1 tokens, both runs' decode-iteration ms).
+    ``only_tp``: phase 19's serving runs alone (no teacher forcing, no
+    20-21)."""
     import numpy as np
 
     from repro_torch.core.tree import tree_map
@@ -1339,7 +1418,9 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
 
     def serve(model, params, prompts, tp=1):
         """Phase 5's traffic through ServeEngine (bf16, continuous, paged):
-        (metrics, requests, flash launches of the run)."""
+        (metrics with each decode iteration's ms under "iter_ms" and the
+        first decode step's logits under "first_logits", requests, flash
+        launches of the run, engine)."""
         scfg = ServeConfig(slots=slots, max_len=prompt + new, page_size=page,
                            policy="continuous", cache_dtype=bf,
                            compute_dtype=bf, tp=tp)
@@ -1349,9 +1430,14 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
         reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
                         max_new_tokens=new) for i in range(n_requests)]
         eng = ServeEngine(model, params, scfg, device=dev)
+        walls, first, step = _record_decode(eng, dev, model.cfg.vocab_size)
         sync()
         FA.reset_launches()
-        m = eng.run(reqs)
+        try:
+            m = eng.run(reqs)
+        finally:
+            T.decode_step = step
+        m.update(iter_ms=walls, first_logits=first[0] if first else None)
         got = dict(FA.LAUNCHES)
         assert m["completed"] == n_requests
         assert m["generated_tokens"] == n_requests * new
@@ -1388,6 +1474,22 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
         assert got2["flash_attention"] == m2["prefill_groups"] * L > 0
         assert got2["flash_decode"] == 2 * m2["decode_iterations"] * L > 0
         assert got1["flash_decode"] == m1["decode_iterations"] * L
+    tp_ref = dict(
+        traffic=dict(prompt=prompt, new=new, n_requests=n_requests,
+                     slots=slots, page=page), prompts=prompts,
+        outputs=[r.output for r in reqs2],
+        tp1_outputs=[r.output for r in reqs1],
+        first_logits=m2["first_logits"],
+        iter_ms=statistics.median(m2["iter_ms"]),
+        tp1_iter_ms=statistics.median(m1["iter_ms"]),
+        tokens_per_s=m2["generated_tokens"] / m2["wall_s"])
+    print(f"  decode iteration ms (median, synchronized): tp=1 "
+          f"{tp_ref['tp1_iter_ms']:.1f}, tp=2 logical "
+          f"{tp_ref['iter_ms']:.1f}")
+    if only_tp:
+        del model, params
+        free()
+        return launches, tp_ref
 
     # teacher forcing on phase 5's stream: the first prefill group, then
     # ``forced`` decode steps fed the tp=1 run's served tokens
@@ -1574,7 +1676,7 @@ def family_phases(dev, smi, tiny, deepseek, qwen, prompt=PROMPT, new=NEW,
     assert e_kern <= 2 * e_ref, "kernel path drifts from the fp32 model"
     del kern, ref16, ref32, model, ref_model
     free()
-    return launches
+    return launches, tp_ref
 
 
 def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
@@ -2141,6 +2243,29 @@ def _elastic_cell(cfg, dev, cell, seq, batch, lr, ckpt_dir, group=None,
     return got
 
 
+def _tiny_model(dev, tiny, rows):
+    """``make_tiny_transformer`` at ``tiny`` = (layers, d_model, d_ff)
+    from seed 0, and its batches: ``rows`` seeded rows per (step, data
+    slot), y = tanh(x W).  Returns (params, model, batches)."""
+    from repro_torch.parallel import make_tiny_transformer
+    layers, d_model, d_ff = tiny
+    params, model = make_tiny_transformer(layers, d_model, d_ff, seed=0,
+                                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    w_t = torch.randn(d_model, d_model, generator=gen, device=dev) \
+        / math.sqrt(d_model)
+    data = {}
+
+    def batches(t, w):
+        if (t, w) not in data:
+            g = torch.Generator(device=dev).manual_seed(1000 * t + w)
+            x = torch.randn(rows, d_model, generator=g, device=dev)
+            data[t, w] = {"x": x, "y": torch.tanh(x @ w_t)}
+        return data[t, w]
+
+    return params, model, batches
+
+
 def _hybrid_cell(cfg, dev, cell, seq, batch, tiny, rows, group=None):
     """One hybrid cell ``(spec, wire, steps)`` through ``Strategy.build``
     and the shared fit loop: full-width ``cfg`` from seed-0 weights when
@@ -2151,7 +2276,6 @@ def _hybrid_cell(cfg, dev, cell, seq, batch, tiny, rows, group=None):
     through the host and kernel launches."""
     from repro_torch.data import LMDataConfig, make_lm_batches
     from repro_torch.models import build_model
-    from repro_torch.parallel import make_tiny_transformer
     from repro_torch.train import Strategy, value_and_grad
     from repro_torch.train.strategy import fit
     spec, wire, steps = cell
@@ -2168,21 +2292,8 @@ def _hybrid_cell(cfg, dev, cell, seq, batch, tiny, rows, group=None):
             device=dev)
         strat = Strategy.parse(spec, lr=HYBRID_LR, wire=wire)
     else:
-        layers, d_model, d_ff = tiny
-        params, model_or_fn = make_tiny_transformer(layers, d_model, d_ff,
-                                                    seed=0, device=dev)
+        params, model_or_fn, batches = _tiny_model(dev, tiny, rows)
         layout = None
-        gen = torch.Generator(device=dev).manual_seed(1)
-        w_t = torch.randn(d_model, d_model, generator=gen, device=dev) \
-            / math.sqrt(d_model)
-        data = {}
-
-        def batches(t, w):
-            if (t, w) not in data:
-                g = torch.Generator(device=dev).manual_seed(1000 * t + w)
-                x = torch.randn(rows, d_model, generator=g, device=dev)
-                data[t, w] = {"x": x, "y": torch.tanh(x @ w_t)}
-            return data[t, w]
     engine = strat.build(model_or_fn, layout, device=dev, group=group)
     step, walls = engine.step, []
 
@@ -2217,60 +2328,178 @@ def _hybrid_cell(cfg, dev, cell, seq, batch, tiny, rows, group=None):
     return got
 
 
+def _hybrid_elastic_cell(dev, cell, tiny, rows, ckpt_dir, group=None):
+    """One hybrid elastic cell ``(spec, plan, steps, snapshot cadence,
+    lr)`` through ``Trainer(group=).fit(plan=)`` on ``_tiny_model(dev,
+    tiny, rows)``, one mesh device per rank of ``group`` or logical.
+    Returns the losses, recoveries (their walls dropped), resizes, wire
+    bytes, final workers, the final parameters' sha256, the snapshots'
+    hashes (where this process wrote them), the run's wall, peak memory
+    and kernel launches."""
+    from repro_torch.train import Strategy, Trainer
+    spec, plan, steps, every, lr = cell
+    on_card = dev.type == "cuda"
+    params, model, batches = _tiny_model(dev, tiny, rows)
+    mods = _launch_modules()
+    for mod in mods:
+        mod.reset_launches()
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    final, hist, mets = Trainer(Strategy.parse(spec, lr=lr), device=dev,
+                                group=group).fit(
+        model, params, batches, steps, plan=plan, checkpoint_dir=ckpt_dir,
+        checkpoint_every=every)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    writer = group is None or torch.distributed.get_rank(group) == 0
+    got = dict(losses=[h["loss"] for h in hist], wire=mets["wire_bytes"],
+               recoveries=[{k: v for k, v in r.items() if k != "wall_s"}
+                           for r in mets["recoveries"]],
+               resizes=mets["resizes"], final=mets["final_workers"],
+               snaps=_snapshot_hashes(ckpt_dir) if writer else None,
+               digest=_tree_sha256(final), wall=wall,
+               peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+               launches={k: v for mod in mods
+                         for k, v in mod.LAUNCHES.items()})
+    del params, final
+    if on_card:
+        torch.cuda.empty_cache()
+    return got
+
+
+def _tp_serve_rank(cfg, dev, ref, group):
+    """Phase 28a on one rank of ``group``: ``ServeEngine(group=)`` at
+    tp=2 on phase 19's traffic (``ref``, its warm-up first) from seed-0
+    bf16 weights.  Returns the tokens, the first decode step's logits,
+    each decode iteration's ms, the metrics, this rank's peak and the
+    flash kernels' launches."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    on_card = dev.type == "cuda"
+    tr, prompts, bf = ref["traffic"], ref["prompts"], torch.bfloat16
+    model = build_model(cfg)
+    params = model.init(seed=0, dtype=bf, device=dev)
+    scfg = ServeConfig(slots=tr["slots"], max_len=tr["prompt"] + tr["new"],
+                       page_size=tr["page"], policy="continuous",
+                       cache_dtype=bf, compute_dtype=bf, tp=2)
+    ServeEngine(model, params, scfg, device=dev, group=group).run(
+        [Request(rid=i, prompt=[int(t) for t in prompts[i, :16]],
+                 max_new_tokens=2) for i in range(2)])         # warm-up
+    reqs = [Request(rid=i, prompt=[int(t) for t in prompts[i]],
+                    max_new_tokens=tr["new"])
+            for i in range(tr["n_requests"])]
+    eng = ServeEngine(model, params, scfg, device=dev, group=group)
+    walls, first, step = _record_decode(eng, dev, cfg.vocab_size)
+    # the host wall of the tensor line's all-gathers (staging included)
+    axis, gathers = eng._tp.axis, []
+    gather = axis.all_gather
+
+    def timed_gather(x):
+        t0 = time.perf_counter()
+        out = gather(x)
+        gathers.append(time.perf_counter() - t0)
+        return out
+
+    axis.all_gather = timed_gather
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    FA.reset_launches()
+    try:
+        m = eng.run(reqs)
+    finally:
+        T.decode_step = step
+    got = dict(outputs=[r.output for r in reqs], first=first[0],
+               iter_ms=walls, metrics=m, gather_s=sum(gathers),
+               gathers=len(gathers),
+               peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+               launches=dict(FA.LAUNCHES))
+    del params, eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return got
+
+
 def _elastic_hybrid_rank(rank, world, dev, runs, seq, batch, tiny, rows):
-    """One rank of phase 27: for each run ``(kind, k, cfg, cells, dir)``
-    the cells over the group of the first k ranks (kind "elastic": each
-    cell's snapshots under its own directory in ``dir``, "restart" the
-    same, timed; "hybrid"), while the other ranks wait at a barrier.
-    Returns each run's results (None outside its group)."""
+    """One rank of phases 27-28: for each run ``(kind, k, cfg, cells,
+    dir)`` the cells over the group of the first k ranks (kind
+    "elastic": each cell's snapshots under its own directory in ``dir``,
+    "restart" the same, timed; "hybrid"; "tp": phase 28a, its one cell
+    phase 19's reference; "hybrid_elastic": phase 28b's cells on the tiny
+    model ``tiny[1]``, snapshots as "elastic"), while the other ranks
+    wait at a barrier.  Returns each run's results (None outside its
+    group) and its wall on this rank."""
     import torch.distributed as dist
-    from repro_torch.launch.dist import (mesh_groups, prefix_group,
+    from repro_torch.launch.dist import (mesh_ladder, prefix_group,
                                          prefix_groups)
     from repro_torch.train import Strategy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # every rank builds every run's groups in one order (a group is
-    # collective over the world; the runs' engines then find them built)
+    # collective over the world; the runs' engines then find them built,
+    # a hybrid mesh's with those of every mesh it can resize into)
     for kind, k, _, cells, _ in runs:
         prefix_groups(range(k))
         for cell in cells:
+            if kind not in ("hybrid", "hybrid_elastic"):
+                continue
             strat = Strategy.parse(cell[0])
             m = strat.mesh_spec
-            if kind == "hybrid" and strat.is_hybrid:
-                mesh_groups(m.data, m.tensor, m.stage, ranks=range(k))
-    out = []
+            if strat.is_hybrid:
+                mesh_ladder(m.data, m.tensor, m.stage, ranks=range(k))
+    out, walls = [], []
     for kind, k, cfg, cells, root in runs:
         group = prefix_group(k)
         got = None
+        t0 = time.perf_counter()
         if group is not None:
             got = {}
             for i, cell in enumerate(cells):
                 if kind == "hybrid":
                     got[cell[0]] = _hybrid_cell(cfg, dev, cell, seq, batch,
-                                                tiny, rows, group)
+                                                tiny[0], rows, group)
+                elif kind == "tp":
+                    got["tp"] = _tp_serve_rank(cfg, dev, cell, group)
+                elif kind == "hybrid_elastic":
+                    got[cell[0]] = _hybrid_elastic_cell(
+                        dev, cell, tiny[1], rows,
+                        os.path.join(root, f"cell{i}"), group)
                 else:
                     got[cell[0]] = _elastic_cell(
                         cfg, dev, cell, seq, batch, REDUCED_LR,
                         os.path.join(root, f"cell{i}"), group,
                         timed=kind == "restart")
+        walls.append(time.perf_counter() - t0)
         out.append(got)
         dist.barrier()
         if rank == 0 and root:
             shutil.rmtree(root, ignore_errors=True)
-    return out
+    return out, walls
 
 
-def elastic_hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
-                          tiny=HYBRID_TINY, rows=HYBRID_ROWS):
-    """Phase 27 (module docstring): the elastic interface and the hybrid
-    engine over Gloo ranks on ``dev``, each cell against the logical
-    engine run just before in this process.  Returns the kernels'
-    launches per path ("dist_elastic": 27a-b, "dist_hybrid": 27c),
+def elastic_hybrid_phases(cfg, dev, smi, tp_ref, seq=TRAIN_S,
+                          batch=TRAIN_B, tiny=HYBRID_TINY,
+                          tiny_elastic=HYBRID_ELASTIC_TINY,
+                          rows=HYBRID_ROWS, phases=("27", "28")):
+    """Phases 27-28 (module docstring): the elastic interface, the hybrid
+    engine and tensor-parallel serving over Gloo ranks on ``dev`` in one
+    spawn, each cell against the logical engine run just before in this
+    process, and 28a against phase 19's logical tp=2 run (``tp_ref``,
+    from ``family_phases``).  ``phases`` picks 27, 28 or both.  Returns
+    the kernels' launches per path ("dist_elastic": 27a-b,
+    "dist_hybrid": 27c, "dist_tp": 28a, "dist_hybrid_elastic": 28b),
     summed over ranks."""
     from repro_torch.launch.dist import spawn
     on_card = dev.type == "cuda"
     where = "cuda" if on_card else "cpu"
-    launches = {"dist_elastic": {}, "dist_hybrid": {}}
+    paths = ("dist_elastic", "dist_hybrid", "dist_tp", "dist_hybrid_elastic")
+    launches = {path: {} for path in paths}
     cfg2 = dataclasses.replace(cfg, num_layers=REDUCED_LAYERS)
     scratch = tempfile.mkdtemp(prefix="chip-smoke-p27-")
     runs = [("elastic", 4, cfg2, DIST_ELASTIC,
@@ -2279,26 +2508,43 @@ def elastic_hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
              os.path.join(scratch, "restart")),
             ("hybrid", 2, cfg, (DIST_HYBRID_FULL,), None),
             ("hybrid", 8, cfg, DIST_HYBRID_TINY[:-1], None),
-            ("hybrid", 4, cfg, DIST_HYBRID_TINY[-1:], None)]
+            ("hybrid", 4, cfg, DIST_HYBRID_TINY[-1:], None),
+            ("tp", 2, cfg, (tp_ref,), None),
+            ("hybrid_elastic", 4, cfg, DIST_HYBRID_ELASTIC,
+             os.path.join(scratch, "hybrid_elastic"))]
+    runs = [run for run in runs if
+            ("28" if run[0] in ("tp", "hybrid_elastic") else "27") in phases]
+    p28 = [i for i, run in enumerate(runs) if run[0] in ("tp",
+                                                           "hybrid_elastic")]
 
     def add(path, counts):
         for name, n in counts.items():
             launches[path][name] = launches[path].get(name, 0) + n
 
     t_phase = time.perf_counter()
-    phase("27 the elastic interface and the hybrid engine over ranks: the "
-          "logical references on " + str(dev) + "; snapshots in "
-          + scratch)
+    phase("27 the elastic interface and the hybrid engine over ranks (and "
+          "28, tensor-parallel serving and the hybrid engine's elastic "
+          "interface over ranks): the logical references on " + str(dev)
+          + "; snapshots in " + scratch)
+    t_refs28 = 0.0
     try:
         refs = []
         for kind, k, cfg_k, cells, root in runs:
             got = {}
+            t0 = time.perf_counter()
             for i, cell in enumerate(cells):
                 if kind == "hybrid":
                     got[cell[0]] = _hybrid_cell(cfg_k, dev, cell, seq, batch,
                                                 tiny, rows)
                     continue
+                if kind == "tp":
+                    continue              # phase 19 ran the logical tp=2
                 d = os.path.join(scratch, f"logical{i}")
+                if kind == "hybrid_elastic":
+                    got[cell[0]] = _hybrid_elastic_cell(dev, cell,
+                                                        tiny_elastic, rows, d)
+                    shutil.rmtree(d, ignore_errors=True)
+                    continue
                 if kind == "restart":
                     # the same run without its restart, which loses no
                     # step, and without snapshots: no I/O on this side
@@ -2307,18 +2553,25 @@ def elastic_hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
                                              REDUCED_LR, d)
                 if d is not None:
                     shutil.rmtree(d, ignore_errors=True)
+            if kind == "hybrid_elastic":
+                t_refs28 += time.perf_counter() - t0
             refs.append(got)
         if on_card:
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
         world = max(k for _, k, *_ in runs)
-        ranks = spawn(_elastic_hybrid_rank, world, "gloo", device=where,
-                      timeout_s=900, args=(runs, seq, batch, tiny, rows))
+        got_ranks = spawn(_elastic_hybrid_rank, world, "gloo", device=where,
+                          timeout_s=900,
+                          args=(runs, seq, batch, (tiny, tiny_elastic),
+                                rows))
+        ranks = [r for r, _ in got_ranks]
         print(f"  logical references {t0 - t_phase:.1f} s; {world} ranks "
               f"in {time.perf_counter() - t0:.1f} s (start and every run)")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for i, (kind, k, cfg_k, cells, _) in enumerate(runs):
+        if i in p28:
+            continue
         label = {"elastic": "27a", "restart": "27b", "hybrid": "27c"}[kind]
         phase(f"{label} {kind} over {k} Gloo rank(s): "
               f"{[c[0] for c in cells]}, fp32")
@@ -2372,8 +2625,97 @@ def elastic_hybrid_phases(cfg, dev, smi, seq=TRAIN_S, batch=TRAIN_B,
                     # rank 0 writes the snapshots: file for file the
                     # logical run's (per-leaf content hashes)
                     assert g["snaps"] == (ref["snaps"] if r == 0 else None)
-    print(f"  phase 27 wall {time.perf_counter() - t_phase:.1f} s")
+    t_ranks28 = max(sum(w[i] for i in p28) for _, w in got_ranks)
+    if "27" in phases:
+        print(f"  phase 27 wall "
+              f"{time.perf_counter() - t_phase - t_refs28 - t_ranks28:.1f} s")
+    if "28" not in phases:
+        return launches
+    i_tp, i = p28
+    _tp_ranks_report(cfg, smi, tp_ref, [r[i_tp]["tp"] for r in ranks[:2]],
+                     add, on_card)
+    phase(f"28b the hybrid engine's elastic interface over "
+          f"{runs[i][1]} Gloo ranks: make_tiny_transformer{tiny_elastic}, "
+          "fp32")
+    for cell in DIST_HYBRID_ELASTIC:
+        spec, ref = cell[0], refs[i][cell[0]]
+        for r in range(runs[i][1]):
+            g = ranks[r][i][spec]
+            add("dist_hybrid_elastic", g["launches"])
+            diffs = [abs(a - b) for a, b in zip(g["losses"], ref["losses"])]
+            print(f"  rank {r} {spec} {cell[1]}: losses {g['losses']}; "
+                  f"|rank - logical| {[f'{d:.2e}' for d in diffs]} (tol "
+                  f"{DIST_TOL}; bitwise {g['losses'] == ref['losses']}); "
+                  f"wire {g['wire']} B (logical {ref['wire']}); recoveries "
+                  f"{g['recoveries']}, resizes {g['resizes']}; final "
+                  f"parameters' sha256 equal {g['digest'] == ref['digest']}"
+                  + (f"; rank 0's manifests equal the logical run's "
+                     f"{g['snaps'] == ref['snaps']} ({len(g['snaps'])} "
+                     "snapshots)" if r == 0 else "")
+                  + f"; run {g['wall']:.1f} s (logical {ref['wall']:.1f}); "
+                  f"peak {g['peak'] / 2**30:.2f} GiB (logical "
+                  f"{ref['peak'] / 2**30:.2f}); launches {g['launches']}; "
+                  f"card {smi}")
+            assert len(diffs) == len(ref["losses"]) > 0
+            assert max(diffs) <= DIST_TOL
+            assert g["wire"] == ref["wire"]
+            assert g["recoveries"] == ref["recoveries"]
+            assert g["final"] == ref["final"] == runs[i][1]
+            assert g["digest"] == ref["digest"]
+            # rank 0 writes the snapshots, in the logical layout
+            assert g["snaps"] == (ref["snaps"] if r == 0 else None)
+    print(f"  phase 28 wall {t_refs28 + t_ranks28:.1f} s (28b's logical "
+          f"references {t_refs28:.1f} s; the ranks' runs "
+          f"{t_ranks28:.1f} s)")
     return launches
+
+
+def _tp_ranks_report(cfg, smi, ref, got, add, cuda):
+    """Phase 28a's report and holds: each rank's tokens bitwise phase
+    19's logical tp=2 tokens, its first decode step against the logical
+    one's, its decode iterations beside the logical tp=2 and tp=1 runs'
+    (and PERF.md section 5's earlier figures), peak, cache and staged
+    bytes, and the flash kernels launched on every rank."""
+    tr = ref["traffic"]
+    phase(f"28a tensor-parallel serving over 2 Gloo ranks: {cfg.name}, "
+          f"bf16, tp=2, one rank per process; phase 19's traffic "
+          f"({tr['n_requests']} requests, prompt {tr['prompt']}, "
+          f"{tr['new']} tokens, {tr['slots']} slots, page {tr['page']})")
+    L = cfg.num_layers
+    for r, g in enumerate(got):
+        m = g["metrics"]
+        add("dist_tp", g["launches"])
+        tp1 = sum(a == b for o1, o2 in zip(ref["tp1_outputs"], g["outputs"])
+                  for a, b in zip(o1, o2))
+        first = float((g["first"] - ref["first_logits"]).abs().max())
+        med = statistics.median(g["iter_ms"])
+        staged = m["rank_staged_bytes"][r] / m["decode_iterations"]
+        print(f"  rank {r}: tokens equal the logical tp=2 stream "
+              f"{g['outputs'] == ref['outputs']}; equal to tp=1's "
+              f"{tp1}/{tr['n_requests'] * tr['new']}; first decode step "
+              f"max|rank - logical| logits {first:.3e}; decode iteration "
+              f"{med:.1f} ms median over {len(g['iter_ms'])} (logical tp=2 "
+              f"{ref['iter_ms']:.1f}, tp=1 {ref['tp1_iter_ms']:.1f} in "
+              f"phase 19; PERF.md section 5: 127.4 and 40.8); "
+              f"{m['generated_tokens'] / m['wall_s']:.1f} tokens/s (logical "
+              f"tp=2 {ref['tokens_per_s']:.1f}); peak "
+              f"{g['peak'] / 2**30:.2f} GiB; cache "
+              f"{m['rank_cache_bytes'][r] / 2**30:.4f} GiB, weights "
+              f"{m['rank_param_bytes'][r] / 2**30:.3f} GiB; staged "
+              f"{staged / 2**20:.3f} MiB per decode iteration; "
+              f"{g['gathers']} all-gathers over the tensor line took "
+              f"{1e3 * g['gather_s'] / m['decode_iterations']:.1f} ms per "
+              f"decode iteration (host wall: the device to host copy waits "
+              f"for the partial, then Gloo, then the copy back); launches "
+              f"{g['launches']}; card {smi}")
+        assert g["outputs"] == ref["outputs"], "rank tokens != logical tp=2"
+        assert m["generated_tokens"] == tr["n_requests"] * tr["new"]
+        assert len(set(m["rank_cache_bytes"])) == 1
+        if cuda:
+            assert g["launches"]["flash_decode"] == \
+                m["decode_iterations"] * L > 0
+            assert g["launches"]["flash_attention"] == \
+                m["prefill_groups"] * L > 0
 
 
 def recurrent_phases(dev, smi, rg, rwkv, whisper, prompt=PROMPT, new=NEW,
@@ -3960,9 +4302,9 @@ def main() -> int:
     print(f"launches of phase 18 {hybrid_launches}")
 
     # ------------------------------------------ 19-21 tp decode, families
-    family_launches = family_phases(dev, smi, cfg,
-                                    get_config("deepseek-v2-lite-16b"),
-                                    get_config("qwen2-vl-7b"))
+    family_launches, tp_ref = family_phases(
+        dev, smi, cfg, get_config("deepseek-v2-lite-16b"),
+        get_config("qwen2-vl-7b"))
     print(f"launches of phases 19-21 {family_launches}")
 
     # ------------------------- 22-24 the recurrent and encoder-decoder families
@@ -3983,8 +4325,8 @@ def main() -> int:
 
     # --------------------------- 27 the elastic interface and hybrid ranks
     torch.cuda.empty_cache()
-    p27_launches = elastic_hybrid_phases(cfg, dev, smi)
-    print(f"launches of phase 27 {p27_launches}")
+    p27_launches = elastic_hybrid_phases(cfg, dev, smi, tp_ref)
+    print(f"launches of phases 27-28 {p27_launches}")
 
     # ------------------------------------------------------------- results
     src = "src/repro_torch/kernels/csrc/"
@@ -4067,6 +4409,9 @@ def main() -> int:
         assert by_path["flash_attention"][path] > 0
         assert by_path["onebit_encode_ef"][path] > 0
     assert by_path["topk_compress"]["dist_hybrid"] > 0
+    assert by_path["flash_attention"]["dist_tp"] > 0
+    assert by_path["flash_decode"]["dist_tp"] > 0
+    assert by_path["onebit_encode_ef"]["dist_hybrid_elastic"] > 0
     print(f"chip_smoke.py wall {time.perf_counter() - t_script:.1f} s "
           f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))

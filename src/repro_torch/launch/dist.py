@@ -26,14 +26,14 @@ stages the card's tensors through host memory) and NCCL at world size
 from one to the other.  Every group takes a timeout in seconds, so a hung
 collective fails the run instead of stalling it.
 
-Sub-groups (``subgroup``, ``prefix_group``, ``mesh_groups``) are built
-by ``dist.new_group``, which every rank of the world must call in the
-same order, members or not; each is built once per process and then
-reused.  An engine builds its groups at its construction or a resize, on
-the ranks of its own group: when that group is not the whole world, the
-other ranks build the same groups beforehand (``prefix_groups``,
-``mesh_groups(..., ranks=)``), so no rank waits on a group another never
-asks for.
+Sub-groups (``subgroup``, ``prefix_group``, ``mesh_groups``,
+``mesh_ladder``) are built by ``dist.new_group``, which every rank of the
+world must call in the same order, members or not; each is built once per
+process and then reused.  An engine builds its groups at its construction
+or a resize, on the ranks of its own group: when that group is not the
+whole world, the other ranks build the same groups beforehand
+(``prefix_groups``, ``mesh_ladder(..., ranks=)``), so no rank waits on a
+group another never asks for.
 """
 from __future__ import annotations
 
@@ -283,3 +283,19 @@ def mesh_groups(data: int, tensor: int, stage: int, parent=None,
     d, t, s = (int(i) for i in where[0])
     return MeshGroups((d, t, s), lines["data"], lines["tensor"],
                       lines["stage"])
+
+
+def mesh_ladder(data: int, tensor: int, stage: int, parent=None,
+                ranks: Optional[Sequence[int]] = None) -> None:
+    """Build every group a hybrid mesh over ``parent``'s ranks (or the
+    global ``ranks``) can resize into along its data axis: for each data
+    count from ``data`` down to 1, the group of its first ``d * tensor *
+    stage`` ranks and that mesh's lines (``mesh_groups``), in that order.
+    ``HybridEngine(group=)`` calls it at its construction, so a resize
+    finds its groups built; ranks outside ``parent`` call it first with
+    ``ranks=``.  Collective as ``subgroup``."""
+    glob = list(ranks) if ranks is not None else _ranks_of(parent)
+    ts = tensor * stage
+    for d in range(data, 0, -1):
+        subgroup(glob[:d * ts])
+        mesh_groups(d, tensor, stage, ranks=glob[:d * ts])

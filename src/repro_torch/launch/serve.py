@@ -1,5 +1,6 @@
-"""Serving launcher of the port: the continuous-batching engine on one
-device, driven by an open-loop arrival trace.
+"""Serving launcher of the port: the continuous-batching engine, driven
+by an open-loop arrival trace, on one device or, at ``--tp N`` under
+``torch.distributed.run``, one tensor rank per process.
 
   # full-width TinyLlama-1.1B in bf16 on the GPU (seeded random weights)
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
@@ -8,6 +9,12 @@ device, driven by an open-loop arrival trace.
   # DeepSeek-V2-Lite-16B (MoE + MLA) at full width; TinyLlama at --tp 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --tp 2
+
+  # --tp 2 as two processes, one tensor rank each (Gloo: both ranks may
+  # share one card; NCCL needs a card per rank); rank 0 prints
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.serve --tp 2 \
+      --dist-backend gloo
 
   # the recurrent families: RecurrentGemma-9B (RG-LRU + local attention),
   # RWKV6-7B (attention-free); Whisper is not served here
@@ -24,12 +31,17 @@ device, driven by an open-loop arrival trace.
 
 ``serve`` runs given requests through the engine the flags configure
 (with tracing, the report and SLO monitoring); ``main`` draws the
-flags' open-loop traffic, serves it and prints the metrics.
+flags' open-loop traffic, serves it and prints the metrics.  Without
+``--dist-backend``, ``--tp`` runs logical ranks in one process; with it
+the process joins ``torchrun``'s group (``launch.dist.init_from_env``),
+whose size must be ``--tp``.  Nothing falls back from one mode to the
+other.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,8 +80,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="page-pool cap (0 = size for all slots full)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel decode degree (logical ranks on "
-                         "the one device)")
+                    help="tensor-parallel decode degree (logical ranks in "
+                         "this process, or with --dist-backend one rank "
+                         "per process)")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"),
+                    help="one tensor rank per process under "
+                    "torch.distributed.run (--nproc-per-node = --tp)")
     ap.add_argument("--window", type=int, default=0,
                     help="sliding-window override (sub-quadratic decode)")
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -93,13 +109,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def serve(args: argparse.Namespace, model, params, reqs, device
-          ) -> Tuple[dict, ServeEngine, Optional[TraceRecorder]]:
+def serve(args: argparse.Namespace, model, params, reqs, device,
+          group=None) -> Tuple[dict, ServeEngine, Optional[TraceRecorder]]:
     """Run ``reqs`` through the engine the flags configure: the
     ``--trace`` / ``--report`` recorder around ``run``, an ``SLOMonitor``
     for the ``--slo`` objectives.  Prints what the JAX package's launcher
     prints for those flags; returns (metrics, engine, recorder or
-    None)."""
+    None).  ``group``: one tensor rank per process of it (every rank
+    calls ``serve``; rank 0 traces and prints)."""
     dtype = DTYPES[args.dtype]
     max_len = args.max_len or (args.prompt_len + args.max_new)
     slo = SLOMonitor(args.slo) if args.slo else None
@@ -107,7 +124,9 @@ def serve(args: argparse.Namespace, model, params, reqs, device
         slots=args.slots, max_len=max_len, page_size=args.pages,
         num_pages=args.num_pages or None, policy=args.policy, tp=args.tp,
         window_override=args.window, cache_dtype=dtype, compute_dtype=dtype),
-        device=device, slo=slo)
+        device=device, slo=slo, group=group)
+    if not eng.writer:
+        return eng.run(reqs), eng, None
     rec = None
     with contextlib.ExitStack() as stack:
         if args.trace or args.report:
@@ -125,9 +144,48 @@ def serve(args: argparse.Namespace, model, params, reqs, device
     return metrics, eng, rec
 
 
-def main(argv=None):
+def _join(args):
+    """(device, group) for the flags: ``torchrun``'s group of ``--tp``
+    ranks under ``--dist-backend``, else this process alone."""
+    if args.dist_backend is None:
+        if "WORLD_SIZE" in os.environ and int(os.environ["WORLD_SIZE"]) > 1:
+            raise SystemExit("under torch.distributed.run pass "
+                             "--dist-backend {gloo,nccl} (one tensor rank "
+                             "per process)")
+        return resolve_device(args.device), None
+    if "RANK" not in os.environ:
+        raise SystemExit("--dist-backend needs torch.distributed.run "
+                         "(--nproc-per-node = --tp)")
+    import torch.distributed as dist
+
+    from repro_torch.launch.dist import init_from_env
+    world = int(os.environ["WORLD_SIZE"])
+    if world != args.tp:
+        raise SystemExit(f"--tp {args.tp} under a world of {world} "
+                         "processes (they must be equal)")
+    _, _, device = init_from_env(args.dist_backend, args.device)
+    return device, dist.group.WORLD
+
+
+def main(argv=None, group=None):
+    """The flags' traffic through the engine; prints the metrics (rank 0
+    of a group) and returns them.  ``group``: a process group of ``--tp``
+    ranks the caller has already joined, in place of ``torchrun``'s."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    joins = group is None
+    if joins:
+        device, group = _join(args)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _main(args, device, group)
+    finally:
+        if joins and group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, device, group):
     dtype = DTYPES[args.dtype]
     cfg = get_config(args.arch)
     if args.smoke:
@@ -150,7 +208,9 @@ def main(argv=None):
                                             top_k=args.top_k,
                                             seed=args.seed + i))
             for i in range(len(arrivals))]
-    metrics, _, _ = serve(args, model, params, reqs, device)
+    metrics, eng, _ = serve(args, model, params, reqs, device, group)
+    if not eng.writer:
+        return metrics
 
     print(f"{cfg.name}: {cfg.param_count() / 1e9:.2f} B params, {args.dtype} "
           f"on {device}")
@@ -171,6 +231,13 @@ def main(argv=None):
           f"{metrics['p99_first_token']:.1f} iters   per-token p50/p99: "
           f"{metrics['p50_per_token']:.2f}/{metrics['p99_per_token']:.2f}"
           f"   stalls: {metrics['admission_stalls']}")
+    if group is not None:
+        import torch.distributed as dist
+        print(f"tp ranks ({dist.get_backend(group)}): cache "
+              f"{[round(b / 2**20, 3) for b in metrics['rank_cache_bytes']]}"
+              f" MiB, weights "
+              f"{[round(b / 2**20, 3) for b in metrics['rank_param_bytes']]}"
+              " MiB per rank")
     return metrics
 
 

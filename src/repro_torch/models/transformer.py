@@ -23,7 +23,8 @@ recurrent layer's state *is* its decode cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -145,8 +146,9 @@ def _rank(tree, r: int):
 
 def _tp_sum(partials):
     """The row-parallel partial products of the ranks, summed in rank
-    order (``tensor_reduce``; imported here, as ``parallel`` imports the
-    engines)."""
+    order (``tensor_reduce``, over the tensor line ``decode_step`` set
+    when each rank is a process; imported here, as ``parallel`` imports
+    the engines)."""
     from repro_torch.parallel.staged import tensor_reduce
     return tensor_reduce(torch.stack(partials))[0]
 
@@ -157,8 +159,8 @@ def _layer_decode(p, cfg: ModelConfig, sig, x, pos, cache, window_override,
     caches are written in place, a recurrent layer returns its new state.
 
     tp_axis: the mixer and MLP leaves and the cache are rank-stacked on
-    dimension 0 (``serve.tp``); each rank decodes its heads and hidden
-    slice against its own cache rows, and the row-parallel partial
+    dimension 0 (``serve.tp``); each rank held decodes its heads and
+    hidden slice against its own cache rows, and the row-parallel partial
     products (wo, w_down) are summed with ``tensor_reduce`` before each
     residual add.  Dense GQA layers only (``decode_step`` checks)."""
     kind, use_moe = sig
@@ -432,20 +434,23 @@ def paged_layers(cfg: ModelConfig, window_override: int = 0) -> List[bool]:
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos,
                 compute_dtype=torch.bfloat16, window_override: int = 0,
-                tp_axis: Optional[str] = None, moe_per_row: bool = True):
+                tp_axis=None, moe_per_row: bool = True):
     """One decode step.  token [B, 1] int; pos [B] int, the position of
     each row's token (rows decode at their own positions).  Updates the
     attention caches in place and puts each recurrent layer's new state
     in its place in ``caches``; returns (logits [B, 1, Vpad], caches).
 
-    tp_axis: tensor-parallel decode over logical ranks on one device.
-    ``params`` then come from ``serve.tp.TPContext.shard_params`` (wq, wk,
-    wv, w_gate, w_up split by column and wo, w_down by row, stacked
-    rank-major on dimension 0; embeddings, norms and lm_head replicated),
-    every cache leaf is rank-major ``[tp, ..., KV/tp, hd]``, and ``cfg``
-    is the rank-local config (``num_heads/tp``, ``num_kv_heads/tp``), as
-    the JAX package's engine passes it inside its ``shard_map``.  The
-    value names the axis; the port's tensor axis is always dimension 0.
+    tp_axis: tensor-parallel decode (``serve.tp.TPContext.tp_axis``).
+    ``params`` then come from ``TPContext.shard_params`` (wq, wk, wv,
+    w_gate, w_up split by column and wo, w_down by row, stacked rank-major
+    on dimension 0; embeddings, norms and lm_head replicated), every cache
+    leaf is rank-major ``[ranks, ..., KV/tp, hd]``, and ``cfg`` is the
+    rank-local config (``num_heads/tp``, ``num_kv_heads/tp``), as the JAX
+    package's engine passes it inside its ``shard_map``.  A string names
+    the axis of logical ranks, all ``tp`` of them held here and decoded
+    in turn; a ``core.collectives.DistAxis`` is the group of ``tp``
+    processes, each holding its own rank ``[1, ...]``, and the partials
+    are gathered over it and summed in rank order (the same bits).
 
     moe_per_row: each row routes alone (the serving engine's slots, as
     the reference's engine vmaps its decode over them); False routes the
@@ -459,9 +464,16 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos,
             f"(got moe={cfg.moe}, attn_type={cfg.attn_type}, kinds "
             f"{sorted(set(cfg.layer_kinds))})")
     x = params["embed"].to(compute_dtype)[token]
-    for i, (p, sig) in enumerate(zip(params["layers"], _layer_sigs(cfg))):
-        x, caches[i] = _layer_decode(p, cfg, sig, x, pos, caches[i],
-                                     window_override, tp_axis, moe_per_row)
+    line = contextlib.nullcontext()
+    if tp_axis is not None and not isinstance(tp_axis, str):
+        from repro_torch.parallel.staged import tensor_axis
+        line = tensor_axis(tp_axis)
+    with line:
+        for i, (p, sig) in enumerate(zip(params["layers"],
+                                         _layer_sigs(cfg))):
+            x, caches[i] = _layer_decode(p, cfg, sig, x, pos, caches[i],
+                                         window_override, tp_axis,
+                                         moe_per_row)
     return _logits(params, cfg, x), caches
 
 

@@ -77,9 +77,27 @@ operations, so both give the same bits.  The losses, dgc's sparse counts
 and ``finalize``'s parameters are gathered over the world.  The data-axis
 ssp / asp / sma cells hold the full parameters on every rank (a slot's
 push is its whole gradient, gathered over its tensor line) and replay
-the schedule over the data line.  The hybrid engine's own elastic
-interface (``reshard``, ``export_state``, ``import_state``) raises under
-a group: ROADMAP queue A item 9e.
+the schedule over the data line.
+
+**Elastic over ranks.**  The group's rank layout is the data-major grid
+of ``launch.dist.mesh_groups``: data slot j on ranks ``j*ts ... (j+1)*ts -
+1`` (``ts = tensor * stage``).  ``reshard`` to ``new_d`` slots moves the
+engine onto the group's first ``new_d * ts`` ranks with the logical
+engine's slot rule: each EF block moves to its new slot's rank at the same
+(tensor, stage) coordinate (grown slots start at zero), z3 parameter and
+z1+ moment shards are re-cut over the new data line (every old slot's
+shard gathered along the old line, each new rank keeping its slice), and
+a grown rank receives the replicated blocks from slot 0 at its
+coordinate.  The group's other ranks sit idle (they take each step's
+events from rank 0 and the final parameters).  The groups of every
+smaller mesh are built at construction (``launch.dist.mesh_ladder``), as
+``dist.new_group`` is collective over the world.  ``export_state``
+gathers every shard, block and EF row to rank 0 in the logical layout
+(``[D, S, T, m]`` per bucket, the parameter trees whole), so rank 0's
+snapshot, the only one written, is the logical engine's file for file;
+``import_state`` keeps a rank's own rows of each leaf (a rank loads only
+the leaves it holds a part of, each whole: the store reads whole
+leaves).
 """
 from __future__ import annotations
 
@@ -116,7 +134,8 @@ from repro_torch.parallel.zero import (flatten_bucket, init_opt_state,
                                        make_zero_bucket_update,
                                        state_bytes_per_device,
                                        wire_bytes_per_device)
-from repro_torch.train.data_parallel import async_replay_step
+from repro_torch.train.data_parallel import (async_replay_step,
+                                            broadcast_object)
 
 ASYNC_SYNCS = ("ssp", "asp")
 
@@ -141,13 +160,6 @@ class MeshRanks:
     def staged_bytes(self) -> int:
         return sum(ax.staged_bytes for ax in (self.world, self.data,
                                               self.tensor, self.stage))
-
-
-def _refuse_elastic(what: str):
-    raise NotImplementedError(
-        f"the hybrid engine's {what} over a process group is not ported "
-        "yet (ROADMAP queue A item 9e (the hybrid engine's elastic "
-        "interface))")
 
 
 def emit_pipeline_trace(rec, stages: int, micro: int, *,
@@ -298,13 +310,23 @@ class HybridEngine:
         self._wire_total = 0
         self._skeleton = None
         self._full_shapes: List[Tuple[int, ...]] = []
+        self._dtypes: List[torch.dtype] = []
+        # over a group: its every rank (``_world``) and this rank's device
+        # of the current mesh (``ranks``; None on a rank a resize left out)
         self.ranks: Optional[MeshRanks] = None
+        self._world: Optional[DistAxis] = None
         if group is not None:
             import torch.distributed as dist
+
+            from repro_torch.launch.dist import mesh_ladder
             if dist.get_world_size(group) != cfg.mesh.size:
                 raise ValueError(
                     f"mesh {cfg.mesh.spec()} needs {cfg.mesh.size} ranks, "
                     f"the process group has {dist.get_world_size(group)}")
+            mesh_ladder(cfg.mesh.data, cfg.mesh.tensor, cfg.mesh.stage,
+                        group)
+            self._group = group
+            self._world = DistAxis(group, dist.get_backend(group))
             self.ranks = MeshRanks(cfg.mesh, group)
 
     # ------------------------------------------------------------ helpers
@@ -330,6 +352,8 @@ class HybridEngine:
                 layout=self.layout)
             self._full_shapes = [tuple(s) for s in
                                  self.layout.shapes(params)]
+            self._dtypes = [get_path(params, parts[0]).dtype
+                            for parts in self.layout.parts]
             self._skeleton = tree_map(lambda x: None, params)
             if self.cfg.schedule == "1f1b":
                 s = self.cfg.mesh.stage
@@ -378,6 +402,26 @@ class HybridEngine:
     @property
     def _data_axis(self):
         return None if self.ranks is None else self.ranks.data
+
+    @property
+    def _idle(self) -> bool:
+        """A rank of the group that a resize left outside the mesh."""
+        return self._world is not None and self.ranks is None
+
+    @property
+    def _has_idle(self) -> bool:
+        return (self._world is not None
+                and self.cfg.mesh.size < self._world.size)
+
+    @property
+    def snapshot_writer(self) -> bool:
+        """Whether this process writes the engine's snapshots: rank 0 of
+        a group, or the one process of the logical mesh."""
+        return self._world is None or self._world.rank == 0
+
+    @staticmethod
+    def _idle_state(wire: int) -> Dict[str, Any]:
+        return dict(params=None, opt=None, ef=None, wire=wire)
 
     # ------------------------------------------- 1f1b virtual-stage layout
     def _stage_perm(self, n_rows: int) -> np.ndarray:
@@ -528,6 +572,8 @@ class HybridEngine:
     # ---------------------------------------------------------------- init
     def init(self, params) -> Dict[str, Any]:
         cfg = self.cfg
+        if self._idle:
+            return self._idle_state(0)
         params = tree_map(lambda x: x.to(self.device), params)
         plan = self._ensure_plan(params)
         # 1f1b interleaving holds params in virtual-stage row order for
@@ -555,10 +601,7 @@ class HybridEngine:
             return st
         if self.ranks is not None:
             # a rank holds its own device's block of every leaf
-            (s, t), = self._grid()
-            params = self._tree([self._cut(x, i, s, t).clone()
-                                 for i, x in enumerate(
-                                     self.layout.leaves(params))])
+            params = self._own_tree(params)
         leaves = self.layout.view(params)
         if cfg.zero == 3:
             st["params"] = [self._shard_array(leaves, b) for b in plan.order]
@@ -999,7 +1042,10 @@ class HybridEngine:
 
     def step(self, st, batches: Callable[[int, int], Any], t: int):
         sync = self.cfg.sync
-        if sync == "bsp":
+        ev = None
+        if self._idle:
+            pass                   # rank 0 sends the step's events below
+        elif sync == "bsp":
             st, ev = self._step_bsp(st, batches, t)
         elif sync == "ssp":
             st, ev = self._step_async(st, batches, t, self.cfg.staleness)
@@ -1007,6 +1053,8 @@ class HybridEngine:
             st, ev = self._step_async(st, batches, t, None)
         else:
             st, ev = self._step_sma(st, batches, t)
+        if self._has_idle:
+            ev, st["wire"] = broadcast_object(self._world, (ev, st["wire"]))
         self._wire_total = st["wire"]
         return st, ev
 
@@ -1017,7 +1065,10 @@ class HybridEngine:
                             *st["replicas"])
         if cfg.sync in ASYNC_SYNCS:
             return self._permute_stacked(st["params"], inverse=True)
-        if cfg.zero == 3:
+        params = None
+        if self._idle:
+            pass
+        elif cfg.zero == 3:
             params = self._tree(self._materialize(st["params"]))
         else:
             params = st["params"]
@@ -1025,6 +1076,14 @@ class HybridEngine:
             # every (s, t) block, gathered over the world
             params = self._tree(self._gather_full(
                 list(self.layout.leaves(params)), "world"))
+        if self._has_idle:
+            # the ranks a resize left out take rank 0's
+            if params is None:
+                params = self._tree([
+                    torch.empty(shape, dtype=dt, device=self.device)
+                    for shape, dt in zip(self._full_shapes, self._dtypes)])
+            params = self._tree([self._world.broadcast(x, 0) for x in
+                                 self.layout.leaves(params)])
         return self._permute_stacked(params, inverse=True)
 
     def _data_rows(self, xs) -> torch.Tensor:
@@ -1238,9 +1297,8 @@ class HybridEngine:
         """Resize the mesh to ``new_workers`` logical devices by
         rebuilding the *data* axis (tensor x stage geometry is a property
         of the model and survives).  ZeRO shards are re-cut over the new
-        data axis; survivor data slots keep their EF residuals."""
-        if self.ranks is not None:
-            _refuse_elastic("reshard")
+        data axis; survivor data slots keep their EF residuals.  Over a
+        process group every rank calls it (module docstring)."""
         cfg, plan = self.cfg, self.plan
         if cfg.sync != "bsp":
             raise ValueError(
@@ -1252,6 +1310,10 @@ class HybridEngine:
                 f"resize to {new_workers} devices does not factor over the "
                 f"tensor*stage block of {ts} (mesh {cfg.mesh.spec()}); "
                 "hybrid meshes resize along the data axis only")
+        if self._world is not None and new_workers > self._world.size:
+            raise ValueError(
+                f"resize to {new_workers} devices needs {new_workers} "
+                f"ranks, the process group has {self._world.size}")
         new_d = new_workers // ts
         bad = [w for w in lost if w < 0 or w >= cfg.mesh.data]
         if bad:
@@ -1261,30 +1323,33 @@ class HybridEngine:
         slots = survivors[:new_d]
         grown = new_d - len(slots)
 
-        def recut(arrs: List[torch.Tensor]) -> List[torch.Tensor]:
-            out = []
-            for arr, b in zip(arrs, plan.order):
-                n_b = plan.bucket_sizes[b]
-                m_new = -(-n_b // new_d)
-                _, S, T, _ = arr.shape
-                new = arr.new_zeros((new_d, S, T, m_new))
-                flat = arr.new_zeros(new_d * m_new)
-                for si in range(S):
-                    for ti in range(T):
-                        flat[:n_b] = arr[:, si, ti].reshape(-1)[:n_b]
-                        new[:, si, ti] = flat.reshape(new_d, m_new)
-                out.append(new)
-            return out
+        if self._world is not None:
+            st = self._reshard_ranks(st, new_d, slots)
+        else:
+            def recut(arrs: List[torch.Tensor]) -> List[torch.Tensor]:
+                out = []
+                for arr, b in zip(arrs, plan.order):
+                    n_b = plan.bucket_sizes[b]
+                    m_new = -(-n_b // new_d)
+                    _, S, T, _ = arr.shape
+                    new = arr.new_zeros((new_d, S, T, m_new))
+                    flat = arr.new_zeros(new_d * m_new)
+                    for si in range(S):
+                        for ti in range(T):
+                            flat[:n_b] = arr[:, si, ti].reshape(-1)[:n_b]
+                            new[:, si, ti] = flat.reshape(new_d, m_new)
+                    out.append(new)
+                return out
 
-        if cfg.zero == 3:
-            st["params"] = recut(st["params"])
-        if st["opt"] is not None and cfg.zero >= 1:
-            st["opt"] = {"m": recut(st["opt"]["m"]),
-                         "v": recut(st["opt"]["v"]), "t": st["opt"]["t"]}
-        if st["ef"] is not None:
-            st["ef"] = [torch.cat([x[slots], x.new_zeros((grown,)
-                                                         + x.shape[1:])])
-                        for x in st["ef"]]
+            if cfg.zero == 3:
+                st["params"] = recut(st["params"])
+            if st["opt"] is not None and cfg.zero >= 1:
+                st["opt"] = {"m": recut(st["opt"]["m"]),
+                             "v": recut(st["opt"]["v"]),
+                             "t": st["opt"]["t"]}
+            if st["ef"] is not None:
+                st["ef"] = [torch.cat([x[slots], x.new_zeros(
+                    (grown,) + x.shape[1:])]) for x in st["ef"]]
         new_mesh = MeshSpec(new_d, cfg.mesh.tensor, cfg.mesh.stage)
         self.cfg = cfg = dataclasses.replace(cfg, mesh=new_mesh)
         self.mesh = make_hybrid_mesh(new_d, cfg.mesh.tensor, cfg.mesh.stage)
@@ -1298,33 +1363,238 @@ class HybridEngine:
         self._act_cell = []
         self._comm, self._dev_event_bytes, self._measured_tx = None, None, \
             None
+        if self._world is not None:
+            import torch.distributed as dist
+
+            from repro_torch.launch.dist import subgroup
+            glob = dist.get_process_group_ranks(self._group)
+            group = subgroup(glob[:new_workers])
+            self.ranks = (None if group is None
+                          else MeshRanks(new_mesh, group))
         return st
 
-    def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    # ---------------------------------------------- elastic over ranks
+    def _coord(self, r: int) -> Tuple[int, int, int]:
+        """(d, t, s) of group rank ``r`` in the current mesh."""
+        S = self.cfg.mesh.stage
+        ts = self.cfg.mesh.tensor * S
+        return r // ts, (r % ts) // S, r % S
+
+    def _block_like(self, c: int, dtype=None) -> List[torch.Tensor]:
+        """Empty tensors shaped like the blocks of the device at offset
+        ``c`` of a data slot (``dtype``: the parameters' by default)."""
+        _, t, s = self._coord(c)
+        out = []
+        for i, (shape, dt) in enumerate(zip(self._full_shapes,
+                                            self._dtypes)):
+            x = self._cut(torch.empty(shape, device="meta"), i, s, t)
+            out.append(torch.empty(x.shape, dtype=dtype or dt,
+                                   device=self.device))
+        return out
+
+    def _reshard_ranks(self, st, new_d: int, slots: List[int]):
+        """``reshard`` over a process group: the logical slot rule with
+        data slot j on the group's ranks ``j*ts ... (j+1)*ts - 1``
+        (module docstring).  Returns this rank's state in the new
+        mesh."""
+        W, cfg, plan, R = self._world, self.cfg, self.plan, self.ranks
+        me, D = W.rank, cfg.mesh.data
+        ts = cfg.mesh.tensor * cfg.mesh.stage
+        c = me % ts
+        was, will = me < D * ts, me < new_d * ts
+        i_new = me // ts
+        # rank 0's counters on every rank (a rank left out holds stale ones)
+        opt = st["opt"]
+        wire, opt_t = broadcast_object(
+            W, (st["wire"], None if opt is None else opt["t"]))
+
+        def to_grown(part, like):
+            """Slot 0's tensors ``part(i)`` at each offset sent to grown
+            slot i's rank at the same offset (ranks idle before), which
+            receive into the tensors ``like()`` makes; returns what this
+            rank received, or None."""
+            got = None
+            for i in range(D, new_d):
+                dst = i * ts + me if me < ts else None
+                src = c if i_new == i and not was else None
+                if dst is None and src is None:
+                    continue
+                ys = like() if src is not None else None
+                xs = part(i) if dst is not None else [None] * len(ys)
+                ys = ys or [None] * len(xs)
+                res = [W.sendrecv(x, dst, y, src) for x, y in zip(xs, ys)]
+                if src is not None:
+                    got = res
+            return got
+
+        def recut(arrs, dtype):
+            """z3 / moment shards re-cut over the new data line: every old
+            slot's shard gathered along the old line, each new rank
+            keeping its slice (the logical ``recut``'s bits)."""
+            out = []
+            for j, b in enumerate(plan.order):
+                n_b = plan.bucket_sizes[b]
+                m_new = -(-n_b // new_d)
+                mine = flat = None
+                if was:
+                    rows = R.data.all_gather(arrs[j][0, 0])[0]
+                    flat = rows.new_zeros(new_d * m_new)
+                    flat[:n_b] = rows.reshape(-1)[:n_b]
+                    if will:
+                        mine = flat[i_new * m_new:(i_new + 1) * m_new]
+                got = to_grown(
+                    lambda i: [flat[i * m_new:(i + 1) * m_new]],
+                    lambda: [torch.empty(m_new, dtype=dtype,
+                                         device=self.device)])
+                if got is not None:
+                    mine = got[0]
+                out.append(None if mine is None
+                           else mine.clone().reshape(1, 1, 1, m_new))
+            return out
+
+        def replicated(tree, dtype=None):
+            """A block tree replicated over the data line: kept where
+            held, slot 0's on a grown rank."""
+            got = to_grown(lambda i: list(self.layout.leaves(tree)),
+                           lambda: self._block_like(c, dtype))
+            if was:
+                return tree
+            return None if got is None else self._tree(got)
+
+        new_st = self._idle_state(wire)
+        mdt = getattr(torch, cfg.moments)
+        if cfg.zero == 3:
+            new_st["params"] = recut(st["params"], torch.float32)
+        else:
+            new_st["params"] = replicated(st["params"])
+        if cfg.optimizer == "adamw":
+            if cfg.zero >= 1:
+                m, v = (recut(opt[k] if was else None, mdt)
+                        for k in ("m", "v"))
+            else:
+                m, v = (replicated(opt[k] if was else None, mdt)
+                        for k in ("m", "v"))
+            new_st["opt"] = {"m": m, "v": v, "t": opt_t}
+        if self._ef_active:
+            # survivor slot slots[i]'s EF block moves to slot i's rank at
+            # the same offset; grown slots start at zero
+            dst = next((i * ts + c for i, w in enumerate(slots)
+                        if was and w * ts + c == me and i * ts + c != me),
+                       None)
+            src = (slots[i_new] * ts + c
+                   if will and i_new < len(slots)
+                   and slots[i_new] * ts + c != me else None)
+            shapes = [(1, 1, 1) + tuple(x) for x in plan.local_shapes]
+            rows = [W.sendrecv(
+                st["ef"][j] if dst is not None else None, dst,
+                None if src is None else torch.empty(
+                    shape, device=self.device), src)
+                for j, shape in enumerate(shapes)]
+            if not will:
+                pass
+            elif src is not None:
+                new_st["ef"] = rows
+            elif i_new < len(slots):
+                new_st["ef"] = st["ef"]                     # kept in place
+            else:
+                new_st["ef"] = [torch.zeros(shape, device=self.device)
+                                for shape in shapes]
+        return new_st if will else self._idle_state(wire)
+
+    def _stack_rows(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every device's ``[1, 1, 1, ...]`` row as the logical ``[D, S,
+        T, ...]`` tensor on rank 0 (host memory under gloo); None on the
+        other ranks."""
+        rows = self.ranks.world.gather(x[0, 0, 0], 0)
+        if rows is None:
+            return None
+        m = self.cfg.mesh
+        out = rows.new_empty((m.data, m.stage, m.tensor)
+                             + tuple(rows.shape[1:]))
+        for r in range(rows.shape[0]):
+            d, t, s = self._coord(r)
+            out[d, s, t] = rows[r]
+        return out
+
+    def _whole_tree(self, tree):
+        """A tree of this rank's blocks as the whole tree (every (s, t)
+        block, gathered over the world; the tree itself when the mesh
+        has one block)."""
+        if self.cfg.mesh.is_trivial:
+            return tree
+        return self._tree(self._gather_full(list(self.layout.leaves(tree)),
+                                            "world"))
+
+    def _own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's ``[1, 1, 1, ...]`` row of a logical ``[D, S, T,
+        ...]`` tensor, on the engine's device."""
+        d, t, s = self.ranks.coord
+        return x[d:d + 1, s:s + 1, t:t + 1].to(self.device, copy=True)
+
+    def _own_tree(self, tree):
+        """This rank's blocks of a whole tree, on the engine's device."""
+        (s, t), = self._grid()
+        return self._tree([self._cut(x, i, s, t).to(self.device, copy=True)
+                           for i, x in enumerate(self.layout.leaves(tree))])
+
+    def _arrays(self, st, gather: bool) -> Dict[str, Any]:
+        """The snapshot's tensors: the state in the logical layout (over
+        a group, gathered to rank 0 when ``gather``; else this rank's own
+        state, the structure a restore loads into)."""
         cfg = self.cfg
-        if self.ranks is not None:
-            _refuse_elastic("export_state")
+        opt = st["opt"]
+        arrays = {"params": st["params"], "ef": st["ef"],
+                  "opt": None if opt is None else {"m": opt["m"],
+                                                   "v": opt["v"]}}
+        if self._world is None or not gather or self._idle:
+            return arrays
+        if cfg.zero == 3:
+            arrays["params"] = [self._stack_rows(x) for x in st["params"]]
+        else:
+            arrays["params"] = self._whole_tree(st["params"])
+        if st["ef"] is not None:
+            arrays["ef"] = [self._stack_rows(x) for x in st["ef"]]
+        if opt is not None:
+            if cfg.zero >= 1:
+                arrays["opt"] = {k: [self._stack_rows(x) for x in opt[k]]
+                                 for k in ("m", "v")}
+            else:
+                arrays["opt"] = {k: self._whole_tree(opt[k])
+                                 for k in ("m", "v")}
+        return arrays
+
+    def export_state(self, st) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(tensor tree, JSON-able meta) for ``checkpoint.store``.  Over a
+        group every rank calls it, and rank 0's is the whole snapshot in
+        the logical layout (module docstring)."""
+        cfg = self.cfg
         if cfg.sync != "bsp":
             raise ValueError(
                 f"sync={cfg.sync!r} hybrid cells do not snapshot yet; "
                 "use the flat DeviceEngine (trivial mesh) for elastic "
                 "async runs")
         opt = st["opt"]
-        arrays = {"params": st["params"], "ef": st["ef"],
-                  "opt": None if opt is None else {"m": opt["m"],
-                                                   "v": opt["v"]}}
         meta = dict(backend="hybrid", mesh=cfg.mesh.spec(), zero=cfg.zero,
                     optimizer=cfg.optimizer, num_workers=cfg.mesh.size,
                     wire=int(st["wire"]), slowdowns=list(self.slowdowns),
                     schedule=cfg.schedule, interleave=self._v,
                     precision=cfg.precision, moments=cfg.moments,
                     opt_t=None if opt is None else int(opt["t"]))
+        return self._arrays(st, gather=True), meta
+
+    def snapshot_template(self, st):
+        """The tree a restore loads into: ``export_state``'s structure
+        without the gather, each leaf an empty host tensor (a rank keeps
+        its rows of the whole leaves ``import_state`` is handed), None
+        where this process holds nothing."""
+        arrays, meta = self._arrays(st, gather=False), None
+        if self._world is not None:
+            arrays = tree_map(lambda x: None if x is None
+                              else torch.empty(0), arrays)
         return arrays, meta
 
     def import_state(self, arrays: Dict[str, Any], meta: Dict[str, Any]):
         cfg = self.cfg
-        if self.ranks is not None:
-            _refuse_elastic("import_state")
         if meta["num_workers"] != cfg.mesh.size:
             raise ValueError(
                 f"snapshot has {meta['num_workers']} devices, engine has "
@@ -1345,13 +1615,23 @@ class HybridEngine:
                 f"snapshot schedule/precision {snap} does not match "
                 f"engine {mine}")
         self.slowdowns = [float(s) for s in meta["slowdowns"]]
-        opt = arrays["opt"]
+        self._wire_total = int(meta["wire"])
+        if self._idle:
+            return self._idle_state(self._wire_total)
+        params, ef, opt = arrays["params"], arrays["ef"], arrays["opt"]
+        if self._world is not None:
+            # this rank's rows of the whole leaves
+            rows = self._own_rows
+            params = ([rows(x) for x in params] if cfg.zero == 3
+                      else self._own_tree(params))
+            ef = None if ef is None else [rows(x) for x in ef]
+            if opt is not None:
+                opt = {k: ([rows(x) for x in opt[k]] if cfg.zero >= 1
+                           else self._own_tree(opt[k]))
+                       for k in ("m", "v")}
         if opt is not None:
             opt = dict(opt, t=int(meta["opt_t"]))
-        st = dict(params=arrays["params"], opt=opt, ef=arrays["ef"],
-                  wire=int(meta["wire"]))
-        self._wire_total = st["wire"]
-        return st
+        return dict(params=params, opt=opt, ef=ef, wire=self._wire_total)
 
     # ------------------------------------------------------------------ run
     def run(self, params, batches: Callable[[int, int], Any], steps: int):

@@ -24,8 +24,10 @@ work.
 Tensor-parallel decode (``tp > 1``, ``serve/tp.py``) keeps every cache
 leaf rank-major, ``[tp, ..., KV/tp, hd]``: rank r's rows are one
 contiguous block, so the gather hands each rank's ``flash_decode`` a
-contiguous cache without a copy per rank.  The JAX package shards the
-same KV-head axis over devices.
+contiguous cache without a copy per rank.  With ``rank`` (one process
+per tensor rank) a store holds only that rank's heads, ``[1, ...,
+KV/tp, hd]``: 1/tp of the cache bytes.  The JAX package shards the same
+KV-head axis over devices.
 """
 from __future__ import annotations
 
@@ -85,11 +87,15 @@ class BlockAllocator:
 
 
 # ------------------------------------------------------------- KV stores
-def shard_kv(t, tp: int):
+def shard_kv(t, tp: int, rank: Optional[int] = None):
     """A cache leaf ``[..., KV, hd]`` -> rank-major ``[tp, ..., KV/tp,
-    hd]`` (rank r holds KV heads r*KV/tp ... (r+1)*KV/tp - 1); ``tp == 1``
+    hd]`` (rank r holds KV heads r*KV/tp ... (r+1)*KV/tp - 1), or with
+    ``rank`` that rank's block alone, ``[1, ..., KV/tp, hd]``; ``tp == 1``
     returns ``t``."""
-    return t if tp == 1 else torch.stack(t.chunk(tp, dim=t.dim() - 2))
+    if tp == 1:
+        return t
+    chunks = t.chunk(tp, dim=t.dim() - 2)
+    return torch.stack(chunks if rank is None else chunks[rank:rank + 1])
 
 
 def _lead(tp: int):
@@ -104,10 +110,12 @@ class ContiguousKV:
     paged = False
 
     def __init__(self, model, slots: int, max_len: int, dtype=torch.float32,
-                 window_override: int = 0, device="cpu", tp: int = 1):
-        self.slots, self.max_len, self.tp = slots, max_len, tp
+                 window_override: int = 0, device="cpu", tp: int = 1,
+                 rank: Optional[int] = None):
+        self.slots, self.max_len, self.tp, self.rank = (slots, max_len, tp,
+                                                        rank)
         self.store = tree_map(
-            lambda t: shard_kv(t, tp),
+            lambda t: shard_kv(t, tp, rank),
             model.init_cache(slots, max_len, dtype=dtype,
                              window_override=window_override, device=device))
 
@@ -130,8 +138,8 @@ class ContiguousKV:
         cache into batch slot ``slot``."""
         for dst, src in zip(self.store, conv_cache):
             for name in dst:
-                dst[name][_lead(self.tp) + (slot,)] = shard_kv(src[name][j],
-                                                               self.tp)
+                dst[name][_lead(self.tp) + (slot,)] = shard_kv(
+                    src[name][j], self.tp, self.rank)
 
     def release(self, slot: int, request) -> None:
         pass                              # rows are overwritten on admit
@@ -145,7 +153,8 @@ class PagedKV:
 
     def __init__(self, model, slots: int, max_len: int, page_size: int,
                  num_pages: Optional[int] = None, dtype=torch.float32,
-                 window_override: int = 0, device="cpu", tp: int = 1):
+                 window_override: int = 0, device="cpu", tp: int = 1,
+                 rank: Optional[int] = None):
         if page_size <= 0:
             raise ValueError("page_size must be > 0 for PagedKV")
         if window_override:
@@ -153,7 +162,7 @@ class PagedKV:
                              "(ring buffers are already constant-size)")
         self.pooled = paged_layers(model.cfg)
         self.slots, self.max_len, self.page = slots, max_len, page_size
-        self.device, self.tp = torch.device(device), tp
+        self.device, self.tp, self.rank = torch.device(device), tp, rank
         self.pages_per_seq = math.ceil(max_len / page_size)
         if num_pages is None:
             # default: every slot can hold a full-length request, +1 null
@@ -167,7 +176,7 @@ class PagedKV:
         self.store = [
             tree_map(lambda t: shard_kv(
                 t.new_zeros((num_pages,) + t.shape[1:]) if pooled else t,
-                tp), layer)
+                tp, rank), layer)
             for layer, pooled in zip(template, self.pooled)]
 
     def block_tables_device(self):
@@ -228,11 +237,12 @@ class PagedKV:
         for pooled, pools, src in zip(self.pooled, self.store, conv_cache):
             for name, pool in pools.items():
                 if pooled:
-                    rows = shard_kv(src[name][j, :prompt_len], self.tp)
+                    rows = shard_kv(src[name][j, :prompt_len], self.tp,
+                                    self.rank)
                     pool[lead + (phys, off)] = rows.to(pool.dtype)
                 else:
-                    pool[lead + (slot,)] = shard_kv(src[name][j],
-                                                    self.tp).to(pool.dtype)
+                    pool[lead + (slot,)] = shard_kv(
+                        src[name][j], self.tp, self.rank).to(pool.dtype)
 
     def set_block_table(self, slot: int, pages: Sequence[int]) -> None:
         row = np.zeros(self.pages_per_seq, np.int64)
@@ -248,13 +258,13 @@ class PagedKV:
 
 def make_kv_store(model, slots: int, max_len: int, page_size: int = 0,
                   num_pages: Optional[int] = None, dtype=torch.float32,
-                  window_override: int = 0, device="cpu", tp: int = 1):
+                  window_override: int = 0, device="cpu", tp: int = 1,
+                  rank: Optional[int] = None):
     """page_size == 0 -> contiguous; > 0 -> paged pools.  ``tp > 1`` lays
-    every leaf out rank-major for tensor-parallel decode."""
+    every leaf out rank-major for tensor-parallel decode; ``rank`` keeps
+    that tensor rank's heads only (one process per rank)."""
+    kw = dict(dtype=dtype, window_override=window_override, device=device,
+              tp=tp, rank=rank)
     if page_size:
-        return PagedKV(model, slots, max_len, page_size, num_pages,
-                       dtype=dtype, window_override=window_override,
-                       device=device, tp=tp)
-    return ContiguousKV(model, slots, max_len, dtype=dtype,
-                        window_override=window_override, device=device,
-                        tp=tp)
+        return PagedKV(model, slots, max_len, page_size, num_pages, **kw)
+    return ContiguousKV(model, slots, max_len, **kw)

@@ -18,12 +18,22 @@ One ``ServeEngine`` iteration is
      (RG-LRU, RWKV) stay per slot; admission overwrites every leaf of
      the slot, so a released request leaves nothing to the next.
 
-Tensor-parallel decode (``ServeConfig.tp > 1``) runs the same step over
-``tp`` logical ranks (``serve/tp.py``): the engine keeps a rank-stacked
-copy of the sharded weights, the cache is rank-major on the KV-head axis,
-and ``decode_step(tp_axis=...)`` sums the row-parallel products with
-``tensor_reduce``.  Prefill runs on the whole weights, as in the JAX
-package.
+Tensor-parallel decode (``ServeConfig.tp > 1``, ``serve/tp.py``) runs
+the same step over ``tp`` ranks, in one of two modes:
+
+  * **logical** (no ``group``): the ranks take turns in this process; the
+    engine keeps a rank-stacked copy of the sharded weights, the cache is
+    rank-major on the KV-head axis, and ``decode_step(tp_axis=...)`` sums
+    the row-parallel products with ``tensor_reduce``;
+  * **per rank** (``group=``, a ``torch.distributed`` process group of
+    ``tp`` ranks, one engine per rank): each engine keeps its own shard of
+    the sharded weights and only its own KV heads (1/tp of the cache), and
+    ``tensor_reduce`` all-gathers the partials over the group and sums
+    them in rank order, so every rank gets the logical mode's bits.  Every
+    rank samples the same token from the same replicated logits; rank 0
+    alone records spans, counters and SLO alerts.
+
+Prefill runs on the whole weights in both, as in the JAX package.
 
 The engine clock is **virtual iteration time** — each prefill group and
 each decode iteration costs 1.0 — so latencies are deterministic and
@@ -48,9 +58,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.tree import get_path, leaf_paths
 from repro_torch.models import transformer as T
-from repro_torch.obs.trace import get_recorder
+from repro_torch.obs.trace import NullRecorder, get_recorder
 from repro_torch.serve.batcher import Batcher
+from repro_torch.serve.cache import cache_bytes as tree_bytes
 from repro_torch.serve.cache import make_kv_store
 from repro_torch.serve.request import Request, RequestState, summarize
 from repro_torch.serve.sampling import sample_tokens
@@ -86,31 +98,50 @@ class ServeEngine:
     """``slo`` optionally attaches an ``obs.slo.SLOMonitor``: the engine
     feeds it TTFT/TPOT on every completion and a stall sample every
     iteration, emits an ``slo_burn`` instant on each transition into
-    firing, and records the alert times in ``slo_alerts``."""
+    firing, and records the alert times in ``slo_alerts``.  ``group``:
+    one tensor rank per process of this ``torch.distributed`` group, whose
+    size must be ``scfg.tp`` (module docstring); every rank builds an
+    engine and runs the same requests."""
 
     def __init__(self, model, params, scfg: ServeConfig, device="cuda",
-                 slo=None):
+                 slo=None, group=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
         self.model, self.params, self.scfg = model, params, scfg
-        self.slo = slo
-        self.slo_alerts: List[dict] = []
-        self._slo_firing = False
         self.cfg = model.cfg
         self.vocab = self.cfg.vocab_size
 
         self._tp = None
+        axis = None
+        if group is not None:
+            import torch.distributed as dist
+
+            from repro_torch.core.collectives import DistAxis
+            size = dist.get_world_size(group)
+            if scfg.tp != size:
+                raise ValueError(
+                    f"ServeConfig.tp={scfg.tp} over a process group of "
+                    f"{size} ranks: tp must equal the group's size (one "
+                    "tensor rank per process)")
+            axis = DistAxis(group, dist.get_backend(group))
         if scfg.tp > 1:
             from repro_torch.serve.tp import TPContext
-            self._tp = TPContext(self.cfg, scfg.tp)
+            self._tp = TPContext(self.cfg, scfg.tp, axis)
             self._tp_params = self._tp.shard_params(params)
+        self._axis = axis
+        # one record of the run: a group's rank 0 keeps it
+        self.writer = axis is None or axis.rank == 0
+        self.slo = slo if self.writer else None
+        self.slo_alerts: List[dict] = []
+        self._slo_firing = False
 
         self.kv = make_kv_store(
             model, scfg.slots, scfg.max_len, scfg.page_size, scfg.num_pages,
             dtype=scfg.cache_dtype, window_override=scfg.window_override,
-            device=self.device, tp=scfg.tp)
+            device=self.device, tp=scfg.tp,
+            rank=None if self._tp is None else self._tp.rank)
         self.batcher = Batcher(self.kv, scfg.slots, scfg.policy)
 
         self.requests: List[Request] = []
@@ -130,11 +161,15 @@ class ServeEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _recorder(self):
+        """The trace recorder (a group's other ranks record nothing)."""
+        return get_recorder() if self.writer else NullRecorder()
+
     # --------------------------------------------------------- lifecycle
     def submit(self, request: Request) -> None:
         self.requests.append(request)
         self.batcher.submit(request)
-        rec = get_recorder()
+        rec = self._recorder()
         if rec.enabled:
             # lifecycle track per request: QUEUED -> PREFILL -> DECODE
             # spans back to back on tid=req<rid>
@@ -152,7 +187,7 @@ class ServeEngine:
         if self.slo is not None:
             self.slo.observe("ttft", self.clock, r.first_token_latency())
             self.slo.observe("tpot", self.clock, r.per_token_latency())
-        rec = get_recorder()
+        rec = self._recorder()
         if rec.enabled and r.rid in self._traced_rids:
             rec.end(pid="serve", tid=f"req{r.rid}",      # closes "decode"
                     generated=len(r.output))
@@ -173,7 +208,7 @@ class ServeEngine:
         groups: Dict[int, List[Request]] = {}
         for r in admitted:
             groups.setdefault(r.prompt_len, []).append(r)
-        rec = get_recorder()
+        rec = self._recorder()
         for plen in sorted(groups):
             rs = groups[plen]
             if rec.enabled:
@@ -243,7 +278,7 @@ class ServeEngine:
         else:
             logits, new = T.decode_step(self._tp_params, self._tp.cfg_local,
                                         contig, tokens, pos_d,
-                                        tp_axis="model", **kw)
+                                        tp_axis=self._tp.tp_axis, **kw)
         nxt = sample_tokens(logits[:, 0], self.vocab, self._seeds, tok_idx,
                             self._temp, self._topk)
         self.kv.store = self.kv.scatter(self.kv.store, new, bt, pos_d,
@@ -277,7 +312,7 @@ class ServeEngine:
         Returns False when nothing could make progress at this clock
         (the caller should jump the clock to the next arrival)."""
         progressed = False
-        rec = get_recorder()
+        rec = self._recorder()
         stalls0 = self.batcher.stalls
         admitted = self.batcher.admit(self.clock)
         if rec.enabled and self.batcher.stalls > stalls0:
@@ -356,4 +391,28 @@ class ServeEngine:
         )
         if self.slo is not None:
             m["slo_alerts"] = len(self.slo_alerts)
+        if self._axis is not None:
+            # what each tensor rank holds and staged through the host
+            # (Gloo on a card), in rank order
+            from repro_torch.core.collectives import gather_values
+            mine = (self.cache_bytes(), self.param_bytes(),
+                    self._axis.staged_bytes)
+            for key, x in zip(("rank_cache_bytes", "rank_param_bytes",
+                               "rank_staged_bytes"), mine):
+                m[key] = [int(v) for v in gather_values(self._axis, [x])]
         return m
+
+    def cache_bytes(self) -> int:
+        """Bytes of the KV store this process holds."""
+        return tree_bytes(self.kv.store)
+
+    def param_bytes(self) -> int:
+        """Bytes of the weights this process holds: the whole ones
+        (prefill) and, under tp, its copy of the sharded ones."""
+        n = tree_bytes(self.params)
+        if self._tp is not None:
+            for p in leaf_paths(self._tp_params):
+                t = get_path(self._tp_params, p)
+                if t is not get_path(self.params, p):     # a shard copy
+                    n += t.numel() * t.element_size()
+        return n

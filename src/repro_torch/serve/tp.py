@@ -1,5 +1,6 @@
 """Tensor-parallel decode for the serving plane (the JAX package's
-``serve/tp.py``), over ``tp`` logical ranks on one device.
+``serve/tp.py``), over ``tp`` ranks: logical ranks in one process, or
+one process per rank of a ``torch.distributed`` group.
 
 The training side's Megatron decomposition, reused for inference:
 
@@ -20,8 +21,21 @@ Each rank runs the ordinary decode against the head-shrunk config
 ``cfg_local``.  Serving TP is restricted to pure-GQA decoders (no MoE /
 MLA and no biases: a row-parallel bias would be added ``tp`` times).
 
+Two modes, one layout:
+
+  * **logical** (``axis=None``): every rank's shard in this process, the
+    ranks decoded one after another on one device and their row-parallel
+    partials summed in rank order (``tensor_reduce`` over dimension 0);
+  * **per rank** (``axis``, a ``core.collectives.DistAxis`` of ``tp``
+    ranks): this process keeps only its own shard, a ``[1, ...]`` block
+    of the same rank-major layout (``shard_params``, ``shard_cache``), and
+    decodes its heads alone; ``tensor_reduce`` under
+    ``parallel.staged.tensor_axis(axis)`` all-gathers the ranks' partials
+    and sums them in rank order, so the bits are the logical mode's.
+
 The JAX package maps the ranks onto ``tp`` devices under ``shard_map``
-and checks the device count; logical ranks need no device count.
+and checks the device count; logical ranks need no device count, and per
+rank the group's size is the check.
 """
 from __future__ import annotations
 
@@ -85,10 +99,20 @@ def store_specs(store) -> Any:
 
 
 class TPContext:
-    def __init__(self, cfg: ModelConfig, tp: int):
+    """The shards of ``tp`` tensor ranks.  ``axis``: a ``DistAxis`` of
+    ``tp`` ranks, of which this process is rank ``axis.rank`` and keeps
+    only its own shard (module docstring)."""
+
+    def __init__(self, cfg: ModelConfig, tp: int, axis=None):
         check_tp_supported(cfg, tp)
+        if axis is not None and axis.size != tp:
+            raise ValueError(f"tp={tp} over a process group of "
+                             f"{axis.size} ranks (they must be equal)")
         self.tp = tp
         self.cfg = cfg
+        self.axis = axis
+        # the ranks this process holds, rank-major
+        self.ranks = list(range(tp)) if axis is None else [axis.rank]
         # each rank runs the ordinary decode math at 1/tp the heads
         self.cfg_local = dataclasses.replace(
             cfg, num_heads=cfg.num_heads // tp,
@@ -96,18 +120,33 @@ class TPContext:
 
     def shard_params(self, params) -> Any:
         """``params`` with every sharded leaf cut into its ``tp`` shards
-        along the spec's "model" dimension and stacked rank-major on a new
-        dimension 0 (a copy); replicated leaves are the same tensors."""
+        along the spec's "model" dimension and the shards this process
+        holds stacked rank-major on a new dimension 0 (a copy: all ``tp``
+        of them, or per rank its own as ``[1, ...]``); replicated leaves
+        are the same tensors."""
         specs = param_specs(params)
         out = tree_map(lambda t: t, params)
         for p in leaf_paths(params):
             spec = get_path(specs, p)
             if "model" in spec:
-                t = get_path(params, p)
-                set_path(out, p, torch.stack(
-                    t.chunk(self.tp, dim=spec.index("model"))))
+                chunks = get_path(params, p).chunk(
+                    self.tp, dim=spec.index("model"))
+                set_path(out, p, torch.stack([chunks[r]
+                                              for r in self.ranks]))
         return out
 
     def shard_cache(self, caches) -> Any:
-        """A cache tree in the global layout -> rank-major leaves."""
-        return tree_map(lambda t: shard_kv(t, self.tp), caches)
+        """A cache tree in the global layout -> rank-major leaves (per
+        rank, its own heads as ``[1, ..., KV/tp, hd]``)."""
+        return tree_map(lambda t: shard_kv(t, self.tp, self.rank), caches)
+
+    @property
+    def rank(self) -> Optional[int]:
+        """This process's tensor rank, or None when it holds them all."""
+        return None if self.axis is None else self.axis.rank
+
+    @property
+    def tp_axis(self):
+        """What ``decode_step(tp_axis=)`` takes: the axis name on the
+        logical ranks, the ``DistAxis`` per rank."""
+        return "model" if self.axis is None else self.axis

@@ -29,7 +29,13 @@ package's, on the CPU.
   the logical engine's (history, parameters, wire bytes, the state a
   device holds), the 4-worker cells on the group of the first 4 ranks;
   ``bsp/ps/onebit@8:d2.t2.s2.z3`` and ``bsp/ring/none@8:d2.t2.s2.m8.1f1b``
-  over the ranks against the JAX engine's runs within 1e-5.
+  over the ranks against the JAX engine's runs within 1e-5; and the
+  engine's elastic interface over the ranks (``Trainer(group=).fit(
+  plan=)``): the 8-device ``RESTART_SPECS`` cells and ZeRO-3 AdamW's
+  ``crash:w1@5,resize:4@10`` on the first 4 ranks (ranks 4-7 sit it
+  out, rank 3 waits while the mesh has 3 slots) bit for bit the logical
+  engine's (losses, parameters, wire bytes, recoveries, rank 0's
+  snapshot manifests), the latter also within 1e-5 of the JAX run.
 
 One module-scoped ``run_multidevice`` subprocess (8 virtual devices)
 computes every reference number and saves the inputs it used.
@@ -770,10 +776,7 @@ def test_traced_hybrid_run_equals_untraced(ref):
     assert len(find_spans(tr, "pipe")) == 2
 
 
-RESTART_SPECS = [("bsp/ring/onebit@8:d2.t2.s2.m4.1f1b.adamw", "restart@2"),
-                 ("bsp/ps/none@8:d2.t2.s2.z1.qmom.adamw", "restart@2"),
-                 ("bsp/ps/onebit@4:d4.z3", "restart@2"),
-                 ("bsp/ps/none@4:d2.s2.z2.adamw", "crash:w1@3,resize:4@4")]
+RESTART_SPECS = list(R.RESTART_SPECS)
 
 
 @pytest.mark.parametrize("spec,plan", RESTART_SPECS)
@@ -964,10 +967,22 @@ def _rank_inputs(ref):
             "tiny4": (_tree(ref, "sched/init"), x4, y4)}
 
 
+# the hybrid engine's elastic interface over the ranks: the 8-device
+# RESTART_SPECS cells, and ZeRO-3 AdamW through crash:w1@5,resize:4@10
+# (test_zero3_adamw_survives_crash_and_resize) over the first 4 ranks
+Z3E_CELL = ("bsp/ps/none@4:d4.z3.adamw", "crash:w1@5,resize:4@10", 12, 3,
+            LR)
+ELASTIC_RANK_CELLS = tuple((c, "restart") for c in R.restart_cells(8)) + (
+    (Z3E_CELL, "tiny2"),)
+
+
 @pytest.fixture(scope="module")
-def rank_runs(ref):
+def rank_runs(ref, tmp_path_factory):
+    inputs = dict(_rank_inputs(ref), restart=R.restart_inputs())
+    root = str(tmp_path_factory.mktemp("hybrid_elastic_ranks"))
     return spawn(R.hybrid_rank, 8, "gloo", device="cpu",
-                 args=(_rank_inputs(ref), R.HYBRID_CELLS), timeout_s=240)
+                 args=(inputs, R.HYBRID_CELLS, ELASTIC_RANK_CELLS, root),
+                 timeout_s=240)
 
 
 def _cell_size(spec):
@@ -1008,3 +1023,51 @@ def test_mesh_over_ranks_matches_jax(ref, rank_runs, cell):
         assert _pdiff(params, ref, tag) <= 1e-5
         if tag.startswith("extra/"):
             assert nbytes == int(ref[tag + "/wire"])
+
+
+_ELASTIC = {}
+
+
+def _logical_elastic(ref, cell, key, root):
+    if cell not in _ELASTIC:
+        inputs = dict(_rank_inputs(ref), restart=R.restart_inputs())
+        _ELASTIC[cell] = R.hybrid_elastic_cell(
+            *cell, inputs[key], str(root / f"logical{len(_ELASTIC)}"))
+    return _ELASTIC[cell]
+
+
+@pytest.mark.parametrize("cell,key", ELASTIC_RANK_CELLS,
+                         ids=[f"{c[0]}-{c[1]}" for c, _ in
+                              ELASTIC_RANK_CELLS])
+def test_elastic_mesh_over_ranks_matches_logical(ref, rank_runs, cell, key,
+                                                 tmp_path_factory):
+    """reshard / export_state / import_state over the ranks: losses,
+    parameters, wire bytes and recoveries bit for bit the logical
+    engine's, rank 0's snapshots file for file its (the others write
+    none); ranks past a 4-device mesh sit the cell out."""
+    hist, params, nbytes, recs, resizes, final, snaps = _logical_elastic(
+        ref, cell, key, tmp_path_factory.mktemp("hybrid_elastic_logical"))
+    n = _cell_size(cell[0])
+    assert final == n and snaps
+    for r in range(n):
+        got = rank_runs[r][cell]
+        assert got[0] == hist
+        assert all(torch.equal(got[1][k], params[k]) for k in params)
+        assert got[2] == nbytes
+        assert got[3] == recs and got[4] == resizes and got[5] == final
+        assert got[6] == (snaps if r == 0 else None)
+    assert all(cell not in r for r in rank_runs[n:])
+
+
+def test_zero3_crash_and_resize_over_ranks_matches_jax(ref, rank_runs):
+    """test_zero3_adamw_survives_crash_and_resize over 4 ranks: a crash
+    shrinks the mesh to 3 ranks (rank 3 waits), the resize grows it back,
+    and every rank ends within 1e-5 of the JAX engine's run."""
+    for r in rank_runs[:4]:
+        hist, params, _, recs, resizes, final, _ = r[Z3E_CELL]
+        (rec,) = recs
+        assert rec["kind"] == "crash" and rec["lost_worker"] == 1
+        assert [rec["restored_step"], resizes, final,
+                len(hist) + rec["lost_steps"]] == ref["z3e/meta"].tolist()
+        assert _ldiff(hist, ref["z3e/losses"]) <= 1e-5
+        assert _pdiff(params, ref, "z3e") <= 1e-5

@@ -12,14 +12,25 @@ Tolerances: tp=2 decode logits within 1e-5 of the JAX shard_map run and
 of the port's tp=1 run (only the order of the row-parallel sums differs:
 measured 3e-6 at this size, against logits up to 3.4); greedy token streams and the virtual-clock
 columns exactly equal.
+
+One ``launch.dist.spawn`` of 2 Gloo ranks runs the same decode with one
+tensor rank per process (``ServeEngine(group=)``, ``TPContext(axis=)``;
+the rank functions are ``tests/torch_dist_ranks.py``'s): contiguous and
+paged engines and the serve_bench traffic, each rank's tokens and every
+decode iteration's logits bit for bit the logical tp=2 engine's, at half
+its cache bytes; the teacher-forced logits bit for bit the logical
+``decode_step``'s; the launcher's metrics lines the logical ``--tp 2``
+run's.
 """
 import json
+import re
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import torch_dist_ranks as R
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.serve.engine import ServeConfig as JaxServeConfig
@@ -28,6 +39,7 @@ from repro.serve.request import Request as JaxRequest
 from repro.serve.tp import param_specs as jax_param_specs
 from repro_torch.configs import get_config
 from repro_torch.core.tree import get_path
+from repro_torch.launch.dist import spawn
 from repro_torch.launch.serve import main as launch_serve
 from repro_torch.models import build_model
 from repro_torch.models import transformer as T
@@ -292,3 +304,138 @@ def test_launcher_tp2_on_cpu(capsys):
                       "--tp", "2"])
     assert m["tp"] == 2 and m["completed"] == 3
     assert "tp=2" in capsys.readouterr().out
+
+
+# ------------------------------------------- one tensor rank per process
+_STREAM = dict(requests=3, prompt=5, new=6, slots=2, max_len=16)
+LAUNCH_ARGV = ["--smoke", "--device", "cpu", "--dtype", "f32", "--requests",
+               "3", "--pages", "4", "--max-new", "3", "--tp", "2"]
+
+
+def _stream_traffic(vocab):
+    """test_tp2_stream_equals_tp1_and_jax's requests, as the rank
+    functions take them."""
+    prompts = np.random.RandomState(0).randint(
+        1, vocab, size=(_STREAM["requests"], _STREAM["prompt"]))
+    return [([int(t) for t in p], _STREAM["new"], 0.0) for p in prompts]
+
+
+def _tp_cells():
+    vocab = setup()["cfg"].vocab_size
+    st = _stream_traffic(vocab)
+    bench = [(r.prompt, r.max_new_tokens, r.arrival)
+             for r in _bench_requests(vocab)]
+    return {"contiguous": (st, 0, _STREAM["slots"], _STREAM["max_len"]),
+            "paged": (st, 4, _STREAM["slots"], _STREAM["max_len"]),
+            "bench": (bench, 4, BENCH["slots"], BENCH["max_len"])}
+
+
+def _forced_args():
+    tokens = np.random.RandomState(3).randint(
+        1, setup()["cfg"].vocab_size, size=(B, S0 + STEPS))
+    return torch.from_numpy(tokens), S0, STEPS, MAX_LEN
+
+
+@pytest.fixture(scope="module")
+def tp_ranks():
+    return spawn(R.tp_rank, R.TP_DEGREE, "gloo", device="cpu",
+                 args=(setup()["params"], _tp_cells(), _forced_args(),
+                       LAUNCH_ARGV), timeout_s=240)
+
+
+_LOGICAL = {}
+
+
+def _logical(name):
+    if name not in _LOGICAL:
+        _LOGICAL[name] = R.tp_serve(setup()["params"], *_tp_cells()[name])
+    return _LOGICAL[name]
+
+
+@pytest.mark.parametrize("name", ["contiguous", "paged", "bench"])
+def test_tp_over_ranks_matches_logical_engine(tp_ranks, name):
+    outs, logits, m, cache = _logical(name)
+    assert len(logits) == m["decode_iterations"] > 0
+    for rank, r in enumerate(tp_ranks):
+        got_outs, got_logits, got_m, got_cache = r["cells"][name]
+        assert got_outs == outs
+        assert len(got_logits) == len(logits)
+        assert all(torch.equal(a, b) for a, b in zip(got_logits, logits))
+        # the logical engine's metrics, plus what each rank holds
+        assert {k: v for k, v in got_m.items()
+                if not k.startswith("rank_")} == m
+        assert got_cache * R.TP_DEGREE == cache
+        assert got_m["rank_cache_bytes"] == [cache // R.TP_DEGREE] * 2
+        assert len(set(got_m["rank_param_bytes"])) == 1
+
+
+def test_tp_over_ranks_streams_match_jax(reference, tp_ranks):
+    """The ranks' tokens against the JAX engine: its tp=2 engine on the
+    serve_bench traffic (and BENCH_pr7.json's columns), its single-device
+    engine on the short stream (both cache layouts)."""
+    _, jref = reference
+    s = setup()
+    for r in tp_ranks:
+        outs, _, m, _ = r["cells"]["bench"]
+        assert outs == jref["outputs"]
+        for key, want in BENCH_PR7_TP2.items():
+            got = round(m[key], 4) if isinstance(m[key], float) else m[key]
+            assert got == want, key
+    for page_size, name in ((0, "contiguous"), (4, "paged")):
+        jreqs = [JaxRequest(rid=i, prompt=p, max_new_tokens=n)
+                 for i, (p, n, _) in enumerate(
+                     _stream_traffic(s["cfg"].vocab_size))]
+        JaxServeEngine(s["jmodel"], s["jparams"], JaxServeConfig(
+            slots=_STREAM["slots"], max_len=_STREAM["max_len"],
+            page_size=page_size)).run(jreqs)
+        for r in tp_ranks:
+            assert r["cells"][name][0] == [q.output for q in jreqs]
+
+
+def test_tp_over_ranks_forced_logits(reference, tp_ranks):
+    jlogits, _ = reference
+    logical = R.tp_forced(setup()["params"], *_forced_args())
+    assert torch.equal(logical, torch.from_numpy(_port_tp_logits(2)))
+    for r in tp_ranks:
+        assert torch.equal(r["forced"], logical)
+    assert np.abs(logical.numpy() - jlogits).max() <= TOL
+
+
+def _lines(text):
+    """The launcher's printed lines with the wall seconds taken out."""
+    return [re.sub(r"[0-9.]+s wall", "s wall", ln)
+            for ln in text.splitlines()]
+
+
+def test_launcher_tp2_over_ranks_prints_logical_lines(tp_ranks):
+    text, m = R.tp_launcher(LAUNCH_ARGV)
+    got, got_m = tp_ranks[0]["launcher"]
+    lines = _lines(text)
+    assert _lines(got)[:len(lines)] == lines
+    assert _lines(got)[len(lines)].startswith("tp ranks (gloo): cache")
+    assert {k: v for k, v in got_m.items() if k != "wall_s"
+            and not k.startswith("rank_")} == \
+        {k: v for k, v in m.items() if k != "wall_s"}
+    # rank 1 serves the same traffic and prints nothing
+    assert tp_ranks[1]["launcher"][0] == ""
+    assert tp_ranks[1]["launcher"][1]["generated_tokens"] == \
+        m["generated_tokens"]
+
+
+def test_group_size_must_equal_tp(tp_ranks):
+    for r in tp_ranks:
+        assert "tp must equal the group's size" in r["refusal"]
+
+
+@pytest.mark.parametrize("env,extra,match", [
+    ({"RANK": "0", "WORLD_SIZE": "3"}, ["--dist-backend", "gloo"],
+     "--tp 2 under a world of 3"),
+    ({"RANK": "0", "WORLD_SIZE": "2"}, [], "pass --dist-backend"),
+    ({}, ["--dist-backend", "gloo"], "needs torch.distributed.run")])
+def test_launcher_refuses_a_mismatched_world(monkeypatch, env, extra, match):
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match=re.escape(match)):
+        launch_serve(LAUNCH_ARGV + extra)

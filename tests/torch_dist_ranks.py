@@ -72,12 +72,26 @@ ELASTIC_CELLS = (
     ("ssp:2/ring/onebit@4", "modeled", "crash:w2@5,resize:4@10", 12, 3),
     ("sma/allreduce/none@4", "modeled", "resize:2@2,resize:4@4", 6, 3),
     ("bsp/ps/onebit@4", "measured", "resize:2@2,resize:4@4", 6, 3))
-# the cells and methods a process group refuses, and the ROADMAP item
-# each names
+# the cells a process group refuses: the simulator has no ranks
 REFUSALS = {
     "sim": ("bsp/allreduce/none@4", {"backend": "sim"}, "device backend"),
-    "hybrid_elastic": ("bsp/ring/none@4:d2.t2", {}, "9e"),
 }
+# the hybrid engine's elastic interface (test_torch_hybrid.py's
+# RESTART_SPECS: (spec, plan)); the 4-device cells run over this file's
+# 4-rank elastic spawn, the 8-device ones over test_torch_hybrid.py's
+# 8-rank spawn
+RESTART_SPECS = (("bsp/ring/onebit@8:d2.t2.s2.m4.1f1b.adamw", "restart@2"),
+                 ("bsp/ps/none@8:d2.t2.s2.z1.qmom.adamw", "restart@2"),
+                 ("bsp/ps/onebit@4:d4.z3", "restart@2"),
+                 ("bsp/ps/none@4:d2.s2.z2.adamw", "crash:w1@3,resize:4@4"))
+# and two resizes that move EF blocks across ranks: ZeRO-3 shards with
+# onebit's EF, and z0 AdamW trees on a tensor axis (a grown slot takes
+# slot 0's blocks)
+RESHARD_SPECS = (("bsp/ps/onebit@4:d4.z3", "crash:w1@3,resize:4@4"),
+                 ("bsp/ring/onebit@4:d2.t2.adamw", "crash:w2@3,resize:4@4"))
+# their runs: make_tiny_transformer(4, 8, 16, seed=3), slot w's batch x_w
+# (seeded 5) at every step, y = tanh(x); lr, steps, snapshot cadence
+RESTART_RUN = dict(lr=0.02, steps=6, every=2)
 
 
 def padded(x: torch.Tensor) -> torch.Tensor:
@@ -274,44 +288,83 @@ def elastic_cell(spec: str, wire: str, plan: str, steps: int, every: int,
 
 def elastic_rank(rank, world, dev, params, ckpt_root):
     """Spawn C: the elastic cells over the 4-rank world, each writing its
-    snapshots (rank 0) under ``ckpt_root``."""
+    snapshots (rank 0) under ``ckpt_root``, then the 4-device hybrid
+    elastic cells."""
     group = dist.group.WORLD
+    hybrid = restart_inputs()
     return {"cells": {cell[:3]: elastic_cell(
         *cell, params, os.path.join(ckpt_root, f"cell{i}"), group)
         for i, cell in enumerate(ELASTIC_CELLS)},
+        "hybrid": {cell: hybrid_elastic_cell(
+            *cell, hybrid, os.path.join(ckpt_root, f"hybrid{i}"), group)
+            for i, cell in enumerate(restart_cells(world))},
         "refusals": {name: _refusal(name, params, group)
                      for name in REFUSALS}}
 
 
 def _refusal(name: str, params, group) -> str:
-    """The error a process group gets for one unported cell or method
-    (its text), or "no error": the simulator's refusal of a group, and
-    the hybrid engine's elastic interface (``reshard``, ``export_state``
-    and ``import_state``, a line each)."""
+    """The error a process group gets for one unported cell (its text),
+    or "no error": the simulator's refusal of a group."""
     spec, kw, _ = REFUSALS[name]
     model, grad_fn, batches = _model()
     layout = model.leaf_layout(params)
     strat = Strategy.parse(spec, **kw, **RECIPE)
-    if name == "sim":
-        try:
-            strat.build(grad_fn, layout, device="cpu", group=group)
-        except (NotImplementedError, ValueError) as e:
-            return f"{type(e).__name__}: {e}"
-        return "no error"
+    try:
+        strat.build(grad_fn, layout, device="cpu", group=group)
+    except (NotImplementedError, ValueError) as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+# ------------------------------------- the hybrid engine's elastic cells
+def restart_inputs():
+    """RESTART_SPECS' inputs as ``hybrid_elastic_cell`` takes them: the
+    params and the per-slot batch arrays x, y [steps, slots, B, d] (one
+    step: every step reads the same batches)."""
     from repro_torch.parallel import make_tiny_transformer
-    tparams, tiny = make_tiny_transformer(2, 8, 16, device="cpu")
-    engine = strat.build(tiny, device="cpu", group=group)
-    st = engine.init(tparams)
-    msgs = []
-    for call in (lambda: engine.reshard(st, 2),
-                 lambda: engine.export_state(st),
-                 lambda: engine.import_state({}, {})):
-        try:
-            call()
-            msgs.append("no error")
-        except (NotImplementedError, ValueError) as e:
-            msgs.append(f"{type(e).__name__}: {e}")
-    return "\n".join(msgs)
+    params, _ = make_tiny_transformer(4, 8, 16, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    xs = torch.stack([torch.randn(8, 8, generator=gen)
+                      for _ in range(4)])[None]
+    return params, xs, torch.tanh(xs)
+
+
+def restart_cells(n: int):
+    """The RESTART_SPECS and RESHARD_SPECS cells of ``n`` devices, as
+    ``hybrid_elastic_cell`` takes them: (spec, plan, steps, snapshot
+    cadence, lr)."""
+    run = RESTART_RUN
+    return tuple((spec, plan, run["steps"], run["every"], run["lr"])
+                 for spec, plan in RESTART_SPECS + RESHARD_SPECS
+                 if int(spec.split("@")[1].split(":")[0]) == n)
+
+
+def hybrid_elastic_cell(spec: str, plan: str, steps: int, every: int,
+                        lr: float, inputs, ckpt_dir: str, group=None):
+    """``Trainer.fit(plan=)`` of a hybrid ``spec`` on the CPU, over
+    ``group`` (one mesh device per rank) or logical.  ``inputs`` is
+    (params, x, y [steps, slots, B, d]); slot w reads the arrays at (t,
+    w) modulo their counts.  Returns (history, final parameters, wire
+    bytes, the recoveries without their walls, resizes, the final worker
+    count, the snapshots' manifests; these last on the writer only)."""
+    from repro_torch.parallel import make_tiny_transformer
+    params, xs, ys = inputs
+    layers = next(iter(params.values())).shape[0]
+    _, model = make_tiny_transformer(layers, 8, 16, device="cpu")
+
+    def batches(t, w):
+        t, w = t % xs.shape[0], w % xs.shape[1]
+        return {"x": xs[t, w], "y": ys[t, w]}
+
+    strat = Strategy.parse(spec, lr=lr, bucket_mb=HYBRID["bucket_mb"])
+    out, hist, mets = Trainer(strat, device="cpu", group=group).fit(
+        model, params, batches, steps, plan=plan, checkpoint_dir=ckpt_dir,
+        checkpoint_every=every)
+    recs = [{k: v for k, v in r.items() if k != "wall_s"}
+            for r in mets["recoveries"]]
+    writer = group is None or dist.get_rank(group) == 0
+    return (hist, out, mets["wire_bytes"], recs, mets["resizes"],
+            mets["final_workers"], manifests(ckpt_dir) if writer else None)
 
 
 # ------------------------------------------------------------ the ranks
@@ -409,22 +462,134 @@ def hybrid_cell(spec: str, wire: str, model_key: str, inputs, group=None):
     return hist, p, nbytes, state
 
 
-def hybrid_rank(rank, world, dev, inputs, cells):
+def hybrid_rank(rank, world, dev, inputs, cells, elastic=(),
+                ckpt_root=None):
     """Spawn D: the hybrid cells over the world or the group of its
-    first 4 ranks (ranks past a cell's mesh sit it out)."""
-    from repro_torch.launch.dist import mesh_groups, prefix_group
+    first 4 ranks (ranks past a cell's mesh sit it out), then the
+    ``elastic`` cells ((``hybrid_elastic_cell``'s cell, ``inputs`` key)),
+    each writing its snapshots (rank 0) under ``ckpt_root``."""
+    from repro_torch.launch.dist import mesh_ladder, prefix_group
     groups = {world: dist.group.WORLD, 4: prefix_group(4)}
-    # every rank builds the 4-rank meshes' groups, as the ranks that run
-    # them do, in the same order
-    for spec, _, _ in cells:
+    # every rank builds the 4-rank meshes' groups (a mesh's and those of
+    # every mesh it can resize into), as the ranks that run them do, in
+    # the same order
+    for spec in [c[0] for c in cells] + [c[0][0] for c in elastic]:
         strat = Strategy.parse(spec)
         m = strat.mesh_spec
         if strat.is_hybrid and m.size < world:
-            mesh_groups(m.data, m.tensor, m.stage, ranks=range(m.size))
+            mesh_ladder(m.data, m.tensor, m.stage, ranks=range(m.size))
     out = {}
     for spec, wire, key in cells:
         n = int(spec.split("@")[1].split(":")[0])
         if groups[n] is not None:
             out[spec, wire, key] = hybrid_cell(spec, wire, key, inputs,
                                                groups[n])
+    for i, (cell, key) in enumerate(elastic):
+        n = int(cell[0].split("@")[1].split(":")[0])
+        if groups[n] is not None:
+            out[cell] = hybrid_elastic_cell(
+                *cell, inputs[key], os.path.join(ckpt_root, f"elastic{i}"),
+                groups[n])
     return out
+
+
+# ------------------------------------------- tensor-parallel serving
+# tests/test_torch_tp.py's engine cells: (traffic, page size, slots,
+# max_len); traffic is [(prompt, max_new_tokens, arrival)]
+TP_DEGREE = 2
+
+
+def _tp_model():
+    cfg = get_config("tinyllama-1.1b").reduced()
+    return cfg, build_model(cfg)
+
+
+def tp_serve(params, traffic, page_size, slots, max_len, group=None):
+    """``traffic`` through ``ServeEngine`` at tp=2 in fp32 on the CPU,
+    logical or one tensor rank per process of ``group``: (each request's
+    tokens, every decode iteration's logits, the metrics without the
+    wall, the cache bytes this process holds)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+    _, model = _tp_model()
+    logits = []
+    step = T.decode_step
+
+    def recording(*a, **kw):
+        lg, caches = step(*a, **kw)
+        logits.append(lg.clone())
+        return lg, caches
+
+    reqs = [Request(rid=i, prompt=list(p), max_new_tokens=n, arrival=a)
+            for i, (p, n, a) in enumerate(traffic)]
+    eng = ServeEngine(model, params, ServeConfig(
+        slots=slots, max_len=max_len, page_size=page_size, tp=TP_DEGREE),
+        device="cpu", group=group)
+    T.decode_step = recording
+    try:
+        m = eng.run(reqs)
+    finally:
+        T.decode_step = step
+    m.pop("wall_s")
+    return [r.output for r in reqs], logits, m, eng.cache_bytes()
+
+
+def tp_forced(params, tokens, s0, steps, max_len, axis=None):
+    """Teacher-forced tp=2 decode logits [steps, B, V] after a prefill of
+    ``tokens[:, :s0]``, through ``decode_step`` with the ``TPContext``'s
+    shards (logical, or this rank's over ``axis``)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.tp import TPContext
+    cfg, _ = _tp_model()
+    f32 = dict(compute_dtype=torch.float32)
+    _, st = T.prefill(params, cfg, tokens[:, :s0], **f32)
+    ctx = TPContext(cfg, TP_DEGREE, axis)
+    caches = ctx.shard_cache(T.cache_from_prefill(cfg, st, max_len,
+                                                  torch.float32))
+    shards = ctx.shard_params(params)
+    out = []
+    for s in range(steps):
+        lg, caches = T.decode_step(
+            shards, ctx.cfg_local, caches, tokens[:, s0 + s:s0 + s + 1],
+            torch.full((tokens.shape[0],), s0 + s), tp_axis=ctx.tp_axis,
+            **f32)
+        out.append(lg[:, 0])
+    return torch.stack(out)
+
+
+def tp_launcher(argv, group=None):
+    """``repro_torch.launch.serve.main(argv)`` in this process (over
+    ``group``, already joined): (what it printed, its metrics)."""
+    import contextlib
+    import io
+    from repro_torch.launch.serve import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        m = main(argv, group=group)
+    return buf.getvalue(), m
+
+
+def tp_refusal(params, group) -> str:
+    """The error an engine at tp=4 over the 2-rank group gets."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    _, model = _tp_model()
+    try:
+        ServeEngine(model, params, ServeConfig(tp=4), device="cpu",
+                    group=group)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def tp_rank(rank, world, dev, params, cells, forced, argv):
+    """The tp spawn: ``tp_serve`` of each cell, ``tp_forced``, the
+    launcher and a tp the group's size refuses, over the 2-rank world."""
+    group = dist.group.WORLD
+    return {"cells": {name: tp_serve(params, *cell, group=group)
+                      for name, cell in cells.items()},
+            "forced": tp_forced(params, *forced,
+                                axis=DistAxis(group, "gloo")),
+            "launcher": tp_launcher(argv + ["--dist-backend", "gloo"],
+                                    group),
+            "refusal": tp_refusal(params, group)}

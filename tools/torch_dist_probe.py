@@ -2,7 +2,7 @@
 of chip_smoke.py:
 
     python tools/torch_dist_probe.py [--nccl-pair] [--segments] [--phase26]
-        [--phase27]
+        [--phase27] [--phase28]
 
 1. With ``--nccl-pair``: NCCL with two ranks on one card
    (``launch.dist.spawn`` gives both ranks ``cuda:0`` on a one-card
@@ -17,9 +17,12 @@ of chip_smoke.py:
 3. With ``--phase26``: chip_smoke.py's phase 26 (``dist_phases``) at
    full-width TinyLlama-1.1B, with each rank's peak memory, step walls
    and staged bytes.
-4. With ``--phase27``: chip_smoke.py's phase 27 (``elastic_hybrid_phases``:
-   the elastic interface and the hybrid engine over ranks) at full-width
-   TinyLlama-1.1B.
+4. With ``--phase27`` / ``--phase28``: chip_smoke.py's phase 27 (the
+   elastic interface and the hybrid engine over ranks) and / or phase 28
+   (tensor-parallel serving over 2 ranks, the hybrid engine's elastic
+   interface over 4) through ``elastic_hybrid_phases``, at full-width
+   TinyLlama-1.1B; phase 19's serving runs first (``family_phases(...,
+   only_tp=True)``), as phase 28a holds its ranks to them.
 
 Needs a card; exits non-zero without one.
 """
@@ -82,6 +85,7 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", action="store_true")
     ap.add_argument("--phase26", action="store_true")
     ap.add_argument("--phase27", action="store_true")
+    ap.add_argument("--phase28", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_dist_probe: no CUDA device", file=sys.stderr)
@@ -118,14 +122,20 @@ def main(argv=None) -> int:
                                  torch.device("cuda"), smi)
         print(f"phase 26 in {time.perf_counter() - t0:.1f} s; launches "
               f"{launches}")
-    if args.phase27:
+    phases = tuple(n for n in ("27", "28") if getattr(args, "phase" + n))
+    if phases:
         import chip_smoke as C
         from repro_torch.configs import get_config
+        dev, cfg = torch.device("cuda"), get_config("tinyllama-1.1b")
         t0 = time.perf_counter()
-        launches = C.elastic_hybrid_phases(get_config("tinyllama-1.1b"),
-                                           torch.device("cuda"), smi)
-        print(f"phase 27 in {time.perf_counter() - t0:.1f} s; launches "
-              f"{launches}")
+        _, tp_ref = C.family_phases(dev, smi, cfg, None, None,
+                                    only_tp=True)
+        t1 = time.perf_counter()
+        launches = C.elastic_hybrid_phases(cfg, dev, smi, tp_ref,
+                                           phases=phases)
+        print(f"phase 19's serving in {t1 - t0:.1f} s; phase(s) "
+              f"{'-'.join(phases)} in {time.perf_counter() - t1:.1f} s; "
+              f"launches {launches}")
     return 0
 
 
