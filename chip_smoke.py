@@ -368,7 +368,15 @@ lengths:
              each depth at run_pair's batch and their extrapolation, the
              peak GiB at 2 groups beside the meta count it was planned by
              (launch.cost: the card's op transients and BLAS workspaces
-             included), and the roofline terms (H100 constants).
+             included), each pair's collectives on the 16 x 16 mesh
+             (launch.spmd: the step partitioned by DTensor over a fake
+             process group of 256 ranks, on the host, on meta shards;
+             per-device result bytes by kind and traffic_weighted,
+             extrapolated like the cost) and the roofline terms (H100
+             constants), the collective term traffic_weighted over NVLink;
+             TinyLlama-1.1B's four pairs must have their collectives
+             counted (at full width), another pair prints the op DTensor
+             cannot partition yet.
  25c. full   run_pair at full depth on the card for TinyLlama-1.1B x all
              four shapes, RecurrentGemma-9B x long_500k and
              DeepSeek-V2-Lite-16B x long_500k: the measured ms beside the
@@ -1694,6 +1702,7 @@ def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
     cfg_for = cfg_for or (lambda arch: None)
     shape_for = shape_for or (lambda s: None)
     out_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    t_25 = time.perf_counter()
     try:
         # ------------------------------------------------ 25a every pair
         phase("25a dry-run on meta: 39 pairs x 2 meshes, per-device bytes")
@@ -1740,13 +1749,22 @@ def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
                     f"counted on meta (card / count "
                     f"{n2['max_memory_allocated'] / card['meta_peak_n2']:.3f})"
                     if cuda else "")
+            coll = rec["collectives"]
+            if arch == "tinyllama-1.1b" and cfg_for(arch) is None:
+                assert coll is not None and row["collective_s"] is not None, (
+                    arch, s, rec.get("collectives_error"))
+            counted = (f"collectives null ({rec['collectives_error']})"
+                       if coll is None else
+                       "collectives MiB/device " + ", ".join(
+                           f"{k} {v / 2**20:.2f}" for k, v in coll.items())
+                       + f", collective term {row['collective_s']:.6f} s")
             print(f"  {arch} x {s}: meta {rec['cost']['flops']:.4g} FLOP, "
                   f"{rec['cost']['bytes_accessed']:.4g} B (x{rec['extrap_mult']:.4g}"
                   f" groups); card batch {card['batch']} {card['reduced']}: "
                   f"{n1['ms']:.2f} ms (1 group), {n2['ms']:.2f} ms (2), "
-                  f"full depth ~{card['ms']:.2f} ms{peak}; roofline over "
-                  f"256 devices: compute {row['compute_s']:.6f} s, memory "
-                  f"{row['memory_s']:.6f} s, collectives null, "
+                  f"full depth ~{card['ms']:.2f} ms{peak}; {counted}; "
+                  f"roofline over 256 devices: compute "
+                  f"{row['compute_s']:.6f} s, memory {row['memory_s']:.6f} s, "
                   f"{row['dominant']}, useful {row['useful_ratio']}; {smi}")
 
         # ------------------------------------------------ 25c full depth
@@ -1774,7 +1792,8 @@ def dryrun_phases(dev, smi, probes=DRY_PROBES, runs=DRY_RUNS,
                   f"{[round(t, 2) for t in run['ms_all']]}){peak}{versus}; "
                   f"{smi}")
         launches = dict(FA.LAUNCHES)
-        print(f"launches of phases 25b-c {launches}")
+        print(f"launches of phases 25b-c {launches}; phases 25a-c "
+              f"{time.perf_counter() - t_25:.1f} s")
         if cuda:
             assert launches["flash_attention"] > 0
             assert launches["flash_decode"] > 0

@@ -25,14 +25,15 @@ counts the step's aten operations as they run on the ``meta`` device
                   the run; the card run itself reads
                   ``torch.cuda.max_memory_allocated``.
 
-Collectives: the dry-run's devices are logical and the port has no
-partitioner, so a record's step issues no collective and its
-``collectives`` is null.  The worker axis of data-parallel training runs
-over ``torch.distributed`` (``core.collectives.DistAxis``), but the
-dry-run's meshes do not yet; the traffic model of the reference
-(``_traffic``, ``_group_size``) is kept for the dry-run's collectives
-(ROADMAP queue A item 9g).  The HLO text parser ``collective_bytes`` has
-nothing to parse and is not ported.
+Collectives: ``CollectiveCounter`` counts the ``_c10d_functional``
+collectives that the dry-run's step issues when ``launch.spmd`` runs it
+on DTensors over a fake process group of the production mesh's size:
+each one's result bytes by the reference's five kinds (the convention of
+its ``hlo_analysis.py``: an all-gather's gathered tensor, a
+reduce-scatter's shard) and, through ``_traffic`` with the size of the
+op's own group, ``traffic_weighted``.  The HLO text parser
+``collective_bytes`` has nothing to parse and is not ported;
+``_group_size``, its group-size reader, stays with its parity test.
 
   op               result bytes R, group size S   traffic per device
   all-reduce       R                               2 (S-1)/S * R
@@ -43,6 +44,8 @@ nothing to parse and is not ported.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import re
 import weakref
 from typing import Callable, Dict, Tuple
@@ -155,10 +158,10 @@ def count_cost(fn: Callable, *args) -> Tuple[Dict[str, float], object]:
 
 
 # -------------------------------------------------- collective traffic model
-# No caller yet: a dry-run record's ``collectives`` is null.  The
-# reference's per-collective model is kept here, with parity tests, for the
-# dry-run over torch.distributed meshes that will fill that field (ROADMAP
-# queue A item 9g).
+# The reference's per-collective model (module docstring).  The counter
+# below reads each op's group size from the op's own process group;
+# ``_group_size`` reads it from HLO text, as the reference's parser does,
+# and is kept with its parity test.
 _GROUPS_IOTA_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
 _GROUPS_LIST_RE = re.compile(r"replica_groups=\{\{([0-9, ]+)\}")
 
@@ -188,3 +191,96 @@ def _traffic(op: str, result_bytes: int, s: int) -> float:
     if op == "all-to-all":
         return (s - 1) / s * result_bytes
     return float(result_bytes)      # collective-permute
+
+
+# the reference's five kinds, in its order, and the ``_c10d_functional``
+# ops (their ``_coalesced`` and autograd twins included) that issue them;
+# DTensor issues no point-to-point op, so collective-permute stays 0
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_C10D_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",     # DTensor's shard-dimension move
+}
+# bookkeeping of the functional collectives: no bytes move
+_C10D_QUIET = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _group_name(func, args, kwargs) -> str:
+    """The group-name argument of a ``_c10d_functional`` op (its last
+    positional string, or ``group_name``)."""
+    if kwargs and "group_name" in kwargs:
+        return kwargs["group_name"]
+    names = [a for a in args if isinstance(a, str)]
+    if not names:
+        raise ValueError(f"{func}: no group name among its arguments")
+    return names[-1]
+
+
+_WEIGHT = contextvars.ContextVar("collective_weight", default=1)
+
+
+@contextlib.contextmanager
+def collective_weight(n: int):
+    """Within the block each collective counts ``n`` times: one of ``n``
+    steps of one shape run once stands for all of them (RWKV-6's token
+    loop in the dry-run's partitioned count)."""
+    token = _WEIGHT.set(_WEIGHT.get() * n)
+    try:
+        yield
+    finally:
+        _WEIGHT.reset(token)
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Result bytes of the collectives issued under it (the
+    ``_c10d_functional`` ops and DTensor's ``shard_dim_alltoall``), by the
+    reference's kinds, and their per-device ring traffic
+    (``traffic_weighted``, ``_traffic`` with the size of the op's own
+    process group).  DTensor operations pass through (``NotImplemented``)
+    so that the collectives DTensor's sharding propagation issues for
+    them reach the mode.  Any other ``_c10d_functional`` op (a broadcast)
+    raises: it has none of the five kinds.  Under ``collective_weight(n)``
+    each collective counts ``n`` times."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = {k: 0.0 for k in COLLECTIVE_KINDS}
+        self.traffic = 0.0
+        self.last_op = None         # the DTensor op seen last
+
+    def record(self) -> Dict[str, float]:
+        """The reference's record: the five kinds and
+        ``traffic_weighted``."""
+        return dict(self.bytes, traffic_weighted=self.traffic)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            self.last_op = str(func)
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace.startswith("_c10d_functional") or (
+                func.namespace == "_dtensor"
+                and "alltoall" in func._schema.name):
+            name = func._schema.name.split("::")[-1]
+            if name not in _C10D_QUIET:
+                kind = _C10D_KINDS.get(name)
+                if kind is None:
+                    raise NotImplementedError(
+                        f"{func}: a collective of none of the reference's "
+                        f"kinds {COLLECTIVE_KINDS}")
+                from torch.distributed.distributed_c10d import \
+                    _resolve_process_group
+                s = _resolve_process_group(
+                    _group_name(func, args, kwargs)).size()
+                r = sum(_nbytes(t) for t in _tensors(out))
+                n = _WEIGHT.get()
+                self.bytes[kind] += n * r
+                self.traffic += n * _traffic(kind, r, s)
+        return out

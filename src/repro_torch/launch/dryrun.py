@@ -13,22 +13,29 @@ Writes JSON records to results/dryrun_torch/<arch>__<shape>__<mesh>*.json.
 The reference lowers and compiles each pair for the 16 x 16 and 2 x 16 x 16
 meshes.  The port has no compiler: a pair is built on the ``meta`` device
 (shapes, no storage), so its per-device bytes come from the same specs
-(``launch.specs``), and its cost from counting the step's operations there
-(``launch.cost``).
+(``launch.specs``), its cost from counting the step's operations there
+(``launch.cost``), and its collectives from running the step on DTensors
+with those specs over a fake process group of the mesh's size
+(``launch.spmd``): the per-device record of the reference's
+``collective_bytes``, the five kinds and ``traffic_weighted``.  A pair
+whose step DTensor cannot partition yet records ``"collectives": null``
+and the op in ``collectives_error``.
 
   build_dryrun  the step and its inputs, and the reference's ``info``:
                 ``params_analytic``, ``param_bytes_per_device``,
                 ``cache_bytes_per_device`` (decode), ``batch_sharded``,
                 ``optimizer``, ``window_override``.
-  probe_pair    the cost at 1 and 2 layer groups of the full-width model,
-                extrapolated to the full depth as the reference does
-                (``base + mult * body``, ``mult = groups + tail /
-                pattern``).  With ``device="cuda"`` it also times the two
-                depths on the card and extrapolates the times the same way.
-  run_pair      the full-depth step on the card, where the weights, state,
-                cache and activations fit by the byte count made on meta
-                before the run (``MetaMemory``); elsewhere ``status:
-                "exceeds_card"`` with that count.
+  probe_pair    the cost and collectives at 1 and 2 layer groups of the
+                full-width model, extrapolated to the full depth as the
+                reference does (``base + mult * body``, ``mult = groups +
+                tail / pattern``).  With ``device="cuda"`` it also times
+                the two depths on the card and extrapolates the times the
+                same way.
+  run_pair      the full-depth step's collectives, and the step on the
+                card, where the weights, state, cache and activations fit
+                by the byte count made on meta before the run
+                (``MetaMemory``); elsewhere ``status: "exceeds_card"``
+                with that count.
 
 The card runs the pair's per-data-shard batch (``global_batch / 16``, at
 least 1); where one card cannot hold it, the batch is cut and the cut is
@@ -37,8 +44,10 @@ listed in the record's ``reduced``.  A pair that fails writes a ``status:
 
 Not ported: ``--moe-hints`` and the XLA hints of the ``attn_hints*``
 cache policies (requests to XLA's partitioner; the policies' spec side
-is ported), and ``--unrolled`` (the port has no scan to unroll; the flag
-is accepted for the reference's command line and does nothing).
+is ported, and the decode attention partitions as ``attn_hints_seq``
+asks whatever the policy: ``launch.spmd.einsum``), and ``--unrolled``
+(the port has no scan to unroll; the flag is accepted for the
+reference's command line and does nothing).
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from repro_torch.configs import ARCHS, SKIPS, get_config, get_shape
 from repro_torch.core.parallelism import param_specs
 from repro_torch.core.tree import get_path, leaf_paths
 from repro_torch.kernels.backend import meta_as_card
+from repro_torch.launch import spmd
 from repro_torch.launch.cost import (CARD_WORKSPACE_BYTES, MetaMemory,
                                      count_cost)
 from repro_torch.launch.mesh import make_production_mesh
@@ -192,6 +202,38 @@ def build_dryrun(arch: str, shape_name: str, multi_pod: bool,
     del p_meta
     step, args = _state(cfg, shape, batch or shape.global_batch, device)
     return mesh, step, args, info
+
+
+# ------------------------------------------------------------ collectives
+COLLECTIVES_BASIS = ("the step's collectives on DTensors over a fake "
+                     "process group of the mesh's ranks (launch.spmd): "
+                     "rank 0's result bytes by kind, the reference's "
+                     "hlo_analysis convention; plain attention")
+
+
+RWKV_BASIS = ("; RWKV-6's token loop as its first, second and last "
+              "token steps, the second's collectives counted for each of "
+              "the S - 2 middle tokens (the reference's HLO holds its "
+              "lax.scan body once)")
+
+
+def collectives_basis(cfg) -> str:
+    return COLLECTIVES_BASIS + (RWKV_BASIS if "rwkv" in cfg.layer_kinds
+                                else "")
+
+
+def count_collectives(cfg, shape, multi_pod: bool, policy: str,
+                      cache_policy: str) -> Dict[str, Any]:
+    """``{"collectives": record}`` of one step of ``cfg`` at ``shape``'s
+    global batch on the production mesh (``launch.spmd.count_pair``), or
+    ``{"collectives": None, "collectives_error": op}`` where DTensor
+    cannot partition it (never 0, never left out)."""
+    try:
+        return {"collectives": spmd.count_pair(cfg, shape, multi_pod,
+                                               policy, cache_policy)}
+    except Exception as e:  # noqa: BLE001 — recorded, with the op
+        return {"collectives": None,
+                "collectives_error": spmd.failure(e)}
 
 
 # ----------------------------------------------------------------- probes
@@ -454,8 +496,18 @@ def probe_pair(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                "probe_groups": [1, 2], "extrap_mult": mult,
                "cost": _extrap(c1, c2, mult), "cost_n1": c1, "cost_n2": c2,
                "cost_basis": "whole step at the global batch, counted on "
-                             "meta (plain attention)",
-               "collectives": None}
+                             "meta (plain attention)"}
+        l1 = count_collectives(cfg1, shape, multi_pod, policy, cache_policy)
+        l2 = count_collectives(cfg2, shape, multi_pod, policy, cache_policy)
+        if l1["collectives"] is None or l2["collectives"] is None:
+            rec.update(collectives=None, collectives_error=l1.get(
+                "collectives_error") or l2["collectives_error"])
+        else:
+            rec.update(collectives=_extrap(l1["collectives"],
+                                           l2["collectives"], mult),
+                       collectives_n1=l1["collectives"],
+                       collectives_n2=l2["collectives"])
+        rec["collectives_basis"] = collectives_basis(cfg)
         if torch.device(device).type != "meta":
             rec["card"] = _probe_card(cfg, shape, mult, device)
         rec["wall_s"] = round(time.time() - t0, 1)
@@ -508,10 +560,12 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                                      policy=policy,
                                      cache_policy=cache_policy,
                                      device="meta", batch=1)
-        rec = dict(info, status="ok", collectives=None)
+        cfg = cfg or get_config(arch)
+        shape = shape or get_shape(shape_name)
+        rec = dict(info, status="ok", **count_collectives(
+            cfg, shape, multi_pod, policy, cache_policy),
+            collectives_basis=collectives_basis(cfg))
         if torch.device(device).type != "meta":
-            cfg = cfg or get_config(arch)
-            shape = shape or get_shape(shape_name)
             mem = memory_model(cfg, shape)
             budget = card_budget(device)
             b, reduced, basis = batch_plan(mem, shape, budget)
@@ -529,6 +583,13 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     return _write(out_path, rec)
 
 
+def _coll_text(rec: Dict[str, Any]) -> str:
+    coll = rec.get("collectives")
+    if coll is None:
+        return f"collectives null ({rec.get('collectives_error')})"
+    return f"traffic~={coll['traffic_weighted']:.4g}"
+
+
 def _line(rec: Dict[str, Any]) -> str:
     status = rec.get("status")
     extra = ""
@@ -536,7 +597,8 @@ def _line(rec: Dict[str, Any]) -> str:
         extra = rec["error"]
     elif rec.get("probe") and status == "ok":
         extra = (f"wall={rec['wall_s']}s flops~={rec['cost']['flops']:.4g} "
-                 f"bytes~={rec['cost']['bytes_accessed']:.4g}")
+                 f"bytes~={rec['cost']['bytes_accessed']:.4g} "
+                 + _coll_text(rec))
         card = rec.get("card")
         if card and card["status"] == "ok":
             extra += (f" card b={card['batch']} ms n1={card['n1']['ms']:.4g}"
@@ -546,7 +608,8 @@ def _line(rec: Dict[str, Any]) -> str:
     elif status in ("ok", "exceeds_card"):
         extra = (f"param_bytes/dev={rec['param_bytes_per_device']:.4g}"
                  + (f" cache_bytes/dev={rec['cache_bytes_per_device']:.4g}"
-                    if "cache_bytes_per_device" in rec else ""))
+                    if "cache_bytes_per_device" in rec else "")
+                 + " " + _coll_text(rec))
         if "card" in rec:
             extra += (f" card b={rec['batch']} ms={rec['card']['ms']:.4g} "
                       f"peak={rec['card'].get('max_memory_allocated', 0) / 2**30:.3g}"

@@ -13,9 +13,13 @@ How the terms are counted differs from the reference's: its cost is the
 per-device HLO module's, replicated work included; the port's
 (``launch.cost``) is the whole step's, counted once on meta, and is
 divided evenly over the mesh's chips, as if no work were replicated.
-The port's logical devices issue no collectives, so a record's
-``collectives`` is null, and so is the collective term: ``dominant``
-then names the larger of compute and memory and says so.
+The collective term is the record's per-device ``traffic_weighted``
+(``launch.spmd``: the step partitioned by DTensor over a fake process
+group of the mesh's size) over one H100's NVLink bandwidth
+(``launch.mesh.NVLINK_BW``), and ``dominant`` weighs it with the other
+two.  Where a record's ``collectives`` is null (a step DTensor cannot
+partition yet: its ``collectives_error``), so is the term, and
+``dominant`` names the larger of compute and memory and says so.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--dir DIR]
 Writes results/roofline_torch.json and prints the table.
@@ -166,9 +170,13 @@ def main(argv=None):
         print(f"{r['arch']:24s} {r['shape']:12s} {r['mesh']:8s} "
               f"{r['compute_s']:10.6f} {r['memory_s']:10.6f} {coll} "
               f"{r['dominant'].split()[0]:>10s} {r['useful_ratio']:7.3f}")
-    print("\ncollective terms are null: the port's logical devices issue "
-          "no collectives;\nterms are the whole step's count over the "
-          "chips (no replicated work)")
+    nulls = sum(r.get("status") == "ok" and r["collective_s"] is None
+                for r in rows)
+    print(f"\ncollective term: per-device ring traffic of the DTensor-"
+          f"partitioned step over NVLink; null in {nulls} record(s) whose "
+          f"step DTensor cannot partition yet (collectives_error);\n"
+          f"compute and memory terms are the whole step's count over the "
+          f"chips (no replicated work)")
     print(f"\nwrote {out_path}")
 
 

@@ -84,8 +84,8 @@ def moe_apply(p, x, cfg, per_row: bool = False):
     flat_e = expert_ids.reshape(G, T * K)
     sort_idx = torch.argsort(flat_e, dim=-1, stable=True)      # [G, T*K]
     sorted_e = flat_e.gather(1, sort_idx)
-    counts = torch.zeros(G, E, dtype=flat_e.dtype, device=x.device)
-    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))     # [G, E]
+    counts = torch.zeros(G, E, dtype=flat_e.dtype, device=x.device
+                         ).scatter_add(1, flat_e, torch.ones_like(flat_e))
     starts = counts.cumsum(1) - counts
 
     slot = torch.arange(E * C, device=x.device)
@@ -109,9 +109,9 @@ def moe_apply(p, x, cfg, per_row: bool = False):
     valid = pos_in_e < C
     dest = (sorted_e * C + pos_in_e.clamp_max(C - 1)).clamp_max(E * C - 1)
     out_sorted = _take(out_buf, dest) * valid[..., None].to(x.dtype)
-    inv = torch.empty_like(sort_idx)
-    inv.scatter_(1, sort_idx, torch.arange(T * K, device=x.device)
-                 .expand(G, -1).contiguous())                   # unsort perm
+    inv = torch.empty_like(sort_idx).scatter(
+        1, sort_idx, torch.arange(T * K, device=x.device)
+        .expand(G, -1).contiguous())                            # unsort perm
     out_flat = _take(out_sorted, inv)                           # [G, T*K, d]
     out = (out_flat.reshape(G, T, K, d)
            * gate.to(x.dtype)[..., None]).sum(2)                # [G, T, d]

@@ -67,6 +67,23 @@ def _decay(p, xw):
     return torch.exp(-torch.exp(raw))               # in (0, 1)
 
 
+def token_step(k_t, v_t, r_t, w_t, u, S_h):
+    """One token of the time mix: (y_t [B, H, hs], the next state)."""
+    kv = torch.einsum("bhk,bhv->bhkv", k_t.float(), v_t.float())
+    y_t = torch.einsum("bhk,bhkv->bhv", r_t.float(), S_h + u * kv)
+    return y_t, w_t.float()[..., None] * S_h + kv
+
+
+def _wkv(k, v, r, w, u, S_h):
+    """The token loop: k/v/r/w [B, S, H, hs], state S_h [B, H, hs, hs]
+    fp32 -> (y [B, S, H, hs] fp32, the last state)."""
+    ys = []
+    for t in range(k.shape[1]):
+        y_t, S_h = token_step(k[:, t], v[:, t], r[:, t], w[:, t], u, S_h)
+        ys.append(y_t)
+    return torch.stack(ys, dim=1), S_h
+
+
 def time_mix_forward(p, x, cfg, state=None):
     """x [B, S, d]; state {"S": [B, H, hs, hs] fp32, "shift": [B, d]} or
     None.  Returns (out, new_state)."""
@@ -83,13 +100,8 @@ def time_mix_forward(p, x, cfg, state=None):
     g = torch.nn.functional.silu(dense(p["w_g"], _mix(x, xx, p["mu"]["g"])))
     w = _decay(p, _mix(x, xx, p["mu"]["w"])).reshape(B, S, H, hs)
     u = p["u"][None, :, :, None]
-    S_h = state["S"].float()
-    ys = []
-    for t in range(S):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(), S_h + u * kv))
-        S_h = w[:, t].float()[..., None] * S_h + kv
-    y = torch.stack(ys, dim=1).reshape(B, S, d)
+    y, S_h = _wkv(k, v, r, w, u, state["S"].float())
+    y = y.reshape(B, S, d)
     y = norm_apply("layernorm", p["gn"], y.to(x.dtype))
     out = dense(p["w_o"], y * g)
     return out, {"S": S_h, "shift": x[:, -1]}

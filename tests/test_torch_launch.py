@@ -554,8 +554,12 @@ def test_dryrun_cli_on_meta(tmp_path):
                         "long_500k", "--probe", "--device", "meta",
                         "--out", str(tmp_path)]) == 0
     recs = {p: json.load(open(tmp_path / p)) for p in os.listdir(tmp_path)}
-    assert recs["llama3.2-3b__long_500k__16x16.json"]["status"] == "ok"
-    assert recs["llama3.2-3b__long_500k__16x16.json"]["collectives"] is None
+    rec = recs["llama3.2-3b__long_500k__16x16.json"]
+    assert rec["status"] == "ok"
+    assert set(rec["collectives"]) == {
+        "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+        "collective-permute", "traffic_weighted"}
+    assert rec["collectives"]["traffic_weighted"] > 0
     assert recs["whisper-large-v3__long_500k__16x16__probe.json"][
         "status"] == "skipped"
 
